@@ -5,26 +5,38 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), holds each kernel against its plain PyTorch version on the
-card, then drives the port's main path — ``run_query(config=ExecConfig(
-engine="tape"))`` — at the paper's data scale (Forest, 5.8 M records x 144
-attributes) and checks every result against the numpy oracle.  Phases:
+card, then drives the port's main paths at the paper's data scale (Forest,
+5.8 M records x 144 attributes) and checks every result against the numpy
+oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
+``QuerySession(ExecConfig(engine="tape", batched=True))`` and the default
+``StreamSession``.  Phases:
 
 1. device and kernel build
-2. kernels vs plain versions (exact), and their times on the card
+2. kernels vs plain versions (exact), and their times on the card; the
+   lockstep kernels (Q stacked record sets) at Q = 1, 2, 8, 65, timed at
+   Q = 8 and 64
 3. numeric tape at paper scale: results, one host sync and one device
    program per query, no host fallback
 4. strings and fragmented strings: no host fallback, the lookup kernel runs
 5. zone-pruned tapes: identical results, pruned blocks accounted
 6. a mixed tape with a UDF atom: one host fallback
 7. the kernels line
+8. lockstep batches: 64 paper queries (8 templates), twice (the second
+   serves cached shared atoms), and a strings batch holding the fragmented
+   tree twice; one host sync per batch, records_evaluated equal to a host
+   lockstep session's
+9. a StreamSession over the strings table: 6 rounds of a 2 % append and a
+   drain of 64 queries; one host sync per drain, uploads within the dirty
+   tail blocks, cached atoms spliced, nothing degraded to the host
 
-Each path of phases 3-6 is driven with the kernels' launch counts set to 0
-just before it and read just after: a path's counts must equal the launches
-its tapes need, and each kernel the path runs must have launched.  Any
-mismatch raises and the script exits non-zero.  The last line of its
-output is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the rest of the repository beside it, it exits non-zero and prints
-no result.
+Each path of phases 3-6, 8 and 9 is driven with the kernels' launch counts
+set to 0 just before it and read just after: a tape path's counts must
+equal the launches its tapes need, a lockstep path's must add up to its
+backend's device dispatches (each of which is one launch), and each kernel
+the path runs must have launched.  Any mismatch raises and the script
+exits non-zero.  The last line of its output is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the rest of the repository
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -53,7 +65,20 @@ KERNELS = {
                          "src/repro/kernels/fused_chain.py:70"),
     "dict_lookup_scan": ("src/repro_torch/kernels/csrc/dict_lookup.cu",
                          "src/repro/kernels/dict_lookup.py:81"),
+    "predicate_scan_multi": (
+        "src/repro_torch/kernels/csrc/predicate_scan_multi.cu",
+        "src/repro/kernels/predicate_scan.py:102"),
+    "dict_lookup_scan_multi": ("src/repro_torch/kernels/csrc/dict_lookup.cu",
+                               "src/repro/kernels/dict_lookup.py:111"),
+    # the lockstep executor's stacked set operations: jnp code in the
+    # reference, not TPU kernels
+    "bitmap_inter_multi": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
+                           "src/repro/columnar/device.py:328"),
+    "bitmap_union_reduce": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
+                            "src/repro/columnar/device.py:336"),
 }
+#: entries of KERNELS that replace no Pallas kernel
+NOT_TPU_KERNELS = ("bitmap_inter_multi", "bitmap_union_reduce")
 #: the warning torch.cuda.set_sync_debug_mode("warn") gives per sync
 SYNC_WARNING = "called a synchronizing CUDA operation"
 #: kernels each path of the main path must launch at least once
@@ -63,9 +88,18 @@ PATH_KERNELS = {
     "strings": ("predicate_scan", "bitmap_setop", "fused_chain_scan",
                 "dict_lookup_scan"),
     "zones": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
+    "lockstep": ("predicate_scan_multi", "bitmap_setop",
+                 "bitmap_inter_multi", "bitmap_union_reduce"),
+    "lockstep_strings": ("dict_lookup_scan_multi", "bitmap_setop",
+                         "bitmap_union_reduce"),
+    "stream": ("predicate_scan_multi", "bitmap_setop",
+               "bitmap_union_reduce"),
 }
 MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
 SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048)]
+#: lockstep group sizes the stacked kernels are checked at, and timed at
+STACKED_QS = (1, 2, 8, 65)
+TIMED_QS = (8, 64)
 
 
 def log(msg: str) -> None:
@@ -282,9 +316,75 @@ def phase_kernels(dev, shapes):
             cmp("dict_lookup_scan", dict_lookup_scan(cd, bits, pops, mask),
                 dict_lookup_scan_plain(cd, bits, pops, mask),
                 f"n={n} u={u}")
+        for q in STACKED_QS:
+            for case in stacked_cases(rng, col, n, b, q, dev):
+                cmp(*case)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return errs, cases
+
+
+def stacked_inputs(rng, n, w, q, dev):
+    """Q stacked bitmaps i32[Q*N, W] with mixed rows: dead (all-zero
+    bits), masked (bits set, popcount given as 0), live, and a block
+    dead in every row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
+    bits[:, :, 0] |= np.uint32(1 << 31)
+    bits[q // 2, 0] = 0                               # a dead row
+    if n > 1:
+        bits[:, n - 1] = 0                            # dead in every row
+    bits = torch.from_numpy(bits.reshape(q * n, w).view(np.int32)).to(dev)
+    pops = ref.popcount_ref(bits)
+    pops[(q * n) // 3] = 0                            # masked row
+    return bits, pops
+
+
+def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
+                  values=(0.0, 1e-45, 0.25, float("nan")), us=(1, 2, 64)):
+    """(name, kernel output, plain output, what) for K5, K6 and the two
+    stacked set operations at one shape and group size Q."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                                bitmap_inter_multi_plain,
+                                                bitmap_union_reduce,
+                                                bitmap_union_reduce_plain)
+    from repro_torch.kernels.dict_lookup import (dict_lookup_scan_multi,
+                                                 dict_lookup_scan_multi_plain)
+    from repro_torch.kernels.predicate_scan import (
+        predicate_scan_multi, predicate_scan_multi_plain)
+    w = b // 32
+    bits, pops = stacked_inputs(rng, n, w, q, dev)
+    what = f"n={n} b={b} q={q}"
+    for op in opcodes:
+        for v in values:
+            yield ("predicate_scan_multi",
+                   predicate_scan_multi(col, bits, pops, v, op),
+                   predicate_scan_multi_plain(col, bits, pops, v, op),
+                   f"{what} op={op} v={v}")
+    for u in us:
+        codes = rng.integers(-40, 32 * u + 40, size=(n, b))
+        codes = codes.astype(np.float32)
+        codes.reshape(-1)[:3] = [np.nan, -0.5, 3.75]
+        cd = torch.from_numpy(codes).to(dev)
+        mask = torch.from_numpy(rng.integers(0, 2 ** 32, size=u,
+                                             dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+        yield ("dict_lookup_scan_multi",
+               dict_lookup_scan_multi(cd, bits, pops, mask),
+               dict_lookup_scan_multi_plain(cd, bits, pops, mask),
+               f"{what} u={u}")
+    stack = bits.reshape(q, n, w)
+    a = stack[0].flip(0).contiguous()
+    yield ("bitmap_inter_multi", bitmap_inter_multi(a, stack),
+           bitmap_inter_multi_plain(a, stack), what)
+    yield ("bitmap_union_reduce", bitmap_union_reduce(stack),
+           bitmap_union_reduce_plain(stack), what)
 
 
 def gpu_ms(fn, reps=25):
@@ -374,6 +474,80 @@ def kernel_timings(dev):
             "bound_by": "bytes" if t_mem >= t_ops else "operations",
             "bytes": nbytes,
         }
+    return out
+
+
+def stacked_timings(dev):
+    """Time K5, K6 and the stacked set operations, and their plain
+    versions, at the main path's shape for each Q in TIMED_QS, on dense
+    random bitmaps (every block live).  Bytes for the bound: the column
+    blocks live in any row once, each live input row once, every output
+    row and popcount once (and the mask for K6)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                                bitmap_inter_multi_plain,
+                                                bitmap_union_reduce,
+                                                bitmap_union_reduce_plain)
+    from repro_torch.kernels.dict_lookup import (dict_lookup_scan_multi,
+                                                 dict_lookup_scan_multi_plain)
+    from repro_torch.kernels.predicate_scan import (
+        predicate_scan_multi, predicate_scan_multi_plain)
+    n, b = MAIN_SHAPE
+    w = b // 32
+    rng = np.random.default_rng(6)
+    col = torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 12, size=(n, b))
+                             .astype(np.float32)).to(dev)
+    mask = torch.from_numpy(np.array([0x5A5], dtype=np.int32)).to(dev)
+    out = {name: {} for name in ("predicate_scan_multi",
+                                 "dict_lookup_scan_multi",
+                                 "bitmap_inter_multi",
+                                 "bitmap_union_reduce")}
+    for q in TIMED_QS:
+        bits = torch.from_numpy(rng.integers(0, 2 ** 32, size=(q * n, w),
+                                             dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+        pops = ref.popcount_ref(bits)
+        live = pops > 0
+        live_rows = int(live.sum().item())
+        live_blocks = int(live.reshape(q, n).any(dim=0).sum().item())
+        scan_bytes = (live_blocks * b * 4 + live_rows * w * 4
+                      + q * n * w * 4 + 2 * q * n * 4)
+        stack = bits.reshape(q, n, w)
+        a = stack[0].flip(0).contiguous()
+        work = {
+            "predicate_scan_multi": (
+                scan_bytes, live_blocks * b + live_rows * w,
+                lambda: predicate_scan_multi(col, bits, pops, 0.25, 0),
+                lambda: predicate_scan_multi_plain(col, bits, pops, 0.25, 0)),
+            "dict_lookup_scan_multi": (
+                scan_bytes + 4, live_blocks * b + live_rows * w,
+                lambda: dict_lookup_scan_multi(codes, bits, pops, mask),
+                lambda: dict_lookup_scan_multi_plain(codes, bits, pops,
+                                                     mask)),
+            "bitmap_inter_multi": (
+                n * w * 4 + 2 * q * n * w * 4 + q * n * 4, q * n * w,
+                lambda: bitmap_inter_multi(a, stack),
+                lambda: bitmap_inter_multi_plain(a, stack)),
+            "bitmap_union_reduce": (
+                q * n * w * 4 + n * w * 4 + n * 4, q * n * w,
+                lambda: bitmap_union_reduce(stack),
+                lambda: bitmap_union_reduce_plain(stack)),
+        }
+        for name, (nbytes, ops, kern, plain) in work.items():
+            t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            out[name][q] = {
+                "ms": gpu_ms(kern), "plain_ms": gpu_ms(plain, reps=11),
+                "bound_ms": max(t_mem, t_ops),
+                "bound_by": "bytes" if t_mem >= t_ops else "operations",
+                "bytes": nbytes,
+            }
+        del bits, pops, stack, a
+        torch.cuda.empty_cache()
     return out
 
 
@@ -529,14 +703,17 @@ def phase_strings(rows, n_queries, dev_name):
         f"{time.perf_counter() - t0:.1f} s")
     lookups0 = LAUNCHES["dict_lookup_scan"]
     tr = Tracker()
+    results = []
     for i, tree in enumerate(trees):
         res = tr.run(tree, table, device=dev_name)
         check_query(tr, tree, table, res, f"string query {i}")
+        results.append(res)
     n_lookup = LAUNCHES["dict_lookup_scan"] - lookups0
     if dev_name != "cpu":
         check(n_lookup > 0, "dict_lookup_scan never launched on strings")
     log(f"  {len(trees)} string queries (last one fragmented) identical, "
         f"host_fallbacks=0, dict_lookup_scan launches={n_lookup}")
+    return table, trees, results
 
 
 def selective_table(rows, block):
@@ -641,6 +818,292 @@ def phase_mixed(table, dev_name):
 
 
 # ---------------------------------------------------------------------------
+# phases 8-9: the lockstep QuerySession and the StreamSession
+# ---------------------------------------------------------------------------
+
+#: host spans of QuerySession.execute that split a batch's wall time
+SPLIT_SPANS = ("batch.annotate", "batch.rewrite_strings", "batch.plan",
+               "batch.upload", "batch.dispatch", "batch.sync",
+               "batch.feedback")
+
+
+def checked_run(fn, sync_check):
+    """Run ``fn()`` once: its result, host wall ms (``fn`` ends in the
+    batch's one fetch, so this includes the device's work), the
+    synchronizing CUDA calls it made (sync debug mode) and the session
+    spans it recorded, in ms by name."""
+    import torch
+
+    from repro_torch.columnar import tracer
+    tracer().drain()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            wall = (time.perf_counter() - t0) * 1e3
+            if sync_check:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if SYNC_WARNING in str(w.message)]
+    spans = Counter()
+    for sp in tracer().drain():
+        if sp.name in SPLIT_SPANS:
+            spans[sp.name] += sp.dur_ms
+    return out, wall, syncs, dict(spans)
+
+
+def profiled(fn):
+    """Run ``fn()`` under the profiler: its result, the device time the
+    profiler saw (ms) and the wall time (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + [ProfilerActivity.CUDA] * cuda) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = 0.0
+    for ev in prof.key_averages():
+        dev_us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+    return out, dev_us / 1e3, wall
+
+
+def upload_columns(sess, trees):
+    """Set-up: upload every column the trees' (rewritten) atoms read into
+    the session's backend, so the checked batches move only their own
+    data (a first upload copies from pageable memory and synchronizes)."""
+    import torch
+
+    from repro_torch.columnar import rewrite_string_atoms
+    be = sess._make_backend()
+    for tree in trees:
+        for atom in rewrite_string_atoms(tree, sess.table).atoms:
+            be._col_recmajor(atom.column)
+    if be.device.type == "cuda":
+        torch.cuda.synchronize()
+    return be
+
+
+def lockstep_batches(table, batch, want, dev_name, label, sync_check):
+    """Run ``batch`` twice through a lockstep tape QuerySession (the second
+    run serves the shared atoms cached by the first through
+    ``inter_multi``), then once more with the atom cache off under the
+    profiler.  Every bitmap must equal ``want`` (the numpy oracle's), each
+    batch must make exactly one host sync, and records_evaluated must equal
+    a host lockstep session's on the same batches."""
+    import numpy as np
+
+    from repro_torch.columnar import ExecConfig, QuerySession
+    cfg = ExecConfig(planner="deepfish", engine="tape", batched=True,
+                     device=dev_name)
+    sess = QuerySession(table, config=cfg)
+    host = QuerySession(table, config=cfg.replace(engine="numpy",
+                                                  device="cpu"))
+    t0 = time.perf_counter()
+    be = upload_columns(sess, batch)
+    log(f"  {label}: columns uploaded (set-up) in "
+        f"{time.perf_counter() - t0:.1f} s, uploaded_bytes="
+        f"{be.uploaded_bytes}")
+    runs = []
+    for run in ("first", "cached"):
+        res, wall, syncs, spans = checked_run(lambda: sess.execute(batch),
+                                              sync_check)
+        for j, bm in enumerate(res.bitmaps):
+            check(np.array_equal(bm, want[j]),
+                  f"{label} {run} batch: query {j} != numpy oracle")
+        st = res.stats
+        check(st.host_syncs == 1, f"{label} {run}: host_syncs "
+              f"{st.host_syncs} != 1")
+        if sync_check:
+            check(len(syncs) == 1, f"{label} {run}: {len(syncs)} device "
+                  f"syncs ({syncs}), expected 1")
+        check(st.host_fallbacks == 0, f"{label} {run}: host fallbacks")
+        t1 = time.perf_counter()
+        hres = host.execute(batch)
+        host_s = time.perf_counter() - t1
+        check(hres.stats.records_evaluated == st.records_evaluated,
+              f"{label} {run}: records_evaluated {st.records_evaluated} != "
+              f"host lockstep {hres.stats.records_evaluated}")
+        for j, bm in enumerate(hres.bitmaps):
+            check(np.array_equal(bm, want[j]), f"{label} {run}: host "
+                  f"lockstep query {j} != numpy oracle")
+        runs.append({"wall_ms": wall, "syncs": len(syncs),
+                     "sync_sites": syncs, "spans_ms": spans,
+                     "dispatches": st.device_dispatches,
+                     "kernel_batches": st.kernel_batches,
+                     "atom_cache_hits": st.atom_cache_hits,
+                     "shared_atom_keys": st.shared_atom_keys,
+                     "lockstep_rounds": st.lockstep_rounds,
+                     "records_evaluated": st.records_evaluated,
+                     "host_lockstep_s": host_s})
+        log(f"  {label} {run} batch of {len(batch)}: wall "
+            f"{wall:.3f} ms, host syncs {st.host_syncs} (sync debug: "
+            f"{len(syncs)} at {syncs}), dispatches {st.device_dispatches}, "
+            f"kernel_batches {st.kernel_batches}, atom_cache_hits "
+            f"{st.atom_cache_hits}, lockstep_rounds {st.lockstep_rounds}, "
+            f"records_evaluated {st.records_evaluated:.0f} (= host lockstep, "
+            f"{host_s:.1f} s); spans ms "
+            f"{ {k: round(v, 3) for k, v in spans.items()} }")
+    check(runs[1]["atom_cache_hits"] > 0, f"{label}: no atom-cache hit on "
+          "the repeated batch")
+    # the K5 path again on resident columns, under the profiler
+    sess.persist_atom_cache = False
+    res, dev_ms, wall = profiled(lambda: sess.execute(batch))
+    sess.persist_atom_cache = True
+    for j, bm in enumerate(res.bitmaps):
+        check(np.array_equal(bm, want[j]), f"{label} profiled batch: "
+              f"query {j} != numpy oracle")
+    log(f"  {label} profiled batch (atom cache off): device time "
+        f"{dev_ms:.3f} ms of {wall:.3f} ms wall (device busy share "
+        f"{dev_ms / wall:.4f})")
+    return {"runs": runs, "busy_ms": dev_ms, "busy_wall_ms": wall,
+            "backend": be}
+
+
+def phase_lockstep(table, templates, results, dev_name, sync_check):
+    """Phase 8, numeric: 64 queries drawn with replacement from 8 of the
+    paper trees (as the reference's device benchmark draws its batch)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    pick = [int(rng.integers(len(templates))) for _ in range(64)]
+    batch = [templates[i] for i in pick]
+    want = [results[i] for i in pick]
+    log(f"  batch: 64 queries from {len(templates)} templates, "
+        f"{len(set(pick))} distinct")
+    return lockstep_batches(table, batch, want, dev_name, "lockstep",
+                            sync_check)
+
+
+def phase_lockstep_strings(table, trees, results, dev_name, sync_check):
+    """Phase 8, strings: string trees plus the fragmented tree twice, so
+    its dictionary-lookup atoms run Q-stacked (K6)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    strings = trees[:-1]
+    pick = [int(rng.integers(len(strings))) for _ in range(30)]
+    frag = len(trees) - 1
+    pick += [frag, frag]
+    batch = [trees[i] for i in pick]
+    want = [results[i] for i in pick]
+    return lockstep_batches(table, batch, want, dev_name,
+                            "lockstep_strings", sync_check)
+
+
+def rows_like(table, n, seed):
+    """Appended rows: a fresh Forest sample of the table's schema."""
+    from repro_torch import make_forest_table
+    src = make_forest_table(n, n_dup=1, seed=seed, strings=True)
+    return {name: src.columns[name] for name in table.columns}
+
+
+def phase_stream(table, dev_name, start_path, end_path, rounds=6,
+                 sync_check=True):
+    """Phase 9: the default StreamSession over the strings table, as the
+    reference's stream benchmark drives it: 8 templates of 6 atoms, 64
+    queries per drain, 2 % of the rows appended before each of ``rounds``
+    drains (after one cold drain that uploads the columns)."""
+    import numpy as np
+
+    from repro_torch.columnar import (ExecConfig, StreamSession, random_tree,
+                                      run_query)
+    rng = np.random.default_rng(0)
+    pool = [random_tree(table, 6, 3, rng) for _ in range(8)]
+    queries = [pool[rng.integers(8)] for _ in range(64)]
+    distinct = {id(q): q for q in queries}
+    n_append = int(table.n_records * 0.02)
+    stream = StreamSession(table, config=StreamSession.DEFAULT_CONFIG
+                           .replace(device=dev_name), max_pending=65)
+
+    def check_round(rnd, futs):
+        oracle = {k: run_query(q, table, config=ExecConfig(
+            engine="numpy", device="cpu", planner="deepfish"))[0]
+                  for k, q in distinct.items()}
+        for j, (f, q) in enumerate(zip(futs, queries)):
+            check(np.array_equal(f.result(), oracle[id(q)]),
+                  f"stream round {rnd}: query {j} != numpy oracle")
+            check(f.n_records == table.n_records, "stream snapshot rows")
+
+    t0 = time.perf_counter()
+    futs = [stream.submit(q) for q in queries]
+    res, wall, _, _ = checked_run(stream.drain, sync_check=False)
+    check_round(0, futs)
+    be = stream.session._backend
+    resident = [c for c in be._cols.values() if c is not False]
+    log(f"  cold drain of 64 over {table.n_records} rows: {wall:.1f} ms, "
+        f"uploaded {res.stats.upload_bytes:.0f} B of {len(resident)} "
+        f"columns ({time.perf_counter() - t0:.1f} s with oracle checks)")
+    start_path()
+    d0 = be.device_dispatches
+    walls, per_round = [], []
+    for rnd in range(1, rounds + 1):
+        old_n = table.n_records
+        dirty = old_n // be.block
+        stream.append(rows_like(table, n_append, seed=100 + rnd))
+        for name in table.columns:       # statistics rebuild after an
+            table.stats(name)            # append, outside the drain
+        futs = [stream.submit(q) for q in queries]
+        res, wall, syncs, spans = checked_run(stream.drain, sync_check)
+        walls.append(wall)
+        check_round(rnd, futs)
+        st = res.stats
+        check(stream.session._backend is be, "stream backend was rebuilt")
+        check(st.host_syncs == 1, f"stream round {rnd}: host_syncs "
+              f"{st.host_syncs} != 1")
+        if sync_check:
+            check(len(syncs) == 1, f"stream round {rnd}: {len(syncs)} "
+                  f"device syncs ({syncs}), expected 1")
+        tail = (be.nblocks - dirty) * be.block * 4
+        n_res = sum(1 for c in be._cols.values() if c is not False)
+        check(st.upload_bytes <= n_res * tail, f"stream round {rnd}: "
+              f"uploaded {st.upload_bytes} B > the dirty tails "
+              f"{n_res} x {tail} B")
+        per_round.append({"wall_ms": wall, "upload_bytes": st.upload_bytes,
+                          "dirty_tail_bytes": n_res * tail,
+                          "atoms_delta_extended": st.atoms_delta_extended,
+                          "delta_reuse_ratio": st.delta_reuse_ratio,
+                          "dispatches": st.device_dispatches,
+                          "spans_ms": spans})
+        log(f"  round {rnd}: +{n_append} rows -> {table.n_records}; drain "
+            f"{wall:.3f} ms, host syncs 1 (sync debug: {syncs}), upload "
+            f"{st.upload_bytes:.0f} B (dirty tails {n_res} x {tail} B), "
+            f"atoms_delta_extended {st.atoms_delta_extended}, "
+            f"delta_reuse_ratio {st.delta_reuse_ratio:.4f}, dispatches "
+            f"{st.device_dispatches}; spans ms "
+            f"{ {k: round(v, 3) for k, v in spans.items()} }")
+    # one more drain of the same queries, no append, under the profiler
+    futs = [stream.submit(q) for q in queries]
+    res, dev_ms, pwall = profiled(stream.drain)
+    check_round(rounds + 1, futs)
+    check(res.stats.host_syncs == 1, "profiled drain: host_syncs != 1")
+    dispatches = be.device_dispatches - d0
+    end_path("stream", dispatches)
+    ss = stream.stats
+    check(ss.degraded_batches == 0 and ss.quarantined_queries == 0
+          and ss.retries == 0, f"stream degraded: {ss.degraded_batches} "
+          f"batches, {ss.quarantined_queries} quarantined, {ss.retries} "
+          "retries")
+    check(ss.atoms_delta_extended > 0, "no cached atom was delta-extended")
+    stream.close()
+    log(f"  {rounds} append rounds: drain wall ms p50="
+        f"{np.median(walls):.3f} min={min(walls):.3f} max={max(walls):.3f};"
+        f" delta_reuse_ratio {ss.delta_reuse_ratio:.4f}, "
+        f"atoms_delta_extended {ss.atoms_delta_extended}, degraded 0, "
+        f"quarantined 0, retries 0; a further drain without append, "
+        f"profiled: device {dev_ms:.3f} ms of {pwall:.3f} ms wall (busy "
+        f"share {dev_ms / pwall:.4f}); launches per query "
+        f"{dispatches / (64 * (rounds + 1)):.2f}")
+    return {"rounds": per_round, "busy_ms": dev_ms, "busy_wall_ms": pwall}
+
+
+# ---------------------------------------------------------------------------
 
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -687,9 +1150,20 @@ def main() -> int:
         log(f"  {name}: {t['ms'] * 1e3:.1f} us (bound {t['bound_ms'] * 1e3:.1f}"
             f" us by {t['bound_by']}), plain {t['plain_ms'] * 1e3:.1f} us")
 
+    log("  stacked kernels at the main shape:")
+    stacked = stacked_timings(dev)
+    for name, by_q in stacked.items():
+        for q, t in by_q.items():
+            log(f"  {name} Q={q}: {t['ms'] * 1e3:.1f} us (bound "
+                f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']}), plain "
+                f"{t['plain_ms'] * 1e3:.1f} us")
+        timing[name] = dict(by_q[max(TIMED_QS)], by_q=by_q)
+
     # each path of the main path is driven with the launch counts set to 0
-    # just before it and read just after; its counts must be exactly the
-    # launches its tapes need, and each kernel it must run ran
+    # just before it and read just after.  A tape path's counts must be
+    # exactly the launches its tapes need; a lockstep path's must add up to
+    # its backend's device dispatches (each one launch).  Each kernel a path
+    # must run ran.
     by_path = {}
 
     def start_path():
@@ -697,14 +1171,19 @@ def main() -> int:
         reset_launches()
         NEEDED.clear()
 
-    def end_path(path):
+    def end_path(path, dispatches=None):
         torch.cuda.synchronize()
         got = dict(LAUNCHES)
-        need = {k: NEEDED[k] for k in KERNELS}
         by_path[path] = got
         log(f"  {path} path launches: {got}")
-        check(got == need, f"{path} path: launches {got} != the launches "
-              f"its tapes need {need}")
+        if dispatches is None:
+            need = {k: NEEDED[k] for k in KERNELS}
+            check(got == need, f"{path} path: launches {got} != the "
+                  f"launches its tapes need {need}")
+        else:
+            check(sum(got.values()) == dispatches, f"{path} path: "
+                  f"{sum(got.values())} launches != {dispatches} device "
+                  "dispatches")
         for name in PATH_KERNELS[path]:
             check(got[name] > 0, f"{name} was never launched on the {path} "
                   "path")
@@ -727,38 +1206,76 @@ def main() -> int:
     start_path()
     phase_mixed(info["table"], "cuda")
     end_path("mixed")
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: lockstep QuerySession batch (5.8 M x 144, 64 queries)")
+    t0 = time.perf_counter()
+    table, trees, results = info["table"], info["trees"], info["results"]
     del info
     torch.cuda.empty_cache()
-    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+    start_path()
+    lock = phase_lockstep(table, trees[:8], results[:8], "cuda",
+                          sync_check=True)
+    end_path("lockstep", lock["backend"].device_dispatches)
+    n_q = 64 * 3
+    log(f"  launches per query {sum(by_path['lockstep'].values()) / n_q:.2f}"
+        f" over the 3 batches")
+    del table, trees, results, lock
+    torch.cuda.empty_cache()
+    log(f"  phase 8 (numeric) took {time.perf_counter() - t0:.1f} s")
 
     log("phase 4: strings and fragmented strings")
     t0 = time.perf_counter()
     start_path()
-    phase_strings(5_800_000, 8, "cuda")
+    table, trees, results = phase_strings(5_800_000, 8, "cuda")
     end_path("strings")
     torch.cuda.empty_cache()
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: lockstep QuerySession batch on strings (fragmented x 2)")
+    t0 = time.perf_counter()
+    start_path()
+    lock_s = phase_lockstep_strings(table, trees, results, "cuda",
+                                    sync_check=True)
+    end_path("lockstep_strings", lock_s["backend"].device_dispatches)
+    del lock_s, trees, results
+    torch.cuda.empty_cache()
+    log(f"  phase 8 (strings) took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: zone-pruned tapes")
     t0 = time.perf_counter()
     start_path()
     phase_zones(5_800_000, 8192, "cuda")
     end_path("zones")
+    torch.cuda.empty_cache()
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
     # one host sync per warm all-device query (sync debug mode, phase 3)
     check(set(syncs) == {1}, f"device syncs per warm query: {syncs}")
+
+    log("phase 9: StreamSession, 6 append rounds of 2 % on the strings "
+        "table")
+    t0 = time.perf_counter()
+    phase_stream(table, "cuda", start_path, end_path)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 7: kernels")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         t = timing[name]
         paths = {p: got[name] for p, got in by_path.items()}
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": sum(paths.values()),
-                     "launches_by_path": paths,
-                     "max_abs_err": errs[name], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(paths.values()),
+               "launches_by_path": paths,
+               "max_abs_err": errs[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": None}
+        if "by_q" in t:
+            row["by_q"] = {str(q): {k: v[k] for k in ("ms", "plain_ms",
+                                                      "bound_ms")}
+                           for q, v in t["by_q"].items()}
+        if name in NOT_TPU_KERNELS:
+            row["tpu_kernel"] = False
+        rows.append(row)
         log(f"  {name}: launches={sum(paths.values())} {paths} "
             f"median={t['ms'] * 1e3:.2f} us "
             f"bound={t['bound_ms'] * 1e3:.2f} us "

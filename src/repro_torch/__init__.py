@@ -3,7 +3,9 @@
 The paper's planners (BestD/Update, ShallowFish, DeepFish) plan a
 predicate tree over a columnar table; the plan compiles to a tape that
 runs on an NVIDIA GPU through hand-written CUDA kernels
-(``kernels/csrc``), with one host sync per query.  Every entry point runs
+(``kernels/csrc``), with one host sync per query; batches of queries run
+in lockstep through a ``QuerySession`` or a ``StreamSession``, with one
+host sync per batch.  Every entry point runs
 on the card unless the caller asks for the CPU (``device="cpu"``), where
 the kernels' plain PyTorch versions run instead.
 
@@ -11,10 +13,12 @@ The package imports ``torch`` and ``numpy`` and keeps its own copies of
 the framework-free modules (planners, tape compiler, table, ingest).
 """
 from .columnar import (BitmapBackend, ConfigError, DeviceTapeBackend,
-                       ExecConfig, Table, make_forest_table,
-                       random_query_suite, random_tree, run_query)
+                       ExecConfig, QuerySession, StreamSession, Table,
+                       make_forest_table, random_query_suite, random_tree,
+                       run_query)
 from .convert import table_from_arrays
 
 __all__ = ["run_query", "ExecConfig", "ConfigError", "Table",
-           "DeviceTapeBackend", "BitmapBackend", "make_forest_table",
-           "random_tree", "random_query_suite", "table_from_arrays"]
+           "DeviceTapeBackend", "BitmapBackend", "QuerySession",
+           "StreamSession", "make_forest_table", "random_tree",
+           "random_query_suite", "table_from_arrays"]

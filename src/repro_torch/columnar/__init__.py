@@ -7,18 +7,32 @@ Single-query path: ``run_query(tree, table, config=ExecConfig(engine=
 the paper's planners, compiles the plan to a tape and runs it through
 :class:`DeviceTapeBackend` with one host sync.  ``ExecConfig(engine="numpy",
 device="cpu")`` runs the :class:`BitmapBackend` oracle on the host instead.
+
+Multi-query path: a :class:`QuerySession` executes a batch of trees with a
+plan cache and cross-query atom sharing; with ``batched=True`` on the tape
+engine it drives every plan in lockstep over device-resident sets, one
+stacked kernel launch per shared atom and round, one host sync per batch.
+A :class:`StreamSession` admits queries between appends and drains them
+through that lockstep session.
 """
 from .bitmap import (WORD, bitmap_and, bitmap_andnot, bitmap_empty,
                      bitmap_full, bitmap_or, extend_bitmap, pack_bits,
                      popcount, unpack_bits)
 from .config import ConfigError, ExecConfig
 from .device import DeviceTapeBackend
+from .drainer import BackgroundDrainer, DrainPolicy, LatencyWindow
 from .executor import BitmapBackend, resolve_backend, run_query
 from .forest import make_forest_table
 from .ingest import ZoneMap
+from .multiquery import (BatchResult, BatchStats, LRUPlanCache, PlanCacheStats,
+                         QuerySession)
 from .queries import random_query_suite, random_tree
+from .stream import (StreamBackpressure, StreamClosed, StreamFuture,
+                     StreamQueryError, StreamSession, StreamStats)
 from .table import (DictColumn, Table, annotate_selectivities,
                     empirical_selectivity, rewrite_string_atoms)
+from .trace import (ExplainReport, OpObservation, SpanRecord, Tracer,
+                    explain_analyze, tracer)
 
 __all__ = [
     "pack_bits", "unpack_bits", "popcount", "bitmap_and", "bitmap_or",
@@ -28,4 +42,10 @@ __all__ = [
     "BitmapBackend", "DeviceTapeBackend", "run_query", "resolve_backend",
     "ExecConfig", "ConfigError",
     "ZoneMap", "random_tree", "random_query_suite",
+    "QuerySession", "LRUPlanCache", "BatchResult", "BatchStats",
+    "PlanCacheStats", "StreamFuture", "StreamSession", "StreamStats",
+    "StreamQueryError", "StreamClosed", "StreamBackpressure",
+    "BackgroundDrainer", "DrainPolicy", "LatencyWindow",
+    "Tracer", "tracer", "SpanRecord", "explain_analyze", "ExplainReport",
+    "OpObservation",
 ]

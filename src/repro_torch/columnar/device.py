@@ -38,6 +38,18 @@ columns) go op by op: each such op pulls its source set to the host
 (one sync), gathers and evaluates there, and pushes the result back; the
 counters still ride one final bundled fetch.  ``host_fallbacks`` counts
 those ops.
+
+The backend is also a device-resident :class:`~repro_torch.core.sets.
+SetBackend`, which the lockstep ``QuerySession`` drives (every
+``StreamSession`` drain runs it): BestD's set algebra through
+``bitmap_setop`` (K2), an atom wanted by Q queries in the same round
+through ``predicate_scan_multi`` (K5) or ``dict_lookup_scan_multi`` (K6)
+over the Q stacked sets, cached shared atoms through the stacked AND
+``bitmap_inter_multi``, and the union a multi-set atom needs for its cost
+accounting through ``bitmap_union_reduce``.  Nothing leaves the device
+until the batch's one bundled :meth:`materialize`.  After a table append
+:meth:`refresh` uploads only the dirty tail blocks and :meth:`extend_set`
+splices appended rows into cached sets, neither with a host sync.
 """
 from __future__ import annotations
 
@@ -53,14 +65,16 @@ from ..core.sets import SetBackend, Stats
 from ..core.tape import (ATOM, CHAIN, CMP_OPCODE, EMPTY, FULL, IN_OPCODE,
                          OP_AND, OP_ANDNOT, OP_OR, PlanTape, SETOP,
                          device_atom, lookup_atom, op_observation_meta)
-from ..kernels.bitmap_ops import bitmap_setop
-from ..kernels.dict_lookup import dict_lookup_scan
+from ..kernels.bitmap_ops import (bitmap_inter_multi, bitmap_setop,
+                                  bitmap_union_reduce)
+from ..kernels.dict_lookup import dict_lookup_scan, dict_lookup_scan_multi
 from ..kernels.fused_chain import fused_chain_scan
-from ..kernels.predicate_scan import predicate_scan
+from ..kernels.predicate_scan import predicate_scan, predicate_scan_multi
 from ..runtime import faults as _faults
-from .bitmap import (WORD, bitmap_full, live_block_count, n_words, next_pow2,
-                     pack_bits, popcount, unpack_bits)
+from .bitmap import (WORD, bitmap_full, extend_bitmap, live_block_count,
+                     n_words, next_pow2, pack_bits, popcount, unpack_bits)
 from .executor import _ZonePruner
+from .ingest import dirty_tail
 from .table import Table
 
 
@@ -109,11 +123,13 @@ def _zone_blend(evaluate, bits: torch.Tensor, pops: torch.Tensor,
                 zone: Optional[torch.Tensor]):
     """Run ``evaluate(eval_pops)`` and blend with per-block zone verdicts.
 
-    ``zone`` is None when every block is MAYBE (plain evaluation), else a
-    device ``i32[N]`` of NONE/ALL/MAYBE.  The evaluation sees popcounts
-    masked to the MAYBE blocks, so the kernels skip every other block and
-    write zeros there; ALL blocks then take the source bits unchanged and
-    NONE blocks keep those zeros."""
+    ``bits`` is one set ``i32[N, W]`` or Q stacked sets ``i32[Q, N, W]``
+    (``pops`` ``i32[N]`` or ``i32[Q, N]``); ``zone`` is None when every
+    block is MAYBE (plain evaluation), else one shared device ``i32[N]``
+    of NONE/ALL/MAYBE (verdicts depend on the atom, not on the set).  The
+    evaluation sees popcounts masked to the MAYBE blocks, so the kernels
+    skip every other block and write zeros there; ALL blocks then take the
+    source bits unchanged and NONE blocks keep those zeros."""
     if zone is None:
         return evaluate(pops)
     out0, p0 = evaluate(torch.where(zone == ZONE_MAYBE, pops, 0))
@@ -346,6 +362,65 @@ class DeviceTapeBackend(SetBackend):
         pad[:real] = out
         return pad
 
+    # -- appends (the streaming delta path) -------------------------------------
+    def refresh(self) -> int:
+        """Grow the backend after a pure table *append*: device-resident
+        columns keep every block below the append boundary and upload only
+        the dirty tail (the power-of-two block-count bucket may grow, in
+        which case the new padding blocks ride along as zeros).  A column
+        whose bucket did not grow is updated in place.  Caller must have
+        proven the append via :meth:`Table.delta_since`.  Returns the
+        bytes uploaded."""
+        _faults.trip("device.upload", backend=self)
+        if self._zones:
+            self._zones.clear()
+        n_new = self.table.n_records
+        if n_new == self.n:
+            return 0
+        dirty = self.n // self.block
+        self.n = n_new
+        self.nblocks = next_pow2((n_new + self.block - 1) // self.block)
+        self._padded = self.nblocks * self.block
+        self._full = self._empty = None
+        up = 0
+        for name, col in list(self._cols.items()):
+            if col is False:
+                continue               # non-numeric: still host-resident
+            raw = self.table.column_data(name)
+            tail = dirty_tail(raw, dirty, self.nblocks, self.block)
+            up += tail.nbytes
+            tail = self._place(tail.reshape(self.nblocks - dirty, self.block))
+            if col.shape[0] == self.nblocks:
+                col[dirty:] = tail
+            else:
+                self._cols[name] = torch.cat([col[:dirty], tail])
+        self.uploaded_bytes += up
+        return up
+
+    def extend_set(self, s: _DevSet, old_n: int, delta_hits) -> _DevSet:
+        """Splice the appended rows' hit mask into a cached device set (the
+        streaming delta path): the old bitmap's blocks stay on device and
+        only the words of the blocks the delta touches upload — one OR
+        launch, no host sync."""
+        delta_hits = np.asarray(delta_hits, dtype=bool)
+        flat = extend_bitmap(np.zeros(n_words(old_n), dtype=np.uint32),
+                             old_n, delta_hits, old_n + len(delta_hits))
+        b0 = old_n // self.block          # first block the delta touches
+        words = np.zeros((self.nblocks - b0) * self.wpb, dtype=np.uint32)
+        tail = flat[b0 * self.wpb:]
+        words[: len(tail)] = tail
+        delta = torch.zeros((self.nblocks, self.wpb), dtype=torch.int32,
+                            device=self.device)
+        delta[b0:] = self._place(words.reshape(-1, self.wpb).view(np.int32))
+        bits = s.bits
+        if bits.shape[0] < self.nblocks:
+            bits = torch.cat([bits, torch.zeros(
+                (self.nblocks - bits.shape[0], self.wpb), dtype=torch.int32,
+                device=self.device)])
+        self.device_dispatches += 1
+        out, pops = bitmap_setop(bits, delta, OP_OR)
+        return _DevSet(out, pops)
+
     def _from_flat(self, words: np.ndarray) -> _DevSet:
         """Host flat packed words -> device blocked set (popcounts counted
         on the host, so no kernel runs)."""
@@ -394,6 +469,19 @@ class DeviceTapeBackend(SetBackend):
         self.host_syncs += 1
         return float(d.pops.sum().item())
 
+    def inter_multi(self, a: _DevSet, ds: Sequence[_DevSet]
+                    ) -> List[_DevSet]:
+        """Q cached-atom intersections in one stacked launch (the lockstep
+        executor's atom-cache hit path: per-query setops would otherwise
+        cost a launch each)."""
+        if len(ds) == 1:
+            return [self.inter(a, ds[0])]
+        bits = torch.stack([d.bits for d in ds])
+        self.stats.setops += len(ds)
+        self.device_dispatches += 1
+        out, pops = bitmap_inter_multi(a.bits, bits)
+        return [_DevSet(out[j], pops[j]) for j in range(len(ds))]
+
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.int64, device=self.device)
 
@@ -437,8 +525,9 @@ class DeviceTapeBackend(SetBackend):
 
     def _fb_queue(self, atoms: Sequence[Atom], conj: bool, src, out) -> None:
         """Queue one observation whose src/out popcounts are still device
-        scalars; they ride the bundled transfer :meth:`materialize`
-        makes — no extra sync."""
+        scalars (or stacked ``[Q]`` vectors, one per lockstep query); they
+        ride the bundled transfer :meth:`materialize` makes — no extra
+        sync."""
         est = group_selectivity([a.selectivity for a in atoms], conj)
         self._fb_meta.append((tuple(atom_key(a) for a in atoms), est))
         self._fb_src.append(src)
@@ -494,21 +583,110 @@ class DeviceTapeBackend(SetBackend):
         self.blocks_touched += live_block_count(uw, self.nblocks, wpb)
         return words, src_count, int(popcount(words))
 
-    # -- the single end-of-query host sync -------------------------------------
+    def _apply_host(self, atom: Atom, ds: Sequence[_DevSet],
+                    union: _DevSet) -> List[_DevSet]:
+        """Host-gather fallback for atoms a device kernel cannot run."""
+        self.host_fallbacks += 1
+        uw = self._pull_flat(union)
+        words, src_count, out_count = self._host_gather([atom], True, uw)
+        self._log_op((atom_key(atom),), atom.selectivity, src_count,
+                     out_count)
+        sat = self._from_flat(words)
+        return [self._setop(sat, d, OP_AND) for d in ds]
+
+    def _bind_atom(self, atom: Atom):
+        """(column blocks, lookup mask or None) for a device-executable
+        atom; (None, None) when the atom needs the host fallback."""
+        if lookup_atom(atom):
+            mask = self._lookup_mask(atom)
+            if mask is None:
+                return None, None
+            return self._col_recmajor(atom.column), mask
+        if device_atom(atom):
+            return self._col_recmajor(atom.column), None
+        return None, None
+
+    def _bind_zone(self, atom: Atom, col) -> Optional[torch.Tensor]:
+        """The atom's device zone verdicts, or None (nothing prunes, or
+        the atom runs on the host)."""
+        zone = self._zone_mask([atom]) if col is not None else None
+        return None if zone is None else self._place(zone)
+
+    def apply_atom(self, atom: Atom, d: _DevSet) -> _DevSet:
+        col, lmask = self._bind_atom(atom)
+        zone = self._bind_zone(atom, col)
+        self._account([atom], d.pops, device=col is not None, zone=zone)
+        if col is None:
+            return self._apply_host(atom, [d], d)[0]
+        self.device_dispatches += 1
+        if lmask is not None:
+            lm = self._place(lmask.view(np.int32))
+            out, pops = _zone_blend(
+                lambda ep: dict_lookup_scan(col, d.bits, ep, lm),
+                d.bits, d.pops, zone)
+        else:
+            value, opcode = float(atom.value), CMP_OPCODE[atom.op]
+            out, pops = _zone_blend(
+                lambda ep: predicate_scan(col, d.bits, ep, value, opcode),
+                d.bits, d.pops, zone)
+        self._fb_queue([atom], True, d.pops.sum(), pops.sum())
+        return _DevSet(out, pops)
+
+    def apply_atom_multi(self, atom: Atom, ds: Sequence[_DevSet]
+                         ) -> List[_DevSet]:
+        """Q device record sets against one atom in one stacked kernel
+        launch (K5, or K6 for a lookup atom)."""
+        if len(ds) == 1:
+            return [self.apply_atom(atom, ds[0])]
+        bits = torch.stack([d.bits for d in ds])
+        pops = torch.stack([d.pops for d in ds])
+        q, n, w = bits.shape
+        # one reduce launch (not Q-1 setops): the union only feeds the
+        # fallback path and cost accounting
+        self.device_dispatches += 1
+        union = _DevSet(*bitmap_union_reduce(bits))
+        col, lmask = self._bind_atom(atom)
+        zone = self._bind_zone(atom, col)
+        self._account([atom], union.pops, device=col is not None, zone=zone)
+        if col is None:
+            return self._apply_host(atom, ds, union)
+        self.device_dispatches += 1
+        flat = bits.reshape(q * n, w)
+        lm = None if lmask is None else self._place(lmask.view(np.int32))
+
+        def evaluate(ep):
+            if lm is not None:
+                o, p = dict_lookup_scan_multi(col, flat, ep.reshape(-1), lm)
+            else:
+                o, p = predicate_scan_multi(col, flat, ep.reshape(-1),
+                                            float(atom.value),
+                                            CMP_OPCODE[atom.op])
+            return o.reshape(q, n, w), p.reshape(q, n)
+
+        out, opops = _zone_blend(evaluate, bits, pops, zone)
+        self._fb_queue([atom], True, pops.sum(dim=-1), opops.sum(dim=-1))
+        return [_DevSet(out[j], opops[j]) for j in range(q)]
+
+    # -- the single end-of-query (or end-of-batch) host sync -------------------
     def materialize(self, sets: Sequence[_DevSet]) -> List[np.ndarray]:
         """Fetch result bitmaps AND flush pending cost counters in one
-        bundled transfer — the query's single host sync."""
+        bundled transfer — the query's (or lockstep batch's) single host
+        sync.  Queued observations may be scalars or stacked ``[Q]``
+        vectors; each is flattened, and split back into one observation
+        per query after the fetch."""
         _faults.trip("device.dispatch", backend=self, where="materialize")
         nw = n_words(self.n)
         m = len(self._pend_records)
-        f = len(self._fb_src)
+        fb_lens = [t.numel() for t in self._fb_src]
+        f = sum(fb_lens)
         parts = [d.bits.reshape(-1)[:nw] for d in sets]
         if m:
             parts.append(torch.stack(self._pend_records + self._pend_blocks
                                      + self._pend_pruned).to(torch.int32))
         if f:
-            parts.append(torch.stack(self._fb_src
-                                     + self._fb_out).to(torch.int32))
+            parts.append(torch.cat([t.reshape(-1) for t in
+                                    self._fb_src + self._fb_out])
+                         .to(torch.int32))
         self.host_syncs += 1
         host = (torch.cat(parts).cpu().numpy() if parts
                 else np.zeros(0, dtype=np.int32))
@@ -527,8 +705,11 @@ class DeviceTapeBackend(SetBackend):
         self.blocks_pruned += float((prn * ks).sum())
         self._pend_records, self._pend_weights = [], []
         self._pend_k, self._pend_blocks, self._pend_pruned = [], [], []
-        for (keys, est), s, o in zip(self._fb_meta, fsrc, fout):
-            self._log_op(keys, est, int(s), int(o))
+        off = 0
+        for (keys, est), k in zip(self._fb_meta, fb_lens):
+            for s, o in zip(fsrc[off: off + k], fout[off: off + k]):
+                self._log_op(keys, est, int(s), int(o))
+            off += k
         self._fb_meta, self._fb_src, self._fb_out = [], [], []
         return flats
 

@@ -31,7 +31,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches since the last reset; each wrapper adds one
 #: right after it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {"predicate_scan": 0, "bitmap_setop": 0,
-                            "fused_chain_scan": 0, "dict_lookup_scan": 0}
+                            "fused_chain_scan": 0, "dict_lookup_scan": 0,
+                            "predicate_scan_multi": 0,
+                            "dict_lookup_scan_multi": 0,
+                            "bitmap_inter_multi": 0,
+                            "bitmap_union_reduce": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -48,6 +52,15 @@ _SIGNATURES = {
     "rt_fused_chain_scan": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     # col, bits, pops_in, mask, u, n, w, out, pops_out, stream
     "rt_dict_lookup_scan": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # col, bits, pops_in, value, opcode, q, n, w, out, pops_out, stream
+    "rt_predicate_scan_multi": [_P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P],
+    # col, bits, pops_in, mask, u, q, n, w, out, pops_out, stream
+    "rt_dict_lookup_scan_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                  _P],
+    # a, bits, q, n, w, out, pops_out, stream
+    "rt_bitmap_inter_multi": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # bits, q, n, w, out, pops_out, stream
+    "rt_bitmap_union_reduce": [_P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -145,8 +158,21 @@ def expect(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+#: 32-bit words of dynamic shared memory a block may take without opting
+#: in to more (48 KiB)
+MAX_SHARED_WORDS = 48 * 1024 // 4
+
+
+def expect_shared_words(w: int, name: str) -> None:
+    """Raise unless a block's W hit words fit the lockstep kernels' shared
+    memory (B = 32·W records per block, up to 393,216)."""
+    if w > MAX_SHARED_WORDS:
+        raise ValueError(f"{name}: {w} words per block exceed the "
+                         f"{MAX_SHARED_WORDS} that fit in shared memory")
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"CUDA error {rc}: kernel {name} failed to "
+                           "launch")

@@ -6,6 +6,11 @@ Replaces the TPU kernel ``src/repro/kernels/bitmap_ops.py``,
 bytes, about 3 MiB at the tape's shapes, so in practice its launch).
 CPU tensors run :func:`bitmap_setop_plain`; CUDA tensors launch the
 kernel or raise.
+
+The lockstep executor's two stacked set operations live in the same CUDA
+source: :func:`bitmap_inter_multi` (one set ANDed into Q stacked sets) and
+:func:`bitmap_union_reduce` (the OR of Q stacked sets), both with the
+fused popcount.  They replace jnp code of the reference, not TPU kernels.
 """
 from __future__ import annotations
 
@@ -47,4 +52,66 @@ def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int):
             pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "bitmap_setop")
     _build.LAUNCHES["bitmap_setop"] += 1
+    return out, pops
+
+
+def bitmap_inter_multi_plain(a: torch.Tensor, bits: torch.Tensor):
+    out = bits & a[None]
+    return out, ref.popcount_ref(out)
+
+
+def bitmap_inter_multi(a: torch.Tensor, bits: torch.Tensor):
+    """One set ANDed into Q stacked sets, with the fused popcount.
+
+    a i32[N, W]; bits i32[Q, N, W] -> (i32[Q, N, W], i32[Q, N]).  The
+    stacked form of K2 the lockstep atom-cache hit path uses (the
+    reference computes it in jnp, ``bits & a[None]``)."""
+    if a.device.type == "cpu":
+        return bitmap_inter_multi_plain(a, bits)
+    if a.device.type != "cuda":
+        raise ValueError(f"bitmap_inter_multi: unsupported device {a.device}")
+    n, w = a.shape
+    q = bits.shape[0]
+    _build.expect(a, "a", torch.int32, (n, w), a.device)
+    _build.expect(bits, "bits", torch.int32, (q, n, w), a.device)
+    out = torch.empty_like(bits)
+    pops = torch.empty((q, n), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = _build.lib().rt_bitmap_inter_multi(
+            a.data_ptr(), bits.data_ptr(), q, n, w, out.data_ptr(),
+            pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "bitmap_inter_multi")
+    _build.LAUNCHES["bitmap_inter_multi"] += 1
+    return out, pops
+
+
+def bitmap_union_reduce_plain(bits: torch.Tensor):
+    out = bits[0]
+    for j in range(1, bits.shape[0]):
+        out = out | bits[j]
+    return out, ref.popcount_ref(out)
+
+
+def bitmap_union_reduce(bits: torch.Tensor):
+    """OR of Q stacked sets, with the fused popcount.
+
+    bits i32[Q, N, W] (Q >= 1) -> (i32[N, W], i32[N]).  The lockstep
+    union the reference computes in jnp (an OR chain over the stack)."""
+    if bits.device.type == "cpu":
+        return bitmap_union_reduce_plain(bits)
+    if bits.device.type != "cuda":
+        raise ValueError(f"bitmap_union_reduce: unsupported device "
+                         f"{bits.device}")
+    if bits.dim() != 3 or bits.shape[0] < 1:
+        raise ValueError("bits must be i32[Q, N, W] with Q >= 1")
+    q, n, w = bits.shape
+    _build.expect(bits, "bits", torch.int32, (q, n, w), bits.device)
+    out = torch.empty((n, w), dtype=torch.int32, device=bits.device)
+    pops = torch.empty(n, dtype=torch.int32, device=bits.device)
+    with torch.cuda.device(bits.device):
+        rc = _build.lib().rt_bitmap_union_reduce(
+            bits.data_ptr(), q, n, w, out.data_ptr(), pops.data_ptr(),
+            torch.cuda.current_stream(bits.device).cuda_stream)
+    _build.check(rc, "bitmap_union_reduce")
+    _build.LAUNCHES["bitmap_union_reduce"] += 1
     return out, pops

@@ -61,4 +61,45 @@ __device__ __forceinline__ void write_dead_block(int* out_row, int w,
   if (threadIdx.x == 0) *pop_dst = 0;
 }
 
+// Q-stacked bitmaps (the lockstep kernels): i32[Q * N, W], query-major, so
+// row q * N + n is block n of record set q; pops i32[Q * N] likewise.
+
+// Is column block n live (input popcount > 0) in any of the q stacked rows?
+// Every thread of the block must call it; the answer is block-uniform.
+__device__ __forceinline__ bool any_row_live(const int* __restrict__ pops_in,
+                                             int q, int n_blocks, int n) {
+  int live = 0;
+  for (int r = threadIdx.x; r < q; r += blockDim.x)
+    live |= pops_in[(long long)r * n_blocks + n] != 0;
+  return __syncthreads_or(live) != 0;
+}
+
+// AND column block n's W packed hit words (``hit``, in shared memory) into
+// each of the q stacked input rows of that block, one warp per row: 32
+// lanes read 32 consecutive words, and the row's popcount is reduced by
+// warp shuffles.  A row whose input popcount is 0 writes zeros and reads
+// neither its bits nor ``hit``.
+__device__ __forceinline__ void and_hits_into_rows(
+    const unsigned* hit, const int* __restrict__ bits,
+    const int* __restrict__ pops_in, int q, int n_blocks, int n, int w,
+    int* __restrict__ out, int* __restrict__ pops_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < q; r += kWarps) {
+    const long long row = (long long)r * n_blocks + n;
+    const long long base = row * w;
+    const bool live = pops_in[row] != 0;  // warp-uniform
+    int count = 0;
+    for (int i = lane; i < w; i += 32) {
+      const int word = live ? (__ldg(bits + base + i) & (int)hit[i]) : 0;
+      out[base + i] = word;
+      count += __popc(word);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      count += __shfl_down_sync(0xffffffffu, count, off);
+    if (lane == 0) pops_out[row] = count;
+  }
+}
+
 }  // namespace rt

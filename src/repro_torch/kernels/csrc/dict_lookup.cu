@@ -15,11 +15,28 @@
 // truncation toward zero, NaN to 0, saturating out of range, as the
 // reference's f32 -> int32 conversion does.  Record-major warps and
 // __ballot_sync as in predicate_scan.
+//
+// dict_lookup_scan_multi (below) is the Q-stacked form, replacing
+// src/repro/kernels/dict_lookup.py, dict_lookup_scan_multi (whose grid
+// re-reads code block k % N for each of the Q rows).  Bound: bytes, as
+// predicate_scan_multi.  Same design as predicate_scan_multi: one thread
+// block per code block n tests the block's codes once into W hit words in
+// shared memory, then ANDs them into each of the Q rows of that block; the
+// mask is read only by blocks live in some row.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxSharedWords = 48 * 1024 / 4;
+
+// Code c of a record: in the hit set iff 0 <= c < 32 * u and its mask bit
+// is set.
+__device__ __forceinline__ bool code_hit(float x, const unsigned* m,
+                                         long long limit) {
+  const int code = __float2int_rz(x);
+  return code >= 0 && (long long)code < limit &&
+         ((m[code >> 5] >> (code & 31)) & 1u);
+}
 
 template <bool kShared>
 __global__ void __launch_bounds__(rt::kThreads)
@@ -50,9 +67,8 @@ dict_lookup_kernel(const float* __restrict__ col,
     const int in = __ldg(bits + row + i);
     int word = 0;
     if (in != 0) {  // warp-uniform
-      const int code = __float2int_rz(__ldg(col_row + (long long)i * 32 + lane));
-      const bool hit = code >= 0 && (long long)code < limit &&
-                       ((m[code >> 5] >> (code & 31)) & 1u);
+      const bool hit =
+          code_hit(__ldg(col_row + (long long)i * 32 + lane), m, limit);
       word = (int)__ballot_sync(0xffffffffu, hit) & in;
     }
     if (lane == 0) {
@@ -63,7 +79,63 @@ dict_lookup_kernel(const float* __restrict__ col,
   rt::block_store_sum(count, pops_out + n);
 }
 
+// Dynamic shared memory: the block's W hit words, then (kShared) the mask.
+template <bool kShared>
+__global__ void __launch_bounds__(rt::kThreads)
+dict_lookup_multi_kernel(const float* __restrict__ col,
+                         const int* __restrict__ bits,
+                         const int* __restrict__ pops_in,
+                         const unsigned* __restrict__ mask, int u, int q,
+                         int n_blocks, int w, int* __restrict__ out,
+                         int* __restrict__ pops_out) {
+  extern __shared__ unsigned smem[];
+  unsigned* hit = smem;
+  const int n = blockIdx.x;
+  if (rt::any_row_live(pops_in, q, n_blocks, n)) {
+    const unsigned* m = mask;
+    if (kShared) {
+      unsigned* smask = smem + w;
+      for (int j = threadIdx.x; j < u; j += blockDim.x) smask[j] = mask[j];
+      __syncthreads();
+      m = smask;
+    }
+    const long long limit = 32LL * u;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float* col_row = col + (long long)n * w * 32;
+    for (int i = warp; i < w; i += rt::kWarps) {
+      const bool h =
+          code_hit(__ldg(col_row + (long long)i * 32 + lane), m, limit);
+      const unsigned word = __ballot_sync(0xffffffffu, h);
+      if (lane == 0) hit[i] = word;
+    }
+    __syncthreads();
+  }
+  rt::and_hits_into_rows(hit, bits, pops_in, q, n_blocks, n, w, out,
+                         pops_out);
+}
+
 }  // namespace
+
+extern "C" int rt_dict_lookup_scan_multi(const float* col, const int* bits,
+                                         const int* pops_in,
+                                         const unsigned* mask, int u, int q,
+                                         int n, int w, int* out,
+                                         int* pops_out, void* stream) {
+  if (n > 0 && q > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (w + u <= kMaxSharedWords) {
+      dict_lookup_multi_kernel<true>
+          <<<n, rt::kThreads, (w + u) * sizeof(unsigned), s>>>(
+              col, bits, pops_in, mask, u, q, n, w, out, pops_out);
+    } else {
+      dict_lookup_multi_kernel<false>
+          <<<n, rt::kThreads, w * sizeof(unsigned), s>>>(
+              col, bits, pops_in, mask, u, q, n, w, out, pops_out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int rt_dict_lookup_scan(const float* col, const int* bits,
                                    const int* pops_in, const unsigned* mask,

@@ -1,6 +1,7 @@
 """Record-major entry points with the signatures of the reference's
-``repro.kernels.ops`` wrappers (``predicate_blocks``, ``dict_lookup_blocks``,
-``bitmap_op``, ``fused_chain_blocks``), so tests hold the two packages
+``repro.kernels.ops`` wrappers (``predicate_blocks``,
+``predicate_blocks_multi``, ``dict_lookup_blocks``, ``bitmap_op``,
+``fused_chain_blocks``), so tests hold the two packages
 against each other argument for argument.
 
 Packed words are int32 tensors holding the reference's u32 bit patterns.
@@ -18,7 +19,7 @@ from . import ref
 from .bitmap_ops import bitmap_setop
 from .dict_lookup import dict_lookup_scan
 from .fused_chain import fused_chain_scan
-from .predicate_scan import predicate_scan
+from .predicate_scan import predicate_scan, predicate_scan_multi
 
 
 def predicate_blocks(col: torch.Tensor, bits: torch.Tensor, value,
@@ -26,6 +27,16 @@ def predicate_blocks(col: torch.Tensor, bits: torch.Tensor, value,
     """Fused (col OP value) ∧ bits.  col: f32[N, B]; bits: i32[N, W]."""
     return predicate_scan(col, bits, ref.popcount_ref(bits), value,
                           opcode)[0]
+
+
+def predicate_blocks_multi(col: torch.Tensor, bits: torch.Tensor, value,
+                           opcode: int) -> torch.Tensor:
+    """Q-stacked :func:`predicate_blocks`: Q record sets against one column
+    copy in one launch.  col: f32[N, B]; bits: i32[Q, N, W]."""
+    q, n, w = bits.shape
+    flat = bits.reshape(q * n, w)
+    return predicate_scan_multi(col, flat, ref.popcount_ref(flat), value,
+                                opcode)[0].reshape(q, n, w)
 
 
 def dict_lookup_blocks(col: torch.Tensor, bits: torch.Tensor,

@@ -1,11 +1,15 @@
 """K1 ``predicate_scan``: bits of ``(col OP value) ∧ D`` per block, plus
-the output's per-block popcount.
+the output's per-block popcount; and K5 ``predicate_scan_multi``, the same
+for Q stacked record sets against one column.
 
 Replaces the TPU kernel ``src/repro/kernels/predicate_scan.py``,
 ``predicate_scan``.  The CUDA kernel is ``csrc/predicate_scan.cu``; its
 header states the bound (bytes: the live blocks' column reads) and the
 design (record-major columns, one warp per word, ``__ballot_sync``, dead
-blocks and zero words skip their column reads).
+blocks and zero words skip their column reads).  K5 replaces the TPU
+kernel ``predicate_scan_multi`` of the same file; its CUDA kernel is
+``csrc/predicate_scan_multi.cu``, which reads each live column block once
+for all Q rows instead of once per row.
 
 The wrapper takes the tensors' device as the choice of path: CPU tensors
 run :func:`predicate_scan_plain`, CUDA tensors launch the kernel (or
@@ -53,4 +57,53 @@ def predicate_scan(col: torch.Tensor, bits: torch.Tensor, pops: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "predicate_scan")
     _build.LAUNCHES["predicate_scan"] += 1
+    return out, out_pops
+
+
+def predicate_scan_multi_plain(col: torch.Tensor, bits: torch.Tensor,
+                               pops: torch.Tensor, value, opcode: int):
+    """Plain version of :func:`predicate_scan_multi`."""
+    n = col.shape[0]
+    qn, w = bits.shape
+    out = ref.predicate_blocks_multi_ref(col, bits.reshape(qn // n, n, w),
+                                         value, opcode).reshape(qn, w)
+    out = torch.where((pops > 0)[:, None], out, 0)
+    return out, ref.popcount_ref(out)
+
+
+def predicate_scan_multi(col: torch.Tensor, bits: torch.Tensor,
+                         pops: torch.Tensor, value, opcode: int):
+    """K5: K1 for Q stacked record sets against one column.
+
+    col f32[N, B] record-major blocks; bits i32[Q·N, W] query-major (row
+    ``q·N + n`` is block n of set q); pops i32[Q·N] (a row with
+    ``pops == 0`` is dead: zero output).  The comparison is computed once
+    per column block for all Q rows (``csrc/predicate_scan_multi.cu``).
+    Returns ``(out i32[Q·N, W], out_pops i32[Q·N])``."""
+    if col.device.type == "cpu":
+        return predicate_scan_multi_plain(col, bits, pops, value, opcode)
+    if col.device.type != "cuda":
+        raise ValueError(f"predicate_scan_multi: unsupported device "
+                         f"{col.device}")
+    n = col.shape[0]
+    qn, w = bits.shape
+    dev = col.device
+    if n < 1 or qn % n:
+        raise ValueError(f"bits has {qn} rows, not a multiple of the "
+                         f"column's {n} blocks")
+    _build.expect_shared_words(w, "predicate_scan_multi")
+    _build.expect(col, "col", torch.float32, (n, 32 * w), dev)
+    _build.expect(bits, "bits", torch.int32, (qn, w), dev)
+    _build.expect(pops, "pops", torch.int32, (qn,), dev)
+    if not 0 <= int(opcode) <= ref.NE:
+        raise ValueError(f"bad opcode {opcode}")
+    out = torch.empty_like(bits)
+    out_pops = torch.empty(qn, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().rt_predicate_scan_multi(
+            col.data_ptr(), bits.data_ptr(), pops.data_ptr(), ref.f32(value),
+            int(opcode), qn // n, n, w, out.data_ptr(), out_pops.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "predicate_scan_multi")
+    _build.LAUNCHES["predicate_scan_multi"] += 1
     return out, out_pops

@@ -86,6 +86,19 @@ def predicate_blocks_ref(col: torch.Tensor, bits_in: torch.Tensor, value,
     return pack_u32(keep)
 
 
+def predicate_blocks_multi_ref(col: torch.Tensor, bits_in: torch.Tensor,
+                               value, opcode: int) -> torch.Tensor:
+    """Q-stacked :func:`predicate_blocks_ref`: the comparison is computed
+    once per block and ANDed into Q stacked record sets.
+
+    col:     f32[N, B]      column values, one row per block
+    bits_in: i32[Q, N, W]   Q packed record bitmaps (W = B // 32)
+    returns  i32[Q, N, W]   packed (D_q ∧ P) bitmaps
+    """
+    keep = compare(col, value, opcode)[None] & unpack_u32(bits_in)
+    return pack_u32(keep)
+
+
 def codes_of(col: torch.Tensor) -> torch.Tensor:
     """f32 code column -> int32 codes, truncating toward zero.  NaN maps to
     0 and out-of-range values saturate, as the reference's f32 -> int32
@@ -118,6 +131,20 @@ def dict_lookup_ref(col: torch.Tensor, bits_in: torch.Tensor,
     """
     hit = code_hits(codes_of(col), mask_words)
     return pack_u32(hit & unpack_u32(bits_in))
+
+
+def dict_lookup_multi_ref(col: torch.Tensor, bits_in: torch.Tensor,
+                          mask_words: torch.Tensor) -> torch.Tensor:
+    """Q-stacked :func:`dict_lookup_ref`: the code test is computed once
+    per block and ANDed into Q stacked record sets.
+
+    col:        f32[N, B]      int dictionary codes stored as f32 blocks
+    bits_in:    i32[Q, N, W]   Q packed record bitmaps
+    mask_words: i32[U]         packed hit set over code space
+    returns     i32[Q, N, W]   packed (D_q ∧ P) bitmaps
+    """
+    hit = code_hits(codes_of(col), mask_words)
+    return pack_u32(hit[None] & unpack_u32(bits_in))
 
 
 def popcount_ref(words: torch.Tensor) -> torch.Tensor:

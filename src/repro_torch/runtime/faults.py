@@ -25,9 +25,9 @@ Fault classification drives the stream layer's degradation ladder
 
 * :class:`TransientFault` (or a spec armed ``transient=True``) — retry
   with exponential backoff is expected to clear it.
-* :class:`DeviceFault` (and errors classified as device faults by
-  :func:`is_device_fault`) — the device engine is suspect; the batch re-executes bit-identically on the
-  host bitmap engine.
+* :class:`DeviceFault`, and the CUDA runtime errors
+  :func:`is_device_fault` recognises — the device engine is suspect; the
+  batch re-executes bit-identically on the host bitmap engine.
 * anything else — no engine will save it; quarantine isolates the
   poisoned query.
 """
@@ -159,13 +159,14 @@ def is_transient(exc: BaseException) -> bool:
 
 def is_device_fault(exc: BaseException) -> bool:
     """Should the ladder re-execute the batch on the host engine?  True
-    for injected :class:`DeviceFault`s and for exceptions whose class is
-    named ``XlaRuntimeError`` (kept verbatim from the reference package; a
-    classifier for CUDA runtime errors is queued with the streaming
-    slice)."""
+    for an injected :class:`DeviceFault`, for
+    ``torch.cuda.OutOfMemoryError``, and for a ``RuntimeError``
+    (``torch.AcceleratorError`` is one) whose message carries "CUDA
+    error": a refused kernel launch, an illegal address, a lost device."""
     if isinstance(exc, DeviceFault):
         return True
-    for k in type(exc).__mro__:
-        if k.__name__ == "XlaRuntimeError":
-            return True
-    return False
+    import torch
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    accel = getattr(torch, "AcceleratorError", RuntimeError)
+    return isinstance(exc, (RuntimeError, accel)) and "CUDA error" in str(exc)

@@ -14,10 +14,20 @@ import numpy as np
 
 from repro_torch import ExecConfig, make_forest_table, random_query_suite, run_query
 from repro_torch.kernels import LAUNCHES, ref
-from repro_torch.kernels.bitmap_ops import bitmap_setop, bitmap_setop_plain
-from repro_torch.kernels.dict_lookup import dict_lookup_scan, dict_lookup_scan_plain
+from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                            bitmap_inter_multi_plain,
+                                            bitmap_setop, bitmap_setop_plain,
+                                            bitmap_union_reduce,
+                                            bitmap_union_reduce_plain)
+from repro_torch.kernels.dict_lookup import (dict_lookup_scan,
+                                             dict_lookup_scan_multi,
+                                             dict_lookup_scan_multi_plain,
+                                             dict_lookup_scan_plain)
 from repro_torch.kernels.fused_chain import fused_chain_scan, fused_chain_scan_plain
-from repro_torch.kernels.predicate_scan import predicate_scan, predicate_scan_plain
+from repro_torch.kernels.predicate_scan import (predicate_scan,
+                                                predicate_scan_multi,
+                                                predicate_scan_multi_plain,
+                                                predicate_scan_plain)
 
 SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (1024, 8192)]
 
@@ -90,6 +100,57 @@ def test_cuda_kernels_match_plain(cuda_device, n, b):
     assert LAUNCHES["dict_lookup_scan"] == before["dict_lookup_scan"] + 3
 
 
+def _stacked(rng, q, n, w, dev):
+    """Q stacked bitmaps i32[Q*N, W] with dead rows (all-zero bits), masked
+    rows (bits set, popcount given as 0) and one block dead in every row."""
+    bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
+    bits[:, :, 0] |= np.uint32(1 << 31)
+    bits[q // 2, 0] = 0                                  # a dead row
+    if n > 1:
+        bits[:, n - 1] = 0                               # dead in every row
+    bits = torch.from_numpy(bits.reshape(q * n, w).view(np.int32)).to(dev)
+    pops = ref.popcount_ref(bits)
+    pops[q * n // 3] = 0                                 # a masked row
+    return bits, pops
+
+
+@pytest.mark.parametrize("n,b,q", [
+    (n, b, q) for n, b in ((1, 256), (3, 1024), (7, 2048))
+    for q in (1, 2, 8, 65)] + [(1024, 8192, 1), (1024, 8192, 8)])
+def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
+    dev = cuda_device
+    rng = np.random.default_rng(q * 1000 + n + b)
+    w = b // 32
+    col, _, _ = _inputs(rng, n, b, dev)
+    bits, pops = _stacked(rng, q, n, w, dev)
+    before = dict(LAUNCHES)
+    for op in range(6):
+        for v in (0.0, 1e-45, 0.3, float("nan")):
+            _equal(predicate_scan_multi(col, bits, pops, v, op),
+                   predicate_scan_multi_plain(col, bits, pops, v, op))
+    for u in (1, 2, 64):
+        codes = rng.integers(-40, 32 * u + 40, size=(n, b)).astype(np.float32)
+        codes.reshape(-1)[:3] = [np.nan, -0.5, 3.75]
+        codes = torch.from_numpy(codes).to(dev)
+        mask = torch.from_numpy(rng.integers(0, 2 ** 32, size=u,
+                                             dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+        _equal(dict_lookup_scan_multi(codes, bits, pops, mask),
+               dict_lookup_scan_multi_plain(codes, bits, pops, mask))
+    stack = bits.reshape(q, n, w)
+    a = stack[0].flip(0).contiguous()
+    _equal(bitmap_inter_multi(a, stack), bitmap_inter_multi_plain(a, stack))
+    _equal(bitmap_union_reduce(stack), bitmap_union_reduce_plain(stack))
+    torch.cuda.synchronize()
+    assert LAUNCHES["predicate_scan_multi"] == before[
+        "predicate_scan_multi"] + 24
+    assert LAUNCHES["dict_lookup_scan_multi"] == before[
+        "dict_lookup_scan_multi"] + 3
+    assert LAUNCHES["bitmap_inter_multi"] == before["bitmap_inter_multi"] + 1
+    assert LAUNCHES["bitmap_union_reduce"] == before[
+        "bitmap_union_reduce"] + 1
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     dev = cuda_device
     col = torch.zeros((2, 256), device=dev)
@@ -105,6 +166,13 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         predicate_scan(col, bits, pops, 0.0, 6)
     with pytest.raises(ValueError):
         bitmap_setop(bits, bits.cpu(), 0)
+    with pytest.raises(ValueError):
+        predicate_scan_multi(col, torch.zeros((3, 8), dtype=torch.int32,
+                                              device=dev),
+                             torch.zeros(3, dtype=torch.int32, device=dev),
+                             0.0, 0)
+    with pytest.raises(ValueError):
+        dict_lookup_scan_multi(col, bits, pops, pops[:0])
 
 
 def test_tape_on_the_card_matches_the_cpu(cuda_device):

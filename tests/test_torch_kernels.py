@@ -195,3 +195,117 @@ def test_code_conversion_matches_reference_on_nan_and_overflow():
     np.testing.assert_array_equal(
         tref.codes_of(torch.from_numpy(vals)).numpy(),
         np.asarray(jnp.asarray(vals).astype(jnp.int32)))
+
+
+# -- K5 predicate_scan_multi, K6 dict_lookup_scan_multi -----------------------
+
+def _stacked_bits(rng, q, n, w):
+    """Q stacked bitmaps u32[Q*N, W] with a dead row and a block dead in
+    every row, plus their popcounts with one live row masked to 0."""
+    bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
+    bits[:, :, 0] |= np.uint32(1 << 31)
+    bits[q - 1, 0] = 0                              # a dead row
+    if n > 1:
+        bits[:, 1] = 0                              # dead in every row
+    bits = bits.reshape(q * n, w)
+    pops = np.array(kref.popcount_ref(jnp.asarray(bits)), dtype=np.int32)
+    pops[(q * n) // 2] = 0                          # masked, bits still set
+    return bits, pops
+
+
+@pytest.mark.parametrize("n,b", SHAPES)
+@pytest.mark.parametrize("opcode", OPS)
+def test_predicate_scan_multi_plain_matches_pallas_kernel(n, b, opcode):
+    from repro.kernels.predicate_scan import predicate_scan_multi as ref_scan
+    from repro_torch.kernels.predicate_scan import predicate_scan_multi
+    rng = np.random.default_rng(opcode * 100 + n + 7)
+    q, w = 3, b // 32
+    col = _column(rng, n, b)
+    bits, pops = _stacked_bits(rng, q, n, w)
+    value = np.float32(rng.normal())
+    out, out_pops = predicate_scan_multi(_t(col), _t(bits), _t(pops),
+                                         value, opcode)
+    col_bm = col.reshape(n, w, 32).transpose(0, 2, 1)
+    want = np.asarray(ref_scan(
+        jnp.asarray(col_bm), jnp.asarray(bits), jnp.asarray(pops),
+        jnp.asarray([value]), opcode, interpret=True))
+    np.testing.assert_array_equal(_u32(out), want)
+    np.testing.assert_array_equal(
+        out_pops.numpy(), np.asarray(kref.popcount_ref(jnp.asarray(want))))
+
+
+@pytest.mark.parametrize("q", [1, 4])
+@pytest.mark.parametrize("opcode", OPS)
+def test_predicate_blocks_multi_matches_reference(q, opcode):
+    """The record-major ops entry point and the plain oracle against the
+    reference's (Pallas in interpret mode, and its jnp multi ref)."""
+    rng = np.random.default_rng(q * 10 + opcode)
+    n, b = 3, 1024
+    col = _column(rng, n, b)
+    bits = rng.integers(0, 2 ** 32, size=(q, n, b // 32), dtype=np.uint32)
+    bits[0, 1] = 0
+    value = float(rng.normal())
+    got = _u32(tops.predicate_blocks_multi(_t(col), _t(bits), value,
+                                           opcode))
+    want = np.asarray(kref.predicate_blocks_multi_ref(
+        jnp.asarray(col), jnp.asarray(bits), value, opcode))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        _u32(tref.predicate_blocks_multi_ref(_t(col), _t(bits), value,
+                                             opcode)), want)
+    pallas = np.asarray(kops.predicate_blocks_multi(
+        jnp.asarray(col), jnp.asarray(bits), value, opcode, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("n,b,u", [(1, 256, 1), (3, 1024, 2), (4, 2048, 64),
+                                   (2, 8192, 2)])
+def test_dict_lookup_scan_multi_plain_matches_pallas_kernel(n, b, u):
+    from repro.kernels.dict_lookup import dict_lookup_scan_multi as ref_scan
+    from repro_torch.kernels.dict_lookup import dict_lookup_scan_multi
+    rng = np.random.default_rng(n * 100 + u + 3)
+    q, w = 3, b // 32
+    col = rng.integers(-40, 32 * u + 40, size=(n, b)).astype(np.float32)
+    col.reshape(-1)[:3] = [-0.5, 3.75, -1.0]      # truncation toward zero
+    bits, pops = _stacked_bits(rng, q, n, w)
+    mask = rng.integers(0, 2 ** 32, size=u, dtype=np.uint32)
+    mask[0] |= np.uint32(1 << 31)
+    out, out_pops = dict_lookup_scan_multi(_t(col), _t(bits), _t(pops),
+                                           _t(mask))
+    col_bm = col.reshape(n, w, 32).transpose(0, 2, 1)
+    want = np.asarray(ref_scan(
+        jnp.asarray(col_bm), jnp.asarray(bits), jnp.asarray(pops),
+        jnp.asarray(mask), interpret=True))
+    np.testing.assert_array_equal(_u32(out), want)
+    np.testing.assert_array_equal(
+        out_pops.numpy(), np.asarray(kref.popcount_ref(jnp.asarray(want))))
+    hit = np.asarray(kref.dict_lookup_ref(
+        jnp.asarray(col), jnp.asarray(bits.reshape(q, n, w)[0]),
+        jnp.asarray(mask)))
+    np.testing.assert_array_equal(
+        _u32(tref.dict_lookup_multi_ref(_t(col), _t(bits.reshape(q, n, w)),
+                                        _t(mask)))[0], hit)
+
+
+# -- the lockstep executor's stacked set operations ---------------------------
+
+@pytest.mark.parametrize("q,n,w", [(2, 1, 8), (3, 4, 32), (9, 5, 256)])
+def test_stacked_set_ops_match_reference(q, n, w):
+    """bitmap_inter_multi and bitmap_union_reduce against the reference's
+    jnp ``_inter_multi_impl`` / ``_union_impl`` (words and popcounts)."""
+    from repro.columnar.device import _inter_multi_impl, _union_impl
+    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                                bitmap_union_reduce)
+    rng = np.random.default_rng(q * 10 + w)
+    a = _bits(rng, n, w)
+    bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
+    bits[0, 0] = 0
+    pops = np.asarray(kref.popcount_ref(jnp.asarray(bits)))
+    out, out_pops = bitmap_inter_multi(_t(a), _t(bits))
+    want, want_pops = _inter_multi_impl(jnp.asarray(a), jnp.asarray(bits))
+    np.testing.assert_array_equal(_u32(out), np.asarray(want))
+    np.testing.assert_array_equal(out_pops.numpy(), np.asarray(want_pops))
+    out, out_pops = bitmap_union_reduce(_t(bits))
+    want, want_pops = _union_impl(jnp.asarray(bits), jnp.asarray(pops))
+    np.testing.assert_array_equal(_u32(out), np.asarray(want))
+    np.testing.assert_array_equal(out_pops.numpy(), np.asarray(want_pops))
