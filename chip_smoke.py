@@ -14,7 +14,9 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
 1. device and kernel build
 2. kernels vs plain versions (exact), and their times on the card; the
    lockstep kernels (Q stacked record sets) at Q = 1, 2, 8, 65, timed at
-   Q = 8 and 64
+   Q = 8 and 64; the grouped set operation at G = 1, 2, 65, 512 and in a
+   two-level flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2,
+   3, 5, 8, 9, checked and timed
 3. numeric tape at paper scale: results, one host sync and one device
    program per query, no host fallback
 4. strings and fragmented strings: no host fallback, the lookup kernel runs
@@ -31,12 +33,19 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
 
 Each path of phases 3-6, 8 and 9 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
-equal the launches its tapes need, a lockstep path's must add up to its
-backend's device dispatches (each of which is one launch), and each kernel
-the path runs must have launched.  Any mismatch raises and the script
-exits non-zero.  The last line of its output is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device, or without the rest of the repository
-beside it, it exits non-zero and prints no result.
+equal the launches its tapes need; on a lockstep path the grouped set
+operation's launches must equal its backend's ``setop_launches`` and all
+other launches its device dispatches less the set operations it deferred
+(each other dispatch is one launch); and each kernel the path runs must
+have launched.  Any mismatch raises and the script exits non-zero.  The
+last line of its output is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the rest of the repository beside it, it exits
+non-zero and prints no result.
+
+``python3 chip_smoke.py --compare SRC`` runs only what compares two trees
+on one card: the fused chain's times and a lockstep batch (its walls,
+launches and a cProfile split of the cached batch), with the package from
+``SRC`` (a ``src`` directory of another checkout).
 """
 from __future__ import annotations
 
@@ -76,6 +85,10 @@ KERNELS = {
                            "src/repro/columnar/device.py:328"),
     "bitmap_union_reduce": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
                             "src/repro/columnar/device.py:336"),
+    # K2 as the lockstep and stream paths run it: one launch per
+    # dependency level of deferred set operations
+    "bitmap_setop_grouped": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
+                             "src/repro/kernels/bitmap_ops.py:44"),
 }
 #: entries of KERNELS that replace no Pallas kernel
 NOT_TPU_KERNELS = ("bitmap_inter_multi", "bitmap_union_reduce")
@@ -88,11 +101,12 @@ PATH_KERNELS = {
     "strings": ("predicate_scan", "bitmap_setop", "fused_chain_scan",
                 "dict_lookup_scan"),
     "zones": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
-    "lockstep": ("predicate_scan_multi", "bitmap_setop",
+    "lockstep": ("predicate_scan_multi", "bitmap_setop_grouped",
                  "bitmap_inter_multi", "bitmap_union_reduce"),
-    "lockstep_strings": ("dict_lookup_scan_multi", "bitmap_setop",
+    "lockstep_strings": ("dict_lookup_scan_multi", "bitmap_setop_grouped",
                          "bitmap_union_reduce"),
-    "stream": ("predicate_scan_multi", "bitmap_setop",
+    # bitmap_setop: extend_set's OR of the appended rows, one per cached atom
+    "stream": ("predicate_scan_multi", "bitmap_setop_grouped", "bitmap_setop",
                "bitmap_union_reduce"),
 }
 MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
@@ -100,6 +114,16 @@ SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048)]
 #: lockstep group sizes the stacked kernels are checked at, and timed at
 STACKED_QS = (1, 2, 8, 65)
 TIMED_QS = (8, 64)
+#: grouped set-operation sizes checked, and timed (the row's headline G)
+GROUPED_GS = (1, 2, 65, 512)
+TIMED_GS = (1, 64, 512)
+HEADLINE_G = 64
+#: fused-chain widths checked and timed (1-8 compiled apart, 9 the
+#: generic path); K = 3 is the row's headline, as in earlier runs
+CHAIN_KS = (1, 2, 3, 5, 8, 9)
+TIMED_KS = CHAIN_KS
+#: backend counters the lockstep paths' launch accounting reads
+ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
 
 
 def log(msg: str) -> None:
@@ -247,14 +271,18 @@ def kernel_inputs(n, b, dev, seed):
     col.reshape(-1)[:6] = [np.nan, 1e-45, -1e-45, 1e-39, -0.0, np.inf]
     bits = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
     bits[:, 0] |= np.uint32(1 << 31)
+    bits[:, 1::7] = 0                                 # zero words
     if n > 1:
         bits[n // 2] = 0                              # a dead block
     bits_t = torch.from_numpy(bits.view(np.int32)).to(dev)
     pops = ref.popcount_ref(bits_t)
     if n > 2:
         pops[1] = 0                                   # masked, bits set
-    cols = [torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32))
-            .to(dev) for _ in range(5)]
+    cols = []
+    for _ in range(max(CHAIN_KS)):
+        c = rng.normal(size=(n, b)).astype(np.float32)
+        c.reshape(-1)[::97] = np.nan
+        cols.append(torch.from_numpy(c).to(dev))
     return rng, torch.from_numpy(col).to(dev), bits_t, pops, cols
 
 
@@ -297,14 +325,21 @@ def phase_kernels(dev, shapes):
         for op in range(3):
             cmp("bitmap_setop", bitmap_setop(bits, other, op),
                 bitmap_setop_plain(bits, other, op), f"n={n} op={op}")
-        for k in (2, 3, 5):
+        for k in CHAIN_KS:
             for conj in (True, False):
-                vals = [float(x) for x in rng.normal(size=k)]
-                ops = [int(x) for x in rng.integers(0, 6, size=k)]
-                cmp("fused_chain_scan",
-                    fused_chain_scan(cols[:k], bits, pops, vals, ops, conj),
-                    fused_chain_scan_plain(cols[:k], bits, pops, vals, ops,
-                                           conj), f"n={n} k={k} conj={conj}")
+                for nan_value in (False, True):
+                    vals = [float(x) for x in rng.normal(size=k)]
+                    if nan_value:
+                        vals[-1] = float("nan")
+                    ops = [int(x) for x in rng.integers(0, 6, size=k)]
+                    cmp("fused_chain_scan",
+                        fused_chain_scan(cols[:k], bits, pops, vals, ops,
+                                         conj),
+                        fused_chain_scan_plain(cols[:k], bits, pops, vals,
+                                               ops, conj),
+                        f"n={n} k={k} conj={conj} nan_value={nan_value}")
+        for case in grouped_cases(rng, bits, dev):
+            cmp(*case)
         for u in (1, 2, 64):
             codes = rng.integers(-40, 32 * u + 40, size=(n, b))
             codes = codes.astype(np.float32)
@@ -322,6 +357,65 @@ def phase_kernels(dev, shapes):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return errs, cases
+
+
+def grouped_cases(rng, bits, dev):
+    """(name, kernel outputs, plain outputs, what) for bitmap_setop_grouped
+    at the shape of ``bits``: one launch of G ops for each G in GROUPED_GS,
+    with mixed opcodes, one input shared by a third of the ops, ``a is b``,
+    dead rows in either input and the empty and full sets; then a
+    two-level flush whose level 2 reads level 1's outputs.  Each is held
+    against the ops run one by one in the plain version."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_setop_grouped,
+                                                bitmap_setop_plain)
+    n, w = bits.shape
+    half_dead = bits.clone()
+    half_dead[::2] = 0                                # every other row dead
+    sets = [bits, bits.flip(0).contiguous(), half_dead,
+            torch.zeros_like(bits), torch.full_like(bits, -1)]
+
+    def spec(g, pool, lo=0):
+        ops = []
+        for j in range(g):
+            ia = lo if j % 3 == 0 else int(rng.integers(lo, pool))
+            ib = ia if j % 7 == 0 else int(rng.integers(pool))
+            ops.append((ia, ib, (j + int(rng.integers(3))) % 3))
+        return ops
+
+    def run(levels_spec):
+        tens = list(sets)
+        pops = [ref.popcount_ref(t) for t in tens]
+        want = list(sets)
+        levels = []
+        for level_spec in levels_spec:
+            level = [SetOp(tens[ia], pops[ia], tens[ib], pops[ib],
+                           torch.empty_like(bits),
+                           torch.empty(n, dtype=torch.int32, device=dev),
+                           code) for ia, ib, code in level_spec]
+            for op, (ia, ib, code) in zip(level, level_spec):
+                tens.append(op.out)
+                pops.append(op.out_pops)
+                want.append(bitmap_setop_plain(want[ia], want[ib], code)[0])
+            levels.append(level)
+        bitmap_setop_grouped(levels)
+        outs = [op for level in levels for op in level]
+        got = (torch.stack([op.out for op in outs]),
+               torch.stack([op.out_pops for op in outs]))
+        plain = want[len(sets):]
+        return got, (torch.stack(plain),
+                     torch.stack([ref.popcount_ref(x) for x in plain]))
+
+    for g in GROUPED_GS:
+        got, want = run([spec(g, len(sets))])
+        yield ("bitmap_setop_grouped", got, want, f"n={n} w={w} G={g}")
+    first = spec(65, len(sets))
+    second = spec(65, len(sets) + 65, lo=len(sets))
+    got, want = run([first, second])
+    yield ("bitmap_setop_grouped", got, want,
+           f"n={n} w={w} two levels of 65")
 
 
 def stacked_inputs(rng, n, w, q, dev):
@@ -408,6 +502,24 @@ def gpu_ms(fn, reps=25):
     return times[len(times) // 2]
 
 
+def log_timing(what, t):
+    log(f"  {what}: {t['ms'] * 1e3:.2f} us (bound {t['bound_ms'] * 1e3:.2f}"
+        f" us by {t['bound_by']}: {t['bound_ms'] / t['ms']:.1%} of the "
+        f"bound's rate), plain {t['plain_ms'] * 1e3:.2f} us")
+
+
+def timed(nbytes, ops, kern, plain, plain_reps=21):
+    """Device times of a kernel and its plain version, and the bound of
+    their work: ``nbytes`` over the memory rate or ``ops`` over the f32
+    rate, whichever is larger."""
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"ms": gpu_ms(kern), "plain_ms": gpu_ms(plain, reps=plain_reps),
+            "bound_ms": max(t_mem, t_ops),
+            "bound_by": "bytes" if t_mem >= t_ops else "operations",
+            "bytes": nbytes}
+
+
 def kernel_timings(dev):
     """Time each kernel and its plain version at the main path's shape;
     bytes for the lower bound count what these inputs need: the column
@@ -420,16 +532,12 @@ def kernel_timings(dev):
                                                 bitmap_setop_plain)
     from repro_torch.kernels.dict_lookup import (dict_lookup_scan,
                                                  dict_lookup_scan_plain)
-    from repro_torch.kernels.fused_chain import (fused_chain_scan,
-                                                 fused_chain_scan_plain)
     from repro_torch.kernels.predicate_scan import (predicate_scan,
                                                     predicate_scan_plain)
     n, b = MAIN_SHAPE
     w = b // 32
     rng = np.random.default_rng(5)
     col = torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32)).to(dev)
-    cols = [torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32))
-            .to(dev) for _ in range(3)]
     codes = torch.from_numpy(rng.integers(0, 12, size=(n, b))
                              .astype(np.float32)).to(dev)
     mask = torch.from_numpy(np.array([0x5A5], dtype=np.int32)).to(dev)
@@ -450,30 +558,84 @@ def kernel_timings(dev):
         "bitmap_setop": (3 * n * w * 4 + n * 4, n * w,
                          lambda: bitmap_setop(bits, bits, 0),
                          lambda: bitmap_setop_plain(bits, bits, 0)),
-        "fused_chain_scan": (3 * live_words * 128 + bitmaps + 3 * 16,
-                             3 * records,
-                             lambda: fused_chain_scan(cols, bits, pops,
-                                                      [0.1, 0.2, 0.3],
-                                                      [0, 1, 2], True),
-                             lambda: fused_chain_scan_plain(
-                                 cols, bits, pops, [0.1, 0.2, 0.3],
-                                 [0, 1, 2], True)),
         "dict_lookup_scan": (live_words * 128 + bitmaps + 4, records,
                              lambda: dict_lookup_scan(codes, bits, pops,
                                                       mask),
                              lambda: dict_lookup_scan_plain(codes, bits,
                                                             pops, mask)),
     }
+    out = {name: timed(*args) for name, args in work.items()}
+    by_k = chain_timings(dev)
+    out["fused_chain_scan"] = dict(by_k[3], by_k=by_k)
+    by_g = grouped_timings(dev)
+    out["bitmap_setop_grouped"] = dict(by_g[HEADLINE_G], by_g=by_g)
+    return out
+
+
+def chain_timings(dev):
+    """K3 and its plain version at the main shape for each K in TIMED_KS,
+    on dense random bitmaps; bytes for the bound: K column words under
+    each live word, the bitmaps and the table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_chain import (fused_chain_scan,
+                                                 fused_chain_scan_plain)
+    n, b = MAIN_SHAPE
+    w = b // 32
+    rng = np.random.default_rng(8)
+    cols = [torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32))
+            .to(dev) for _ in range(max(TIMED_KS))]
+    bits = torch.from_numpy(rng.integers(0, 2 ** 32, size=(n, w),
+                                         dtype=np.uint32).view(np.int32)
+                            ).to(dev)
+    pops = ref.popcount_ref(bits)
+    live_words = int(((bits != 0) & (pops > 0)[:, None]).sum().item())
+    live_rows = int((pops > 0).sum().item())
+    bitmaps = live_rows * w * 4 + n * w * 4 + 2 * n * 4
     out = {}
-    for name, (nbytes, ops, kern, plain) in work.items():
-        t_mem = nbytes / MEM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        out[name] = {
-            "ms": gpu_ms(kern), "plain_ms": gpu_ms(plain, reps=21),
-            "bound_ms": max(t_mem, t_ops),
-            "bound_by": "bytes" if t_mem >= t_ops else "operations",
-            "bytes": nbytes,
-        }
+    for k in TIMED_KS:
+        args = (cols[:k], bits, pops, [0.1 * (j + 1) for j in range(k)],
+                [j % 4 for j in range(k)], True)
+        out[k] = timed(k * live_words * 128 + bitmaps + k * 16,
+                       k * live_words * 32,
+                       lambda a=args: fused_chain_scan(*a),
+                       lambda a=args: fused_chain_scan_plain(*a))
+    return out
+
+
+def grouped_timings(dev):
+    """The grouped set operation and its plain version at the main shape
+    for each G in TIMED_GS: G ops of mixed opcodes over distinct dense
+    random inputs (every row live, so every word is read).  Bytes for the
+    bound: G * (two input rows and popcounts read, one row and popcount
+    written)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_setop_grouped,
+                                                bitmap_setop_grouped_plain)
+    n, b = MAIN_SHAPE
+    w = b // 32
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for g in TIMED_GS:
+        a, bb = (torch.randint(-2 ** 31, 2 ** 31, (g, n, w), generator=gen,
+                               dtype=torch.int32, device=dev)
+                 for _ in range(2))
+        ap = torch.stack([ref.popcount_ref(x) for x in a])
+        bp = torch.stack([ref.popcount_ref(x) for x in bb])
+        res = torch.empty_like(a)
+        res_pops = torch.empty_like(ap)
+        ops = [[SetOp(a[j], ap[j], bb[j], bp[j], res[j], res_pops[j], j % 3)
+                for j in range(g)]]
+        out[g] = timed(g * (3 * n * w * 4 + 3 * n * 4), g * n * w,
+                       lambda o=ops: bitmap_setop_grouped(o),
+                       lambda o=ops: bitmap_setop_grouped_plain(o),
+                       plain_reps=11)
+        del a, bb, ap, bp, res, res_pops, ops
+        torch.cuda.empty_cache()
     return out
 
 
@@ -537,15 +699,8 @@ def stacked_timings(dev):
                 lambda: bitmap_union_reduce(stack),
                 lambda: bitmap_union_reduce_plain(stack)),
         }
-        for name, (nbytes, ops, kern, plain) in work.items():
-            t_mem = nbytes / MEM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_OPS_PER_S * 1e3
-            out[name][q] = {
-                "ms": gpu_ms(kern), "plain_ms": gpu_ms(plain, reps=11),
-                "bound_ms": max(t_mem, t_ops),
-                "bound_by": "bytes" if t_mem >= t_ops else "operations",
-                "bytes": nbytes,
-            }
+        for name, args in work.items():
+            out[name][q] = timed(*args, plain_reps=11)
         del bits, pops, stack, a
         torch.cuda.empty_cache()
     return out
@@ -821,6 +976,96 @@ def phase_mixed(table, dev_name):
 # phases 8-9: the lockstep QuerySession and the StreamSession
 # ---------------------------------------------------------------------------
 
+def counts_of(be):
+    """The backend's lifetime ACCOUNT counters."""
+    return {k: getattr(be, k) for k in ACCOUNT}
+
+
+class SetopLog:
+    """Per batch or drain: set operations, grouped launches, flushes, the
+    largest level, launches per query and the peak device memory."""
+
+    def __init__(self, be):
+        import torch
+
+        from repro_torch.kernels import LAUNCHES
+        self.be, self.launches = be, LAUNCHES
+        be.setop_level_max = 0
+        torch.cuda.reset_peak_memory_stats()
+        self.c0 = self._snap()
+
+    def _snap(self):
+        be, la = self.be, self.launches
+        return {"setops": be.stats.setops, "deferred": be.setops_deferred,
+                "grouped": be.setop_launches, "flushes": be.setop_flushes,
+                "k2_family": la["bitmap_setop"] + la["bitmap_setop_grouped"],
+                "launches": sum(la.values())}
+
+    def done(self, n_queries):
+        import torch
+        c1 = self._snap()
+        d = {k: c1[k] - self.c0[k] for k in c1}
+        d["largest_level"] = self.be.setop_level_max
+        d["launches_per_query"] = d["launches"] / n_queries
+        d["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return d
+
+    @staticmethod
+    def text(d):
+        return (f"set operations {d['setops']} ({d['deferred']} deferred), "
+                f"grouped launches {d['grouped']} in {d['flushes']} flushes, "
+                f"largest level {d['largest_level']}, K2-family launches "
+                f"{d['k2_family']}, launches {d['launches']} "
+                f"({d['launches_per_query']:.2f} per query), peak memory "
+                f"{d['peak_bytes']} B")
+
+
+#: where a lockstep batch's host time goes, by the file of each function
+HOST_SPLIT = (("repro_torch/core/bestd.py", "BestD machine"),
+              ("repro_torch/columnar/device.py", "device backend"),
+              ("repro_torch/kernels/", "kernel wrappers (incl. ctypes)"),
+              ("repro_torch/columnar/multiquery.py", "session"),
+              ("repro_torch/", "other port Python"))
+
+
+def host_split(fn, top=12):
+    """Run ``fn()`` under cProfile: its result, the wall ms, the seconds of
+    own time by HOST_SPLIT category (torch's C++ calls and other builtins
+    apart), and the ``top`` functions by own time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    try:
+        out = fn()
+    finally:
+        prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    cats: Counter = Counter()
+    rows = []
+    for (path, line, func), (_, ncalls, tt, _, _) in \
+            pstats.Stats(prof).stats.items():
+        if path == "~":
+            cat = "torch C++ calls" if "torch" in func else "builtins"
+        else:
+            cat = next((c for key, c in HOST_SPLIT if key in path),
+                       "numpy / stdlib")
+        cats[cat] += tt
+        rows.append((tt, ncalls, f"{Path(path).name}:{line}({func})"))
+    rows.sort(reverse=True)
+    return out, wall, dict(cats), rows[:top]
+
+
+def log_split(label, wall, cats, rows):
+    total = sum(cats.values())
+    log(f"  {label} under cProfile: {wall:.3f} ms wall, {total * 1e3:.3f} "
+        f"ms of profiled own time: " + ", ".join(
+            f"{c} {t * 1e3:.1f} ms ({t / total:.1%})"
+            for c, t in sorted(cats.items(), key=lambda kv: -kv[1])))
+    for tt, ncalls, where in rows:
+        log(f"    {tt * 1e3:9.1f} ms {ncalls:8d} calls  {where}")
+
 #: host spans of QuerySession.execute that split a batch's wall time
 SPLIT_SPANS = ("batch.annotate", "batch.rewrite_strings", "batch.plan",
                "batch.upload", "batch.dispatch", "batch.sync",
@@ -892,13 +1137,16 @@ def upload_columns(sess, trees):
     return be
 
 
-def lockstep_batches(table, batch, want, dev_name, label, sync_check):
+def lockstep_batches(table, batch, want, dev_name, label, sync_check,
+                     split=False):
     """Run ``batch`` twice through a lockstep tape QuerySession (the second
     run serves the shared atoms cached by the first through
-    ``inter_multi``), then once more with the atom cache off under the
-    profiler.  Every bitmap must equal ``want`` (the numpy oracle's), each
-    batch must make exactly one host sync, and records_evaluated must equal
-    a host lockstep session's on the same batches."""
+    ``inter_multi``), then (``split``) once more under cProfile, then once
+    with the atom cache off under the profiler.  Every bitmap must equal
+    ``want`` (the numpy oracle's), each checked batch must make exactly
+    one host sync, and records_evaluated must equal a host lockstep
+    session's on the same batches.  Each batch logs its set operations,
+    grouped launches, flushes, largest level, launches and peak memory."""
     import numpy as np
 
     from repro_torch.columnar import ExecConfig, QuerySession
@@ -914,8 +1162,10 @@ def lockstep_batches(table, batch, want, dev_name, label, sync_check):
         f"{be.uploaded_bytes}")
     runs = []
     for run in ("first", "cached"):
+        setops = SetopLog(be)
         res, wall, syncs, spans = checked_run(lambda: sess.execute(batch),
                                               sync_check)
+        setops = setops.done(len(batch))
         for j, bm in enumerate(res.bitmaps):
             check(np.array_equal(bm, want[j]),
                   f"{label} {run} batch: query {j} != numpy oracle")
@@ -943,7 +1193,7 @@ def lockstep_batches(table, batch, want, dev_name, label, sync_check):
                      "shared_atom_keys": st.shared_atom_keys,
                      "lockstep_rounds": st.lockstep_rounds,
                      "records_evaluated": st.records_evaluated,
-                     "host_lockstep_s": host_s})
+                     "host_lockstep_s": host_s, "setops": setops})
         log(f"  {label} {run} batch of {len(batch)}: wall "
             f"{wall:.3f} ms, host syncs {st.host_syncs} (sync debug: "
             f"{len(syncs)} at {syncs}), dispatches {st.device_dispatches}, "
@@ -952,20 +1202,31 @@ def lockstep_batches(table, batch, want, dev_name, label, sync_check):
             f"records_evaluated {st.records_evaluated:.0f} (= host lockstep, "
             f"{host_s:.1f} s); spans ms "
             f"{ {k: round(v, 3) for k, v in spans.items()} }")
+        log(f"  {label} {run} batch: {SetopLog.text(setops)}")
     check(runs[1]["atom_cache_hits"] > 0, f"{label}: no atom-cache hit on "
           "the repeated batch")
+    batches = 3
+    if split:
+        res, wall, cats, rows = host_split(lambda: sess.execute(batch))
+        for j, bm in enumerate(res.bitmaps):
+            check(np.array_equal(bm, want[j]), f"{label} cProfile batch: "
+                  f"query {j} != numpy oracle")
+        log_split(f"{label} cached batch", wall, cats, rows)
+        batches += 1
     # the K5 path again on resident columns, under the profiler
     sess.persist_atom_cache = False
+    setops = SetopLog(be)
     res, dev_ms, wall = profiled(lambda: sess.execute(batch))
+    setops = setops.done(len(batch))
     sess.persist_atom_cache = True
     for j, bm in enumerate(res.bitmaps):
         check(np.array_equal(bm, want[j]), f"{label} profiled batch: "
               f"query {j} != numpy oracle")
     log(f"  {label} profiled batch (atom cache off): device time "
         f"{dev_ms:.3f} ms of {wall:.3f} ms wall (device busy share "
-        f"{dev_ms / wall:.4f})")
+        f"{dev_ms / wall:.4f}); {SetopLog.text(setops)}")
     return {"runs": runs, "busy_ms": dev_ms, "busy_wall_ms": wall,
-            "backend": be}
+            "backend": be, "batches": batches}
 
 
 def phase_lockstep(table, templates, results, dev_name, sync_check):
@@ -979,7 +1240,7 @@ def phase_lockstep(table, templates, results, dev_name, sync_check):
     log(f"  batch: 64 queries from {len(templates)} templates, "
         f"{len(set(pick))} distinct")
     return lockstep_batches(table, batch, want, dev_name, "lockstep",
-                            sync_check)
+                            sync_check, split=True)
 
 
 def phase_lockstep_strings(table, trees, results, dev_name, sync_check):
@@ -1014,6 +1275,7 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
 
     from repro_torch.columnar import (ExecConfig, StreamSession, random_tree,
                                       run_query)
+    from repro_torch.kernels import LAUNCHES
     rng = np.random.default_rng(0)
     pool = [random_tree(table, 6, 3, rng) for _ in range(8)]
     queries = [pool[rng.integers(8)] for _ in range(64)]
@@ -1041,7 +1303,7 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
         f"uploaded {res.stats.upload_bytes:.0f} B of {len(resident)} "
         f"columns ({time.perf_counter() - t0:.1f} s with oracle checks)")
     start_path()
-    d0 = be.device_dispatches
+    c0 = counts_of(be)
     walls, per_round = [], []
     for rnd in range(1, rounds + 1):
         old_n = table.n_records
@@ -1050,7 +1312,9 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
         for name in table.columns:       # statistics rebuild after an
             table.stats(name)            # append, outside the drain
         futs = [stream.submit(q) for q in queries]
+        setops = SetopLog(be)
         res, wall, syncs, spans = checked_run(stream.drain, sync_check)
+        setops = setops.done(len(queries))
         walls.append(wall)
         check_round(rnd, futs)
         st = res.stats
@@ -1070,21 +1334,23 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
                           "atoms_delta_extended": st.atoms_delta_extended,
                           "delta_reuse_ratio": st.delta_reuse_ratio,
                           "dispatches": st.device_dispatches,
-                          "spans_ms": spans})
+                          "spans_ms": spans, "setops": setops})
         log(f"  round {rnd}: +{n_append} rows -> {table.n_records}; drain "
             f"{wall:.3f} ms, host syncs 1 (sync debug: {syncs}), upload "
             f"{st.upload_bytes:.0f} B (dirty tails {n_res} x {tail} B), "
             f"atoms_delta_extended {st.atoms_delta_extended}, "
             f"delta_reuse_ratio {st.delta_reuse_ratio:.4f}, dispatches "
             f"{st.device_dispatches}; spans ms "
-            f"{ {k: round(v, 3) for k, v in spans.items()} }")
+            f"{ {k: round(v, 3) for k, v in spans.items()} }; "
+            f"{SetopLog.text(setops)}")
     # one more drain of the same queries, no append, under the profiler
     futs = [stream.submit(q) for q in queries]
     res, dev_ms, pwall = profiled(stream.drain)
     check_round(rounds + 1, futs)
     check(res.stats.host_syncs == 1, "profiled drain: host_syncs != 1")
-    dispatches = be.device_dispatches - d0
-    end_path("stream", dispatches)
+    counts = {k: v - c0[k] for k, v in counts_of(be).items()}
+    end_path("stream", counts)
+    n_queries = 64 * (rounds + 1)
     ss = stream.stats
     check(ss.degraded_batches == 0 and ss.quarantined_queries == 0
           and ss.retries == 0, f"stream degraded: {ss.degraded_batches} "
@@ -1098,8 +1364,9 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
         f"atoms_delta_extended {ss.atoms_delta_extended}, degraded 0, "
         f"quarantined 0, retries 0; a further drain without append, "
         f"profiled: device {dev_ms:.3f} ms of {pwall:.3f} ms wall (busy "
-        f"share {dev_ms / pwall:.4f}); launches per query "
-        f"{dispatches / (64 * (rounds + 1)):.2f}")
+        f"share {dev_ms / pwall:.4f}); per query over the {rounds + 1} "
+        f"drains: {counts['device_dispatches'] / n_queries:.2f} device "
+        f"dispatches, {sum(LAUNCHES.values()) / n_queries:.2f} launches")
     return {"rounds": per_round, "busy_ms": dev_ms, "busy_wall_ms": pwall}
 
 
@@ -1113,7 +1380,57 @@ def smi_line() -> str:
         "nvidia-smi: no output"
 
 
-def main() -> int:
+def main_compare(src: Path) -> int:
+    """The fused chain's times at TIMED_KS and a 64-query lockstep batch
+    (first and cached walls, launches and peak memory, then a cProfile
+    split of a cached batch) with the package found under ``src``.  The bitmaps'
+    digest lets two trees' runs be held against each other."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import make_forest_table, random_query_suite
+    from repro_torch.columnar import ExecConfig, QuerySession
+    from repro_torch.kernels import LAUNCHES, _build
+    dev = torch.device("cuda", torch.cuda.current_device())
+    log(f"compare: the package under {src}")
+    log(smi_line())
+    _build.lib()
+    chain = chain_timings(dev)
+    for k, t in chain.items():
+        log_timing(f"fused_chain_scan K={k}", t)
+    table = make_forest_table(5_800_000, n_dup=12, seed=7)
+    trees = random_query_suite(table, 32, 16, 3, seed=0)[:8]
+    rng = np.random.default_rng(0)
+    batch = [trees[int(rng.integers(len(trees)))] for _ in range(64)]
+    sess = QuerySession(table, config=ExecConfig(
+        planner="deepfish", engine="tape", batched=True))
+    upload_columns(sess, batch)
+    runs = {}
+    for run in ("first", "cached"):
+        n0 = sum(LAUNCHES.values())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sess.execute(batch)
+        wall = (time.perf_counter() - t0) * 1e3
+        runs[run] = {"wall_ms": wall,
+                     "launches": sum(LAUNCHES.values()) - n0,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"  lockstep {run} batch of 64: {wall:.3f} ms wall, "
+            f"{runs[run]['launches']} launches, peak memory "
+            f"{runs[run]['peak_bytes']} B")
+    res, wall, cats, rows = host_split(lambda: sess.execute(batch))
+    log_split("lockstep cached batch", wall, cats, rows)
+    digest = hashlib.sha256(b"".join(b.tobytes() for b in res.bitmaps))
+    log(json.dumps({"compare": str(src), "chain_ms": {
+        str(k): t["ms"] for k, t in chain.items()}, "runs": runs,
+        "cprofile_wall_ms": wall, "split_s": cats,
+        "bitmaps_sha256": digest.hexdigest()}))
+    return 0
+
+
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -1123,11 +1440,19 @@ def main() -> int:
         print("chip_smoke.py runs on an NVIDIA GPU: torch.cuda.is_available()"
               " is false", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke.py needs the repository beside it "
-              "(src/repro_torch not found)", file=sys.stderr)
+    src = ROOT / "src"
+    if len(argv) == 2 and argv[0] == "--compare":
+        src = Path(argv[1]).resolve()
+    elif argv:
+        print("usage: chip_smoke.py [--compare SRC]", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke.py needs the repository beside it "
+              f"({src / 'repro_torch'} not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    if argv:
+        return main_compare(src)
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1147,8 +1472,10 @@ def main() -> int:
     timing = kernel_timings(dev)
     log(f"  {cases} cases exact; {time.perf_counter() - t0:.1f} s")
     for name, t in timing.items():
-        log(f"  {name}: {t['ms'] * 1e3:.1f} us (bound {t['bound_ms'] * 1e3:.1f}"
-            f" us by {t['bound_by']}), plain {t['plain_ms'] * 1e3:.1f} us")
+        log_timing(name, t)
+        for by, tag in (("by_k", "K"), ("by_g", "G")):
+            for x, v in t.get(by, {}).items():
+                log_timing(f"{name} {tag}={x}", v)
 
     log("  stacked kernels at the main shape:")
     stacked = stacked_timings(dev)
@@ -1171,19 +1498,27 @@ def main() -> int:
         reset_launches()
         NEEDED.clear()
 
-    def end_path(path, dispatches=None):
+    def end_path(path, counts=None):
+        """``counts``: the path's ACCOUNT counters of its backend (None
+        for a tape path)."""
         torch.cuda.synchronize()
         got = dict(LAUNCHES)
         by_path[path] = got
         log(f"  {path} path launches: {got}")
-        if dispatches is None:
+        if counts is None:
             need = {k: NEEDED[k] for k in KERNELS}
             check(got == need, f"{path} path: launches {got} != the "
                   f"launches its tapes need {need}")
         else:
-            check(sum(got.values()) == dispatches, f"{path} path: "
-                  f"{sum(got.values())} launches != {dispatches} device "
-                  "dispatches")
+            grouped = got["bitmap_setop_grouped"]
+            others = sum(got.values()) - grouped
+            want = counts["device_dispatches"] - counts["setops_deferred"]
+            check(grouped == counts["setop_launches"], f"{path} path: "
+                  f"{grouped} grouped launches != the backend's "
+                  f"setop_launches {counts['setop_launches']}")
+            check(others == want, f"{path} path: {others} other launches "
+                  f"!= {counts['device_dispatches']} device dispatches - "
+                  f"{counts['setops_deferred']} deferred set operations")
         for name in PATH_KERNELS[path]:
             check(got[name] > 0, f"{name} was never launched on the {path} "
                   "path")
@@ -1216,10 +1551,10 @@ def main() -> int:
     start_path()
     lock = phase_lockstep(table, trees[:8], results[:8], "cuda",
                           sync_check=True)
-    end_path("lockstep", lock["backend"].device_dispatches)
-    n_q = 64 * 3
+    end_path("lockstep", counts_of(lock["backend"]))
+    n_q = 64 * lock["batches"]
     log(f"  launches per query {sum(by_path['lockstep'].values()) / n_q:.2f}"
-        f" over the 3 batches")
+        f" over the {lock['batches']} batches")
     del table, trees, results, lock
     torch.cuda.empty_cache()
     log(f"  phase 8 (numeric) took {time.perf_counter() - t0:.1f} s")
@@ -1237,7 +1572,7 @@ def main() -> int:
     start_path()
     lock_s = phase_lockstep_strings(table, trees, results, "cuda",
                                     sync_check=True)
-    end_path("lockstep_strings", lock_s["backend"].device_dispatches)
+    end_path("lockstep_strings", counts_of(lock_s["backend"]))
     del lock_s, trees, results
     torch.cuda.empty_cache()
     log(f"  phase 8 (strings) took {time.perf_counter() - t0:.1f} s")
@@ -1269,10 +1604,11 @@ def main() -> int:
                "max_abs_err": errs[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": None}
-        if "by_q" in t:
-            row["by_q"] = {str(q): {k: v[k] for k in ("ms", "plain_ms",
+        for by in ("by_q", "by_k", "by_g"):
+            if by in t:
+                row[by] = {str(x): {k: v[k] for k in ("ms", "plain_ms",
                                                       "bound_ms")}
-                           for q, v in t["by_q"].items()}
+                           for x, v in t[by].items()}
         if name in NOT_TPU_KERNELS:
             row["tpu_kernel"] = False
         rows.append(row)
@@ -1290,4 +1626,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -42,7 +42,8 @@ those ops.
 The backend is also a device-resident :class:`~repro_torch.core.sets.
 SetBackend`, which the lockstep ``QuerySession`` drives (every
 ``StreamSession`` drain runs it): BestD's set algebra through
-``bitmap_setop`` (K2), an atom wanted by Q queries in the same round
+``bitmap_setop_grouped`` (K2, see "Deferred set operations" below), an
+atom wanted by Q queries in the same round
 through ``predicate_scan_multi`` (K5) or ``dict_lookup_scan_multi`` (K6)
 over the Q stacked sets, cached shared atoms through the stacked AND
 ``bitmap_inter_multi``, and the union a multi-set atom needs for its cost
@@ -50,6 +51,22 @@ accounting through ``bitmap_union_reduce``.  Nothing leaves the device
 until the batch's one bundled :meth:`materialize`.  After a table append
 :meth:`refresh` uploads only the dirty tail blocks and :meth:`extend_set`
 splices appended rows into cached sets, neither with a host sync.
+
+Deferred set operations.  ``inter`` / ``union`` / ``diff`` launch
+nothing: each allocates its output, queues ``(a, b, out, opcode)`` with a
+dependency level (one more than the deepest pending input) and returns
+the output set at once.  The queue holds its inputs' tensors, so no input
+goes back to the caching allocator (to be handed out as a later pending
+output) before the launch that reads it is enqueued.  The first method
+that reads a pending set's words or popcounts (``apply_atom[_multi]``,
+``inter_multi``, ``count``, ``extend_set``, the host fallbacks) flushes
+the queue, and ``materialize`` always does: one ``bitmap_setop_grouped``
+launch per level, in level order, without a host sync.  The reference's
+counters keep their meaning (``stats.setops`` and ``device_dispatches``
+count one per set operation); the port-only ``setops_deferred``,
+``setop_launches``, ``setop_flushes`` and ``setop_level_max`` count the
+queued operations, the grouped launches, the flushes and the largest
+level.  The tape paths launch their SETOPs one by one, as before.
 """
 from __future__ import annotations
 
@@ -65,8 +82,8 @@ from ..core.sets import SetBackend, Stats
 from ..core.tape import (ATOM, CHAIN, CMP_OPCODE, EMPTY, FULL, IN_OPCODE,
                          OP_AND, OP_ANDNOT, OP_OR, PlanTape, SETOP,
                          device_atom, lookup_atom, op_observation_meta)
-from ..kernels.bitmap_ops import (bitmap_inter_multi, bitmap_setop,
-                                  bitmap_union_reduce)
+from ..kernels.bitmap_ops import (SetOp, bitmap_inter_multi, bitmap_setop,
+                                  bitmap_setop_grouped, bitmap_union_reduce)
 from ..kernels.dict_lookup import dict_lookup_scan, dict_lookup_scan_multi
 from ..kernels.fused_chain import fused_chain_scan
 from ..kernels.predicate_scan import predicate_scan, predicate_scan_multi
@@ -244,6 +261,13 @@ class DeviceTapeBackend(SetBackend):
         self.host_fallbacks = 0
         self.device_dispatches = 0
         self.uploaded_bytes = 0       # host->device column traffic
+        # deferred set operations (port-only counters, see the module doc)
+        self.setops_deferred = 0
+        self.setop_launches = 0
+        self.setop_flushes = 0
+        self.setop_level_max = 0
+        self._setop_queue: List[Tuple[int, SetOp]] = []
+        self._pending: Dict[int, int] = {}   # id(out bits) -> its level
         self.last_tape: Optional[PlanTape] = None
         self._cols: Dict[str, object] = {}
         self._full: Optional[_DevSet] = None
@@ -372,6 +396,7 @@ class DeviceTapeBackend(SetBackend):
         proven the append via :meth:`Table.delta_since`.  Returns the
         bytes uploaded."""
         _faults.trip("device.upload", backend=self)
+        self._flush()
         if self._zones:
             self._zones.clear()
         n_new = self.table.n_records
@@ -402,6 +427,7 @@ class DeviceTapeBackend(SetBackend):
         streaming delta path): the old bitmap's blocks stay on device and
         only the words of the blocks the delta touches upload — one OR
         launch, no host sync."""
+        self._ready(s)
         delta_hits = np.asarray(delta_hits, dtype=bool)
         flat = extend_bitmap(np.zeros(n_words(old_n), dtype=np.uint32),
                              old_n, delta_hits, old_n + len(delta_hits))
@@ -431,6 +457,7 @@ class DeviceTapeBackend(SetBackend):
 
     def _pull_flat(self, d: _DevSet) -> np.ndarray:
         """One host sync: fetch a device set as host flat packed words."""
+        self._ready(d)
         self.host_syncs += 1
         flat = d.bits.reshape(-1)[: n_words(self.n)].cpu().numpy()
         return flat.view(np.uint32).copy()
@@ -451,10 +478,40 @@ class DeviceTapeBackend(SetBackend):
         return self._empty
 
     def _setop(self, a: _DevSet, b: _DevSet, code: int) -> _DevSet:
+        """Queue ``a OP b`` (see "Deferred set operations" in the module
+        doc); the output set is returned at once and computed at the next
+        flush."""
         self.stats.setops += 1
         self.device_dispatches += 1
-        out, pops = bitmap_setop(a.bits, b.bits, code)
-        return _DevSet(out, pops)
+        self.setops_deferred += 1
+        out = _DevSet(torch.empty_like(a.bits), torch.empty_like(a.pops))
+        level = 1 + max(self._pending.get(id(a.bits), 0),
+                        self._pending.get(id(b.bits), 0))
+        self._setop_queue.append((level, SetOp(a.bits, a.pops, b.bits, b.pops,
+                                               out.bits, out.pops, code)))
+        self._pending[id(out.bits)] = level
+        return out
+
+    def _flush(self) -> None:
+        """Launch every queued set operation: one grouped launch per
+        dependency level, in level order, with no host sync."""
+        if not self._setop_queue:
+            return
+        queue, self._setop_queue, self._pending = self._setop_queue, [], {}
+        depth = max(level for level, _ in queue)
+        levels: List[List[SetOp]] = [[] for _ in range(depth)]
+        for level, op in queue:
+            levels[level - 1].append(op)
+        self.setop_flushes += 1
+        self.setop_launches += len(levels)
+        self.setop_level_max = max(self.setop_level_max,
+                                   max(len(lv) for lv in levels))
+        bitmap_setop_grouped(levels)
+
+    def _ready(self, *sets: _DevSet) -> None:
+        """Flush the queue if one of ``sets`` is still pending."""
+        if self._pending and any(id(d.bits) in self._pending for d in sets):
+            self._flush()
 
     def inter(self, a, b):
         return self._setop(a, b, OP_AND)
@@ -466,6 +523,7 @@ class DeviceTapeBackend(SetBackend):
         return self._setop(a, b, OP_ANDNOT)
 
     def count(self, d: _DevSet) -> float:
+        self._ready(d)
         self.host_syncs += 1
         return float(d.pops.sum().item())
 
@@ -476,6 +534,7 @@ class DeviceTapeBackend(SetBackend):
         cost a launch each)."""
         if len(ds) == 1:
             return [self.inter(a, ds[0])]
+        self._ready(a, *ds)
         bits = torch.stack([d.bits for d in ds])
         self.stats.setops += len(ds)
         self.device_dispatches += 1
@@ -613,6 +672,7 @@ class DeviceTapeBackend(SetBackend):
         return None if zone is None else self._place(zone)
 
     def apply_atom(self, atom: Atom, d: _DevSet) -> _DevSet:
+        self._ready(d)
         col, lmask = self._bind_atom(atom)
         zone = self._bind_zone(atom, col)
         self._account([atom], d.pops, device=col is not None, zone=zone)
@@ -638,6 +698,7 @@ class DeviceTapeBackend(SetBackend):
         launch (K5, or K6 for a lookup atom)."""
         if len(ds) == 1:
             return [self.apply_atom(atom, ds[0])]
+        self._ready(*ds)
         bits = torch.stack([d.bits for d in ds])
         pops = torch.stack([d.pops for d in ds])
         q, n, w = bits.shape
@@ -675,6 +736,7 @@ class DeviceTapeBackend(SetBackend):
         vectors; each is flattened, and split back into one observation
         per query after the fetch."""
         _faults.trip("device.dispatch", backend=self, where="materialize")
+        self._flush()
         nw = n_words(self.n)
         m = len(self._pend_records)
         fb_lens = [t.numel() for t in self._fb_src]
@@ -886,7 +948,12 @@ class DeviceTapeBackend(SetBackend):
             elif op.kind == EMPTY:
                 s = self.empty()
             elif op.kind == SETOP:
-                s = self._setop(slots[op.a], slots[op.b], op.setop)
+                # a tape's SETOPs form one dependent chain: launched one
+                # by one, as on the all-device tape path
+                self.stats.setops += 1
+                self.device_dispatches += 1
+                s = _DevSet(*bitmap_setop(slots[op.a].bits, slots[op.b].bits,
+                                          op.setop))
             else:
                 src = slots[op.a]
                 cixs, vixs, opcodes = meta[oi]

@@ -35,7 +35,8 @@ LAUNCHES: Dict[str, int] = {"predicate_scan": 0, "bitmap_setop": 0,
                             "predicate_scan_multi": 0,
                             "dict_lookup_scan_multi": 0,
                             "bitmap_inter_multi": 0,
-                            "bitmap_union_reduce": 0}
+                            "bitmap_union_reduce": 0,
+                            "bitmap_setop_grouped": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -48,8 +49,10 @@ _SIGNATURES = {
     # a, b, opcode, n, w, out, pops_out, stream
     "rt_bitmap_setop": [_P, _P, _I, _I, _I, _P, _P, _P],
     # col_ptrs, values, opcodes, k, conj, bits, pops_in, n, w, out,
-    # pops_out, stream
+    # pops_out, stream (the table on the device; _small: on the host)
     "rt_fused_chain_scan": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "rt_fused_chain_scan_small": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                                  _P],
     # col, bits, pops_in, mask, u, n, w, out, pops_out, stream
     "rt_dict_lookup_scan": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # col, bits, pops_in, value, opcode, q, n, w, out, pops_out, stream
@@ -61,6 +64,8 @@ _SIGNATURES = {
     "rt_bitmap_inter_multi": [_P, _P, _I, _I, _I, _P, _P, _P],
     # bits, q, n, w, out, pops_out, stream
     "rt_bitmap_union_reduce": [_P, _I, _I, _I, _P, _P, _P],
+    # table, g, n, w, stream
+    "rt_bitmap_setop_grouped": [_P, _I, _I, _I, _P],
 }
 
 

@@ -7,12 +7,20 @@ bytes, about 3 MiB at the tape's shapes, so in practice its launch).
 CPU tensors run :func:`bitmap_setop_plain`; CUDA tensors launch the
 kernel or raise.
 
+The lockstep and stream paths run K2 as :func:`bitmap_setop_grouped`:
+the independent set operations of one dependency level in one launch
+(the device backend defers BestD's set algebra and launches one grouped
+kernel per level).  Its plain version runs the per-op plain versions in
+order.
+
 The lockstep executor's two stacked set operations live in the same CUDA
 source: :func:`bitmap_inter_multi` (one set ANDed into Q stacked sets) and
 :func:`bitmap_union_reduce` (the OR of Q stacked sets), both with the
 fused popcount.  They replace jnp code of the reference, not TPU kernels.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -53,6 +61,84 @@ def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int):
     _build.check(rc, "bitmap_setop")
     _build.LAUNCHES["bitmap_setop"] += 1
     return out, pops
+
+
+class SetOp(NamedTuple):
+    """One operation of a grouped launch: ``out = a OP b`` with the
+    result's per-row popcount written to ``out_pops``.  Every bitmap is
+    i32[N, W] and every popcount i32[N]; ``a_pops`` and ``b_pops`` must be
+    the exact popcounts of ``a`` and ``b`` (the kernel reads no word of a
+    row whose popcount is 0)."""
+
+    a: torch.Tensor
+    a_pops: torch.Tensor
+    b: torch.Tensor
+    b_pops: torch.Tensor
+    out: torch.Tensor
+    out_pops: torch.Tensor
+    opcode: int
+
+
+#: int64 fields per op in the grouped launch's table (csrc GroupedField)
+_GROUPED_FIELDS = 7
+
+
+def bitmap_setop_grouped_plain(levels: Sequence[Sequence[SetOp]]) -> None:
+    for level in levels:
+        for op in level:
+            out, pops = bitmap_setop_plain(op.a, op.b, op.opcode)
+            op.out.copy_(out)
+            op.out_pops.copy_(pops)
+
+
+def _check_grouped(op: SetOp, shape, device) -> None:
+    for name in ("a", "b", "out"):
+        _build.expect(getattr(op, name), name, torch.int32, shape, device)
+    for name in ("a_pops", "b_pops", "out_pops"):
+        _build.expect(getattr(op, name), name, torch.int32, shape[:1],
+                      device)
+    if op.opcode not in (AND, OR, ANDNOT):
+        raise ValueError(f"bad opcode {op.opcode}")
+
+
+def bitmap_setop_grouped(levels: Sequence[Sequence[SetOp]]) -> None:
+    """Run the :class:`SetOp` s of each level, one launch per level, in
+    level order: an op may read the outputs of earlier levels, never of
+    its own.  Every op shares one shape i32[N, W].  Writes the outputs in
+    place; returns nothing.  Every level's table is built in one pinned
+    host buffer, taken fresh from torch's pinned caching allocator (which
+    keeps a block until the copy that read it has run), and uploaded with
+    one copy that does not sync the host."""
+    levels = [lv for lv in levels if lv]
+    if not levels:
+        return
+    dev = levels[0][0].a.device
+    if dev.type == "cpu":
+        return bitmap_setop_grouped_plain(levels)
+    if dev.type != "cuda":
+        raise ValueError(f"bitmap_setop_grouped: unsupported device {dev}")
+    shape = levels[0][0].a.shape
+    if len(shape) != 2:
+        raise ValueError("bitmaps must be i32[N, W]")
+    n, w = shape
+    fields = []
+    for level in levels:
+        for op in level:
+            _check_grouped(op, shape, dev)
+            fields += (op.a.data_ptr(), op.b.data_ptr(), op.out.data_ptr(),
+                       op.a_pops.data_ptr(), op.b_pops.data_ptr(),
+                       op.out_pops.data_ptr(), int(op.opcode))
+    host = torch.tensor(fields, dtype=torch.int64).pin_memory()
+    table = host.to(dev, non_blocking=True)
+    base = table.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        for level in levels:
+            rc = lib.rt_bitmap_setop_grouped(base, len(level), n, w, stream)
+            _build.check(rc, "bitmap_setop_grouped")
+            _build.LAUNCHES["bitmap_setop_grouped"] += 1
+            base += 8 * _GROUPED_FIELDS * len(level)
 
 
 def bitmap_inter_multi_plain(a: torch.Tensor, bits: torch.Tensor):

@@ -6,65 +6,230 @@
 // f32[N, K, 32, W]).
 //
 // Bound on an H100: bytes.  Per live word it must read K * 128 column
-// bytes; the bitmaps add 8 bytes per word.
+// bytes; the bitmaps add 8 bytes per word.  At the main shape (N = 1024
+// blocks of 8192 records, every word live) that is about 20.7 us for
+// K = 2 and 30.7 us for K = 3 at 3.35 TB/s.  A warp that owns one word
+// at a time keeps one 128-byte column load in flight, behind two
+// dependent loads (the bitmap word, then the column pointer): about 41 %
+// of the bound at K = 3.
 // Design: the K columns are NOT stacked (a stack would copy K columns per
-// CHAIN op).  The kernel takes a device table of K column base pointers,
-// K f32 constants and K opcodes; K and the connective are runtime values
-// with no cap.  As in predicate_scan, a warp owns one word: it reads K
-// coalesced 128-byte segments, combines the comparisons in registers and
-// packs the word with one __ballot_sync.  Dead blocks and zero input words
-// skip their column reads.
+// CHAIN op).  The kernel takes a table of K column base pointers, K f32
+// constants and K opcodes; K and the connective have no cap.  One thread
+// block owns one column block.  Each warp reads 32 bitmap words with one
+// coalesced load and shuffles each word to the lanes that need it; the
+// column loads are 16 bytes a lane (a 512-byte warp load covers 4 words),
+// all K of a step issued before any compare.  K = 1..8 are compiled
+// apart: the table travels in the kernel's parameters (no upload before
+// the launch) and is staged in shared memory once per thread block, the K
+// loop is unrolled, and registers are capped so that enough blocks stay
+// resident.  A larger K takes a generic path that reads an uploaded table
+// from global memory in a runtime loop.  Comparisons are selected by a
+// 4-bit mask per opcode (lt, eq, gt, unordered), branch-free and without
+// fast-math: NaN compares false except under NE.  Dead blocks and zero
+// input words skip their column reads.  The columns must be 16-byte
+// aligned (the wrapper checks).
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(rt::kThreads)
-fused_chain_kernel(const long long* __restrict__ col_ptrs,
+constexpr unsigned kFull = 0xffffffffu;
+// widest chain compiled with its own unrolled column loop
+constexpr int kMaxStaticK = 8;
+
+// opcode (LT, LE, GT, GE, EQ, NE) -> which of x < v, x == v, x > v and
+// "unordered" (a NaN on either side) make the comparison true
+__host__ __device__ __forceinline__ int compare_mask(int op) {
+  switch (op) {
+    case 0: return 1;          // <
+    case 1: return 1 | 2;      // <=
+    case 2: return 4;          // >
+    case 3: return 4 | 2;      // >=
+    case 4: return 2;          // ==
+    default: return 1 | 4 | 8; // != (true on NaN)
+  }
+}
+
+__device__ __forceinline__ int hit(float x, float v, int mask) {
+  int r = (int)(x < v) | ((int)(x == v) << 1) | ((int)(x > v) << 2);
+  r |= (int)(r == 0) << 3;
+  return (r & mask) != 0;
+}
+
+// the comparisons of 4 consecutive records as bits 0..3
+__device__ __forceinline__ int nibble(float4 x, float v, int mask) {
+  return hit(x.x, v, mask) | (hit(x.y, v, mask) << 1) |
+         (hit(x.z, v, mask) << 2) | (hit(x.w, v, mask) << 3);
+}
+
+// a chain of K <= kMaxStaticK columns, passed by value
+struct ChainArgs {
+  const float4* col[kMaxStaticK];
+  float val[kMaxStaticK];
+  int mask[kMaxStaticK];
+};
+
+// thread blocks per SM the compiler must fit (registers cap at
+// 65536 / (256 * value)): the whole grid of 1024 blocks resident at once
+// for K <= 2; for wider chains registers matter more than occupancy
+template <int K>
+struct MinBlocks {
+  static constexpr int value = (K >= 1 && K <= 2) ? 8 : 4;
+};
+
+// K > 0: a K-column chain from ``args``, staged in shared memory; K == 0:
+// the generic path, k columns from the device table (col_ptrs, values,
+// opcodes).
+//
+// A warp owns 32 words of the row at a time (lane i ends with word
+// base + i).  Each step covers 4 of them: lane 8 * s + q loads records
+// 4q..4q+3 of word u + s as one float4 from each of the K columns (a
+// 512-byte warp load per column), makes their 4-bit nibble of hits, and
+// the 8 lanes of word u + s OR their nibbles into the word by shuffles.
+// A zero input word is skipped by the 8 lanes that would load it.
+template <int K, bool kConj>
+__global__ void __launch_bounds__(rt::kThreads, MinBlocks<K>::value)
+fused_chain_kernel(ChainArgs args, const long long* __restrict__ col_ptrs,
                    const float* __restrict__ values,
-                   const int* __restrict__ opcodes, int k, int conj,
+                   const int* __restrict__ opcodes, int k,
                    const int* __restrict__ bits,
                    const int* __restrict__ pops_in, int w,
                    int* __restrict__ out, int* __restrict__ pops_out) {
+  constexpr int KS = K > 0 ? K : 1;
+  __shared__ const float4* s_col[KS];
+  __shared__ float s_val[KS];
+  __shared__ int s_mask[KS];
   const int n = blockIdx.x;
   const long long row = (long long)n * w;
   if (pops_in[n] == 0) {
     rt::write_dead_block(out + row, w, pops_out + n);
     return;
   }
+  if constexpr (K > 0) {
+    // staged once per block with constant indices: the loop below reads
+    // shared memory, never a copy of ``args`` in local memory
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        s_col[j] = args.col[j];
+        s_val[j] = args.val[j];
+        s_mask[j] = args.mask[j];
+      }
+    }
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int s = lane >> 3;     // which of the step's 4 words
+  const int q = lane & 7;      // which 4 records of that word
   int count = 0;
-  for (int i = warp; i < w; i += rt::kWarps) {
-    const int in = __ldg(bits + row + i);
-    int word = 0;
-    if (in != 0) {  // warp-uniform
-      const long long rec = (row + i) * 32 + lane;
-      bool acc = conj != 0;
-      for (int j = 0; j < k; ++j) {
-        const float* c = reinterpret_cast<const float*>(col_ptrs[j]);
-        const bool hit = rt::compare(__ldg(c + rec), values[j], opcodes[j]);
-        acc = conj ? (acc && hit) : (acc || hit);
+  for (int base = warp * 32; base < w; base += rt::kThreads) {
+    const int mine = base + lane < w ? __ldg(bits + row + base + lane) : 0;
+    int res = 0;
+#pragma unroll
+    for (int u = 0; u < 32; u += 4) {
+      if (base + u >= w) break;                // warp-uniform
+      const int in = __shfl_sync(kFull, mine, u + s);
+      // float4 index of records 4q..4q+3 of word base + u + s
+      const long long f4 = (row + base + u + s) * 8 + q;
+      int acc = kConj ? 0xF : 0;
+      if constexpr (K > 0) {
+        float4 x[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          x[j] = in != 0 ? __ldg(s_col[j] + f4) : make_float4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int h = nibble(x[j], s_val[j], s_mask[j]);
+          acc = kConj ? (acc & h) : (acc | h);
+        }
+      } else {
+#pragma unroll 4
+        for (int j = 0; j < k; ++j) {
+          const float4* c =
+              reinterpret_cast<const float4*>(__ldg(col_ptrs + j));
+          const float4 x = in != 0 ? __ldg(c + f4) : make_float4(0, 0, 0, 0);
+          const int h = nibble(x, __ldg(values + j),
+                               compare_mask(__ldg(opcodes + j)));
+          acc = kConj ? (acc & h) : (acc | h);
+        }
       }
-      word = (int)__ballot_sync(0xffffffffu, acc) & in;
+      int word = acc << (4 * q);
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      word |= __shfl_xor_sync(kFull, word, 4);
+      word &= in;
+      // lane u + t takes word u + t from the first lane of group t
+      const int got = __shfl_sync(kFull, word, 8 * ((lane - u) & 3));
+      if ((lane >> 2) == (u >> 2)) res = got;
     }
-    if (lane == 0) {
-      out[row + i] = word;
-      count += __popc(word);
+    if (base + lane < w) {
+      out[row + base + lane] = res;
+      count += __popc(res);
     }
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(kFull, count, off);
   rt::block_store_sum(count, pops_out + n);
+}
+
+template <int K>
+void launch(const ChainArgs& args, const long long* col_ptrs,
+            const float* values, const int* opcodes, int k, int conj,
+            const int* bits, const int* pops_in, int n, int w, int* out,
+            int* pops_out, cudaStream_t stream) {
+  if (conj) {
+    fused_chain_kernel<K, true><<<n, rt::kThreads, 0, stream>>>(
+        args, col_ptrs, values, opcodes, k, bits, pops_in, w, out, pops_out);
+  } else {
+    fused_chain_kernel<K, false><<<n, rt::kThreads, 0, stream>>>(
+        args, col_ptrs, values, opcodes, k, bits, pops_in, w, out, pops_out);
+  }
 }
 
 }  // namespace
 
+// K <= 8: host_cols, host_values and host_opcodes are HOST arrays, copied
+// into the kernel's parameters at the launch.
+extern "C" int rt_fused_chain_scan_small(const long long* host_cols,
+                                         const float* host_values,
+                                         const int* host_opcodes, int k,
+                                         int conj, const int* bits,
+                                         const int* pops_in, int n, int w,
+                                         int* out, int* pops_out,
+                                         void* stream) {
+  if (k < 1 || k > kMaxStaticK) return (int)cudaErrorInvalidValue;
+  ChainArgs args = {};
+  for (int j = 0; j < k; ++j) {
+    args.col[j] = reinterpret_cast<const float4*>(host_cols[j]);
+    args.val[j] = host_values[j];
+    args.mask[j] = compare_mask(host_opcodes[j]);
+  }
+  if (n > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (k) {
+#define RT_CHAIN_CASE(K)                                                  \
+  case K:                                                                 \
+    launch<K>(args, nullptr, nullptr, nullptr, k, conj, bits, pops_in, n, \
+              w, out, pops_out, s);                                       \
+    break;
+      RT_CHAIN_CASE(1) RT_CHAIN_CASE(2) RT_CHAIN_CASE(3) RT_CHAIN_CASE(4)
+      RT_CHAIN_CASE(5) RT_CHAIN_CASE(6) RT_CHAIN_CASE(7) RT_CHAIN_CASE(8)
+#undef RT_CHAIN_CASE
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// any K: col_ptrs, values and opcodes are DEVICE arrays (the generic path)
 extern "C" int rt_fused_chain_scan(const long long* col_ptrs,
                                    const float* values, const int* opcodes,
                                    int k, int conj, const int* bits,
                                    const int* pops_in, int n, int w, int* out,
                                    int* pops_out, void* stream) {
   if (n > 0) {
-    fused_chain_kernel<<<n, rt::kThreads, 0, (cudaStream_t)stream>>>(
-        col_ptrs, values, opcodes, k, conj, bits, pops_in, w, out, pops_out);
+    launch<0>(ChainArgs{}, col_ptrs, values, opcodes, k, conj, bits,
+              pops_in, n, w, out, pops_out, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,12 @@ in one pass, plus the output's per-block popcount.
 
 Replaces the TPU kernel ``src/repro/kernels/fused_chain.py``,
 ``fused_chain_scan``.  The CUDA kernel is ``csrc/fused_chain.cu`` (bound:
-bytes, K column reads per live word).  The K columns are passed as a
-device table of base pointers instead of a stacked copy; the table (K
-pointers, K f32 constants, K opcodes) is uploaded from pinned memory
-without a host sync.  CPU tensors run :func:`fused_chain_scan_plain`;
-CUDA tensors launch the kernel or raise.
+bytes, K column reads per live word; 16-byte column loads, K <= 8
+compiled apart).  The K columns are passed as a table of base pointers
+instead of a stacked copy, with K f32 constants and K opcodes.  For K <= 8
+the table rides in the kernel's parameters; a wider chain uploads it from
+pinned memory without a host sync.  CPU tensors run
+:func:`fused_chain_scan_plain`; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,15 +28,19 @@ def fused_chain_scan_plain(cols: Sequence[torch.Tensor], bits: torch.Tensor,
     return out, ref.popcount_ref(out)
 
 
-def _arg_table(cols, values, opcodes, dev) -> torch.Tensor:
-    """i32[4K] device table: K int64 column pointers, K f32 constants, K
-    int32 opcodes, copied from pinned memory without a host sync."""
+#: widest chain whose table rides in the kernel's parameters
+MAX_STATIC_K = 8
+
+
+def _arg_table(cols, values, opcodes) -> np.ndarray:
+    """i32[4K] host table: K int64 column pointers, K f32 constants, K
+    int32 opcodes."""
     k = len(cols)
     host = np.empty(4 * k, dtype=np.int32)
     host[: 2 * k].view(np.int64)[:] = [c.data_ptr() for c in cols]
     host[2 * k: 3 * k].view(np.float32)[:] = np.asarray(values, np.float32)
     host[3 * k:] = np.asarray(opcodes, dtype=np.int32)
-    return torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+    return host
 
 
 def fused_chain_scan(cols: Sequence[torch.Tensor], bits: torch.Tensor,
@@ -56,18 +61,26 @@ def fused_chain_scan(cols: Sequence[torch.Tensor], bits: torch.Tensor,
     dev = bits.device
     for j, c in enumerate(cols):
         _build.expect(c, f"cols[{j}]", torch.float32, (n, 32 * w), dev)
+        if c.data_ptr() % 16:
+            raise ValueError(f"cols[{j}] must be 16-byte aligned (the "
+                             "kernel loads 4 records at a time)")
     _build.expect(pops, "pops", torch.int32, (n,), dev)
     if any(not 0 <= int(op) <= ref.NE for op in opcodes):
         raise ValueError(f"bad opcodes {tuple(opcodes)}")
-    table = _arg_table(cols, values, opcodes, dev)
+    host = _arg_table(cols, values, opcodes)
     out = torch.empty_like(bits)
     out_pops = torch.empty(n, dtype=torch.int32, device=dev)
-    base = table.data_ptr()
+    if k <= MAX_STATIC_K:
+        # read by the launch itself, before it returns
+        launch, base = _build.lib().rt_fused_chain_scan_small, host.ctypes.data
+    else:
+        table = torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+        launch, base = _build.lib().rt_fused_chain_scan, table.data_ptr()
     with torch.cuda.device(dev):
-        rc = _build.lib().rt_fused_chain_scan(
-            base, base + 8 * k, base + 12 * k, k, int(bool(conj)),
-            bits.data_ptr(), pops.data_ptr(), n, w, out.data_ptr(),
-            out_pops.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(base, base + 8 * k, base + 12 * k, k, int(bool(conj)),
+                    bits.data_ptr(), pops.data_ptr(), n, w, out.data_ptr(),
+                    out_pops.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_chain_scan")
     _build.LAUNCHES["fused_chain_scan"] += 1
     return out, out_pops

@@ -14,9 +14,11 @@ import numpy as np
 
 from repro_torch import ExecConfig, make_forest_table, random_query_suite, run_query
 from repro_torch.kernels import LAUNCHES, ref
-from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_inter_multi,
                                             bitmap_inter_multi_plain,
-                                            bitmap_setop, bitmap_setop_plain,
+                                            bitmap_setop,
+                                            bitmap_setop_grouped,
+                                            bitmap_setop_plain,
                                             bitmap_union_reduce,
                                             bitmap_union_reduce_plain)
 from repro_torch.kernels.dict_lookup import (dict_lookup_scan,
@@ -151,6 +153,71 @@ def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
         "bitmap_union_reduce"] + 1
 
 
+@pytest.mark.parametrize("n,b", SHAPES)
+@pytest.mark.parametrize("g", [1, 2, 65])
+def test_cuda_grouped_setop_matches_plain(cuda_device, n, b, g):
+    """Two dependent levels of G set operations each in two launches:
+    shared inputs, ``a is b``, dead rows, the empty and the full set; each
+    output equals the per-op plain version run one by one."""
+    dev = cuda_device
+    rng = np.random.default_rng(g * 7 + n + b)
+    w = b // 32
+    _, bits, _ = _inputs(rng, n, b, dev)
+    sets = [bits, bits.flip(0).contiguous(),
+            torch.zeros_like(bits), torch.full_like(bits, -1)]
+    pops = [ref.popcount_ref(x) for x in sets]
+    want_sets = list(sets)
+    levels = []
+    for level in range(2):
+        ops = []
+        for j in range(g):
+            ia = int(rng.integers(len(sets)))
+            ib = ia if j % 5 == 0 else int(rng.integers(len(sets)))
+            op = SetOp(sets[ia], pops[ia], sets[ib], pops[ib],
+                       torch.empty_like(bits),
+                       torch.empty(n, dtype=torch.int32, device=dev),
+                       int(rng.integers(3)))
+            ops.append((op, ia, ib))
+        levels.append([op for op, _, _ in ops])
+        for op, ia, ib in ops:
+            want_sets.append(bitmap_setop_plain(want_sets[ia], want_sets[ib],
+                                                op.opcode)[0])
+            sets.append(op.out)
+            pops.append(op.out_pops)
+    before = LAUNCHES["bitmap_setop_grouped"]
+    bitmap_setop_grouped(levels)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitmap_setop_grouped"] == before + 2
+    for got, want, p in zip(sets[4:], want_sets[4:], pops[4:]):
+        _equal((got, p), (want, ref.popcount_ref(want)))
+
+
+@pytest.mark.parametrize("n,b", [(1, 256), (3, 1024), (7, 2048),
+                                 (1024, 8192)])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 9])
+def test_cuda_fused_chain_every_width(cuda_device, n, b, k):
+    """K3 at the compiled widths 1..8 and past them (9): both connectives,
+    NaN in the columns and as a constant, zero words, dead and masked
+    blocks."""
+    dev = cuda_device
+    rng = np.random.default_rng(k * 100 + n)
+    _, bits, pops = _inputs(rng, n, b, dev)
+    bits[:, 1::5] = 0                                    # zero words
+    cols = []
+    for _ in range(k):
+        c = rng.normal(size=(n, b)).astype(np.float32)
+        c.reshape(-1)[::97] = np.nan
+        cols.append(torch.from_numpy(c).to(dev))
+    for conj in (True, False):
+        for nan_value in (False, True):
+            vals = [float(x) for x in rng.normal(size=k)]
+            if nan_value:
+                vals[0] = float("nan")
+            ops = [int(x) for x in rng.integers(0, 6, size=k)]
+            _equal(fused_chain_scan(cols, bits, pops, vals, ops, conj),
+                   fused_chain_scan_plain(cols, bits, pops, vals, ops, conj))
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     dev = cuda_device
     col = torch.zeros((2, 256), device=dev)
@@ -173,6 +240,15 @@ def test_wrappers_reject_bad_inputs(cuda_device):
                              0.0, 0)
     with pytest.raises(ValueError):
         dict_lookup_scan_multi(col, bits, pops, pops[:0])
+    flat = torch.zeros(2 * 256 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_chain_scan([flat[1:].view(2, 256)], bits, pops, [0.0], [0])
+    with pytest.raises(ValueError):
+        bitmap_setop_grouped([[SetOp(bits, pops, bits, pops, bits[:1],
+                                     pops, 0)]])
+    with pytest.raises(ValueError):
+        bitmap_setop_grouped([[SetOp(bits, pops, bits, pops, bits, pops,
+                                     3)]])
 
 
 def test_tape_on_the_card_matches_the_cpu(cuda_device):

@@ -1,5 +1,5 @@
-"""The port's kernels (K1-K4) and pack/unpack/popcount against the
-reference package.
+"""The port's kernels (K1-K6, the grouped K2 and the stacked set
+operations) and pack/unpack/popcount against the reference package.
 
 On the CPU each port wrapper runs its plain PyTorch version; those are held
 against the reference's jnp oracles (``repro.kernels.ref``) and its Pallas
@@ -141,6 +141,111 @@ def test_bitmap_setop_plain_matches_reference(n, w, opcode):
     ref_fn = [kref.bitmap_and_ref, kref.bitmap_or_ref,
               kref.bitmap_andnot_ref][opcode]
     np.testing.assert_array_equal(_u32(out), np.asarray(ref_fn(a, b)))
+
+
+# -- K2 grouped: bitmap_setop_grouped -----------------------------------------
+
+def _grouped_inputs(rng, n, w):
+    """Shared input sets u32[N, W]: random rows with dead (all-zero) rows,
+    an empty set and a full one."""
+    sets = [_bits(rng, n, w, dead=j % n) for j in range(4)]
+    if n > 2:
+        sets[1][n - 1] = 0                       # a second dead row
+    sets.append(np.zeros((n, w), dtype=np.uint32))
+    sets.append(np.full((n, w), 0xFFFFFFFF, dtype=np.uint32))
+    return sets
+
+
+def _grouped_levels(rng, sets, g):
+    """Two levels of ``g`` ops each over the shared inputs (mixed opcodes,
+    ``a is b`` included); level 2 also reads level 1's outputs.  Returns
+    (levels of SetOps, their (a, b, opcode) as indices into
+    inputs + outputs, the outputs in op order)."""
+    from repro_torch.kernels.bitmap_ops import SetOp
+    tens = [_t(x) for x in sets]
+    pops = [tref.popcount_ref(t) for t in tens]
+    n, w = sets[0].shape
+    levels, spec, outs = [], [], []
+    for level in range(2):
+        ops = []
+        pool = len(tens)
+        for j in range(g):
+            ia = int(rng.integers(pool))
+            ib = ia if j % 5 == 0 else int(rng.integers(pool))
+            code = int(rng.integers(3))
+            out = torch.empty((n, w), dtype=torch.int32)
+            opop = torch.empty(n, dtype=torch.int32)
+            ops.append(SetOp(tens[ia], pops[ia], tens[ib], pops[ib], out,
+                             opop, code))
+            spec.append((ia, ib, code))
+            outs.append((out, opop))
+        levels.append(ops)
+        for op in ops:                          # level 2 reads these
+            tens.append(op.out)
+            pops.append(op.out_pops)
+    return levels, spec, outs
+
+
+@pytest.mark.parametrize("n,w", [(1, 8), (5, 64), (3, 256)])
+@pytest.mark.parametrize("g", [1, 2, 9])
+def test_bitmap_setop_grouped_plain_matches_reference(n, w, g):
+    """Two dependent levels of set operations over shared inputs, dead
+    rows, the empty and the full set: the grouped plain version equals the
+    ops run one by one, and each equals the reference's bitmap_setop (the
+    Pallas kernel in interpret mode, as its own tests run it)."""
+    from repro_torch.kernels.bitmap_ops import (bitmap_setop_grouped,
+                                                bitmap_setop_plain)
+    rng = np.random.default_rng(100 * n + w + g)
+    sets = _grouped_inputs(rng, n, w)
+    levels, spec, outs = _grouped_levels(rng, sets, g)
+    bitmap_setop_grouped(levels)
+    one_by_one = [_t(x) for x in sets]
+    ref_sets = [np.asarray(x) for x in sets]
+    for (ia, ib, code), (out, pops) in zip(spec, outs):
+        want, want_pops = bitmap_setop_plain(one_by_one[ia], one_by_one[ib],
+                                             code)
+        assert torch.equal(out, want) and torch.equal(pops, want_pops)
+        one_by_one.append(want)
+        r, r_pops = kops.bitmap_op(jnp.asarray(ref_sets[ia]),
+                                   jnp.asarray(ref_sets[ib]), code,
+                                   interpret=True)
+        np.testing.assert_array_equal(_u32(out), np.asarray(r))
+        np.testing.assert_array_equal(pops.numpy(),
+                                      np.asarray(r_pops).reshape(-1))
+        ref_sets.append(np.asarray(r))
+
+
+def _by_dead_row_rules(a, b, code):
+    """The grouped kernel's rules on host words: a row whose popcount is
+    0 is not read; AND with either row dead and ANDNOT with ``a`` dead
+    read neither row; the unread rows stand for zeros."""
+    a_live = (a != 0).any(axis=1)
+    b_live = (b != 0).any(axis=1)
+    read_a = a_live & b_live if code == 0 else a_live
+    read_b = b_live if code == 1 else a_live & b_live
+    x = np.where(read_a[:, None], a, np.uint32(0))
+    y = np.where(read_b[:, None], b, np.uint32(0))
+    return (x & y, x | y, x & ~y)[code]
+
+
+@pytest.mark.parametrize("opcode", [0, 1, 2])
+def test_grouped_dead_row_rules_give_the_plain_words(opcode):
+    """Every combination of live and dead rows in a and b: the rules by
+    which the grouped kernel skips reads give the plain version's words
+    and popcounts."""
+    from repro_torch.kernels.bitmap_ops import bitmap_setop_plain
+    rng = np.random.default_rng(40 + opcode)
+    n, w = 8, 16
+    a = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
+    a[[0, 1, 4]] = 0                          # dead in a
+    b[[0, 2, 5]] = 0                          # dead in b
+    got = _by_dead_row_rules(a, b, opcode)
+    want, want_pops = bitmap_setop_plain(_t(a), _t(b), opcode)
+    np.testing.assert_array_equal(got, _u32(want))
+    np.testing.assert_array_equal(
+        np.unpackbits(got.view(np.uint8), axis=1).sum(axis=1),
+        want_pops.numpy())
 
 
 # -- K3 fused_chain_scan ------------------------------------------------------
