@@ -12,17 +12,21 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
 ``StreamSession``.  Phases:
 
 1. device and kernel build
-2. kernels vs plain versions (exact), and their times on the card; the
-   lockstep kernels (Q stacked record sets) at Q = 1, 2, 8, 65, timed at
-   Q = 8 and 64; the grouped set operation at G = 1, 2, 65, 512 and in a
-   two-level flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2,
-   3, 5, 8, 9, checked and timed
+2. kernels vs plain versions (exact, W = 1, 3, 9 among the shapes), and
+   their times on the card, each with the L2 flushed by a write (the
+   earlier rows' method) and clean (``ms_clean_l2``); the lockstep
+   kernels (Q stacked record sets) at Q = 1, 2, 8, 65 (timed in phase 7);
+   the grouped set operation at G = 1, 2, 65, 512 and in a two-level
+   flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2, 3, 5, 8,
+   9, checked and timed
 3. numeric tape at paper scale: results, one host sync and one device
    program per query, no host fallback
 4. strings and fragmented strings: no host fallback, the lookup kernel runs
 5. zone-pruned tapes: identical results, pruned blocks accounted
 6. a mixed tape with a UDF atom: one host fallback
-7. the kernels line
+7. the stacked kernels timed at Q = 8, 64 and at each path's median Q
+   (the numeric lockstep path's K5 median is their headline), a ranking
+   by launches x (time - bound), and the kernels line
 8. lockstep batches: 64 paper queries (8 templates), twice (the second
    serves cached shared atoms), and a strings batch holding the fragmented
    tree twice; one host sync per batch, records_evaluated equal to a host
@@ -37,15 +41,17 @@ equal the launches its tapes need; on a lockstep path the grouped set
 operation's launches must equal its backend's ``setop_launches`` and all
 other launches its device dispatches less the set operations it deferred
 (each other dispatch is one launch); and each kernel the path runs must
-have launched.  Any mismatch raises and the script exits non-zero.  The
+have launched.  Each path logs the Q of its stacked launches (histogram
+and median).  Any mismatch raises and the script exits non-zero.  The
 last line of its output is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 
 ``python3 chip_smoke.py --compare SRC`` runs only what compares two trees
-on one card: the fused chain's times and a lockstep batch (its walls,
-launches and a cProfile split of the cached batch), with the package from
-``SRC`` (a ``src`` directory of another checkout).
+on one card: K1's, K5's (Q = 8, 64) and the fused chain's times and a
+lockstep batch (its walls, launches and a cProfile split of the cached
+batch), with the package from ``SRC`` (a ``src`` directory of another
+checkout).
 """
 from __future__ import annotations
 
@@ -110,8 +116,12 @@ PATH_KERNELS = {
                "bitmap_union_reduce"),
 }
 MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
-SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048)]
+#: (blocks, block) checked besides the main shape; W = 1, 3 and 9 take
+#: the 4-byte row loads of the stacked kernels (W % 4 != 0)
+SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (2, 32), (3, 96),
+          (5, 288)]
 #: lockstep group sizes the stacked kernels are checked at, and timed at
+#: (the full run adds each path's median Q, measured)
 STACKED_QS = (1, 2, 8, 65)
 TIMED_QS = (8, 64)
 #: grouped set-operation sizes checked, and timed (the row's headline G)
@@ -124,6 +134,12 @@ CHAIN_KS = (1, 2, 3, 5, 8, 9)
 TIMED_KS = CHAIN_KS
 #: backend counters the lockstep paths' launch accounting reads
 ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
+
+
+def median_q(hist: Counter) -> int:
+    """The median Q of a histogram of launches by Q (the lower median)."""
+    qs = sorted(hist.elements())
+    return qs[(len(qs) - 1) // 2]
 
 
 def log(msg: str) -> None:
@@ -420,8 +436,8 @@ def grouped_cases(rng, bits, dev):
 
 def stacked_inputs(rng, n, w, q, dev):
     """Q stacked bitmaps i32[Q*N, W] with mixed rows: dead (all-zero
-    bits), masked (bits set, popcount given as 0), live, and a block
-    dead in every row."""
+    bits), masked (bits set, popcount given as 0), live with zero words,
+    a block dead in every row and one live in one row only."""
     import numpy as np
     import torch
 
@@ -431,6 +447,9 @@ def stacked_inputs(rng, n, w, q, dev):
     bits[q // 2, 0] = 0                               # a dead row
     if n > 1:
         bits[:, n - 1] = 0                            # dead in every row
+    if n > 2:
+        bits[:q - 1, 1] = 0                           # live in one row
+    bits[:, :, 2::5] = 0                              # zero words
     bits = torch.from_numpy(bits.reshape(q * n, w).view(np.int32)).to(dev)
     pops = ref.popcount_ref(bits)
     pops[(q * n) // 3] = 0                            # masked row
@@ -481,19 +500,27 @@ def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
            bitmap_union_reduce_plain(stack), what)
 
 
-def gpu_ms(fn, reps=25):
+def gpu_ms(fn, reps=25, clean=False):
     """Median device time of one ``fn()`` in ms: launches are queued behind
     a device-side sleep so host overhead stays out of the events, and the
-    L2 cache (50 MB) is flushed before each launch, as a tape op finds it."""
+    L2 cache (50 MB) is flushed before each launch, as a tape op finds it.
+    The flush zeroes 256 MiB (the method of every earlier row), which
+    leaves up to 50 MB of dirty lines to be written back inside the timed
+    window; ``clean`` flushes by reading the buffer into a preallocated
+    scalar instead, so the L2 holds only clean lines when ``fn`` starts."""
     import torch
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    sink = torch.empty((), dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(300_000_000)
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if clean:
+            torch.amax(flush, dim=0, out=sink)
+        else:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -505,26 +532,28 @@ def gpu_ms(fn, reps=25):
 def log_timing(what, t):
     log(f"  {what}: {t['ms'] * 1e3:.2f} us (bound {t['bound_ms'] * 1e3:.2f}"
         f" us by {t['bound_by']}: {t['bound_ms'] / t['ms']:.1%} of the "
-        f"bound's rate), plain {t['plain_ms'] * 1e3:.2f} us")
+        f"bound's rate), clean L2 {t['ms_clean_l2'] * 1e3:.2f} us, plain "
+        f"{t['plain_ms'] * 1e3:.2f} us")
 
 
 def timed(nbytes, ops, kern, plain, plain_reps=21):
-    """Device times of a kernel and its plain version, and the bound of
-    their work: ``nbytes`` over the memory rate or ``ops`` over the f32
-    rate, whichever is larger."""
+    """Device times of a kernel (L2 flushed by writing, and clean) and
+    its plain version, and the bound of their work: ``nbytes`` over the
+    memory rate or ``ops`` over the f32 rate, whichever is larger."""
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
-    return {"ms": gpu_ms(kern), "plain_ms": gpu_ms(plain, reps=plain_reps),
+    return {"ms": gpu_ms(kern), "ms_clean_l2": gpu_ms(kern, clean=True),
+            "plain_ms": gpu_ms(plain, reps=plain_reps),
             "bound_ms": max(t_mem, t_ops),
             "bound_by": "bytes" if t_mem >= t_ops else "operations",
             "bytes": nbytes}
 
 
-def kernel_timings(dev):
-    """Time each kernel and its plain version at the main path's shape;
-    bytes for the lower bound count what these inputs need: the column
-    words under non-zero input words of live blocks, each bitmap word
-    once, popcounts once."""
+def kernel_timings(dev, only=None):
+    """Time each kernel (or those named in ``only``) and its plain version
+    at the main path's shape; bytes for the lower bound count what these
+    inputs need: the column words under non-zero input words of live
+    blocks, each bitmap word once, popcounts once."""
     import numpy as np
     import torch
 
@@ -564,7 +593,10 @@ def kernel_timings(dev):
                              lambda: dict_lookup_scan_plain(codes, bits,
                                                             pops, mask)),
     }
-    out = {name: timed(*args) for name, args in work.items()}
+    out = {name: timed(*args) for name, args in work.items()
+           if only is None or name in only}
+    if only is not None:
+        return out
     by_k = chain_timings(dev)
     out["fused_chain_scan"] = dict(by_k[3], by_k=by_k)
     by_g = grouped_timings(dev)
@@ -639,12 +671,12 @@ def grouped_timings(dev):
     return out
 
 
-def stacked_timings(dev):
-    """Time K5, K6 and the stacked set operations, and their plain
-    versions, at the main path's shape for each Q in TIMED_QS, on dense
-    random bitmaps (every block live).  Bytes for the bound: the column
-    blocks live in any row once, each live input row once, every output
-    row and popcount once (and the mask for K6)."""
+def stacked_timings(dev, qs, only=None):
+    """Time K5, K6 and the stacked set operations (or those named in
+    ``only``), and their plain versions, at the main path's shape for each
+    Q in ``qs``, on dense random bitmaps (every block live).  Bytes for
+    the bound: the column blocks live in any row once, each live input row
+    once, every output row and popcount once (and the mask for K6)."""
     import numpy as np
     import torch
 
@@ -667,8 +699,9 @@ def stacked_timings(dev):
     out = {name: {} for name in ("predicate_scan_multi",
                                  "dict_lookup_scan_multi",
                                  "bitmap_inter_multi",
-                                 "bitmap_union_reduce")}
-    for q in TIMED_QS:
+                                 "bitmap_union_reduce")
+           if only is None or name in only}
+    for q in qs:
         bits = torch.from_numpy(rng.integers(0, 2 ** 32, size=(q * n, w),
                                              dtype=np.uint32)
                                 .view(np.int32)).to(dev)
@@ -699,8 +732,8 @@ def stacked_timings(dev):
                 lambda: bitmap_union_reduce(stack),
                 lambda: bitmap_union_reduce_plain(stack)),
         }
-        for name, args in work.items():
-            out[name][q] = timed(*args, plain_reps=11)
+        for name in out:
+            out[name][q] = timed(*work[name], plain_reps=11)
         del bits, pops, stack, a
         torch.cuda.empty_cache()
     return out
@@ -1381,10 +1414,11 @@ def smi_line() -> str:
 
 
 def main_compare(src: Path) -> int:
-    """The fused chain's times at TIMED_KS and a 64-query lockstep batch
-    (first and cached walls, launches and peak memory, then a cProfile
-    split of a cached batch) with the package found under ``src``.  The bitmaps'
-    digest lets two trees' runs be held against each other."""
+    """K1's time, K5's at TIMED_QS, the fused chain's at TIMED_KS and a
+    64-query lockstep batch (first and cached walls, launches and peak
+    memory, then a cProfile split of a cached batch) with the package
+    found under ``src``.  The bitmaps' digest lets two trees' runs be held
+    against each other."""
     import hashlib
 
     import numpy as np
@@ -1397,6 +1431,12 @@ def main_compare(src: Path) -> int:
     log(f"compare: the package under {src}")
     log(smi_line())
     _build.lib()
+    k1 = kernel_timings(dev, only=("predicate_scan",))["predicate_scan"]
+    log_timing("predicate_scan", k1)
+    k5 = stacked_timings(dev, TIMED_QS,
+                         only=("predicate_scan_multi",))["predicate_scan_multi"]
+    for q, t in k5.items():
+        log_timing(f"predicate_scan_multi Q={q}", t)
     chain = chain_timings(dev)
     for k, t in chain.items():
         log_timing(f"fused_chain_scan K={k}", t)
@@ -1423,8 +1463,14 @@ def main_compare(src: Path) -> int:
     res, wall, cats, rows = host_split(lambda: sess.execute(batch))
     log_split("lockstep cached batch", wall, cats, rows)
     digest = hashlib.sha256(b"".join(b.tobytes() for b in res.bitmaps))
-    log(json.dumps({"compare": str(src), "chain_ms": {
-        str(k): t["ms"] for k, t in chain.items()}, "runs": runs,
+    log(json.dumps({"compare": str(src), "predicate_scan_ms": k1["ms"],
+        "predicate_scan_multi_ms": {str(q): t["ms"] for q, t in k5.items()},
+        "chain_ms": {str(k): t["ms"] for k, t in chain.items()},
+        "clean_l2_ms": {"predicate_scan": k1["ms_clean_l2"], **{
+            f"predicate_scan_multi Q={q}": t["ms_clean_l2"]
+            for q, t in k5.items()}, **{
+            f"fused_chain_scan K={k}": t["ms_clean_l2"]
+            for k, t in chain.items()}}, "runs": runs,
         "cprofile_wall_ms": wall, "split_s": cats,
         "bitmaps_sha256": digest.hexdigest()}))
     return 0
@@ -1453,7 +1499,8 @@ def main(argv) -> int:
     sys.path.insert(0, str(src))
     if argv:
         return main_compare(src)
-    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.kernels import (LAUNCHES, LAUNCHES_BY_Q, _build,
+                                     reset_launches)
     t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(0)
@@ -1476,22 +1523,14 @@ def main(argv) -> int:
         for by, tag in (("by_k", "K"), ("by_g", "G")):
             for x, v in t.get(by, {}).items():
                 log_timing(f"{name} {tag}={x}", v)
-
-    log("  stacked kernels at the main shape:")
-    stacked = stacked_timings(dev)
-    for name, by_q in stacked.items():
-        for q, t in by_q.items():
-            log(f"  {name} Q={q}: {t['ms'] * 1e3:.1f} us (bound "
-                f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']}), plain "
-                f"{t['plain_ms'] * 1e3:.1f} us")
-        timing[name] = dict(by_q[max(TIMED_QS)], by_q=by_q)
+    # the stacked kernels are timed in phase 7, at the Q the paths launched
 
     # each path of the main path is driven with the launch counts set to 0
     # just before it and read just after.  A tape path's counts must be
     # exactly the launches its tapes need; a lockstep path's must add up to
     # its backend's device dispatches (each one launch).  Each kernel a path
     # must run ran.
-    by_path = {}
+    by_path, q_by_path = {}, {}
 
     def start_path():
         torch.cuda.synchronize()
@@ -1505,6 +1544,15 @@ def main(argv) -> int:
         got = dict(LAUNCHES)
         by_path[path] = got
         log(f"  {path} path launches: {got}")
+        q_by_path[path] = {}
+        for name, hist in LAUNCHES_BY_Q.items():
+            check(sum(hist.values()) == got[name], f"{path} path: {name}'s "
+                  f"launches by Q {dict(hist)} do not add up to {got[name]}")
+            if hist:
+                q_by_path[path][name] = {"median": median_q(hist),
+                                         "hist": dict(sorted(hist.items()))}
+                log(f"  {path} path {name}: Q median {median_q(hist)}, "
+                    f"launches by Q {dict(sorted(hist.items()))}")
         if counts is None:
             need = {k: NEEDED[k] for k in KERNELS}
             check(got == need, f"{path} path: launches {got} != the "
@@ -1559,6 +1607,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log(f"  phase 8 (numeric) took {time.perf_counter() - t0:.1f} s")
 
+
     log("phase 4: strings and fragmented strings")
     t0 = time.perf_counter()
     start_path()
@@ -1593,7 +1642,20 @@ def main(argv) -> int:
     phase_stream(table, "cuda", start_path, end_path)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # the stacked kernels at TIMED_QS and at every path's median Q; each
+    # row's headline is the median Q of the numeric lockstep path's K5
     log("phase 7: kernels")
+    t0 = time.perf_counter()
+    path_q = q_by_path["lockstep"]["predicate_scan_multi"]["median"]
+    qs = sorted(set(TIMED_QS) | {h["median"] for got in q_by_path.values()
+                                 for h in got.values()})
+    log(f"  stacked kernels at the main shape, Q = {qs} (each path's median "
+        f"Q; the numeric lockstep path's, {path_q}, is the headline)")
+    for name, by_q in stacked_timings(dev, qs).items():
+        for q, t in by_q.items():
+            log_timing(f"{name} Q={q}", t)
+        timing[name] = dict(by_q[path_q], by_q=by_q, headline_q=path_q)
+    log(f"  took {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         t = timing[name]
@@ -1602,11 +1664,24 @@ def main(argv) -> int:
                "replaces": replaces, "launches": sum(paths.values()),
                "launches_by_path": paths,
                "max_abs_err": errs[name], "ms": t["ms"],
+               "ms_clean_l2": t["ms_clean_l2"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": None}
+        # what the main paths lose on this kernel: launches x (time -
+        # bound), a stacked kernel's taken at each path's median Q
+        row["lost_ms"] = sum(paths.values()) * (t["ms"] - t["bound_ms"])
+        if "headline_q" in t:
+            row["headline_q"] = t["headline_q"]
+            row["q_by_path"] = {p: got[name] for p, got in q_by_path.items()
+                                if name in got}
+            at = {p: t["by_q"][h["median"]]
+                  for p, h in row["q_by_path"].items()}
+            row["lost_ms"] = sum(paths[p] * (v["ms"] - v["bound_ms"])
+                                 for p, v in at.items())
         for by in ("by_q", "by_k", "by_g"):
             if by in t:
-                row[by] = {str(x): {k: v[k] for k in ("ms", "plain_ms",
+                row[by] = {str(x): {k: v[k] for k in ("ms", "ms_clean_l2",
+                                                      "plain_ms",
                                                       "bound_ms")}
                            for x, v in t[by].items()}
         if name in NOT_TPU_KERNELS:
@@ -1614,8 +1689,12 @@ def main(argv) -> int:
         rows.append(row)
         log(f"  {name}: launches={sum(paths.values())} {paths} "
             f"median={t['ms'] * 1e3:.2f} us "
+            f"clean L2={t['ms_clean_l2'] * 1e3:.2f} us "
             f"bound={t['bound_ms'] * 1e3:.2f} us "
             f"plain={t['plain_ms'] * 1e3:.2f} us")
+    log("  ranking, launches x (time - bound) on the main paths: " + ", ".join(
+        f"{r['name']} {r['lost_ms']:.3f} ms" for r in
+        sorted(rows, key=lambda r: -r["lost_ms"])))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -11,16 +11,18 @@ dict_lookup.py    — K4: dictionary-code membership in a packed hit set;
 ops.py            — record-major entry points with the reference's signatures
 ref.py            — plain versions (the CPU path and the kernels' oracle)
 _build.py         — nvcc build of csrc/*.cu at first use, launch counters
+                    (and, for the stacked kernels, launches by Q)
 """
 from . import ops, ref
-from ._build import LAUNCHES, reset_launches
+from ._build import LAUNCHES, LAUNCHES_BY_Q, reset_launches
 from .bitmap_ops import (AND, ANDNOT, OR, bitmap_inter_multi, bitmap_setop,
                          bitmap_union_reduce)
 from .dict_lookup import dict_lookup_scan, dict_lookup_scan_multi
 from .fused_chain import fused_chain_scan
 from .predicate_scan import predicate_scan, predicate_scan_multi
 
-__all__ = ["ops", "ref", "LAUNCHES", "reset_launches", "AND", "OR", "ANDNOT",
-           "bitmap_setop", "bitmap_inter_multi", "bitmap_union_reduce",
+__all__ = ["ops", "ref", "LAUNCHES", "LAUNCHES_BY_Q", "reset_launches",
+           "AND", "OR", "ANDNOT", "bitmap_setop", "bitmap_inter_multi",
+           "bitmap_union_reduce",
            "predicate_scan", "predicate_scan_multi", "fused_chain_scan",
            "dict_lookup_scan", "dict_lookup_scan_multi"]

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -37,6 +38,12 @@ LAUNCHES: Dict[str, int] = {"predicate_scan": 0, "bitmap_setop": 0,
                             "bitmap_inter_multi": 0,
                             "bitmap_union_reduce": 0,
                             "bitmap_setop_grouped": 0}
+
+#: stacked kernel name -> Q (record sets per launch) -> launches since the
+#: last reset; each stacked wrapper adds one beside its LAUNCHES count
+LAUNCHES_BY_Q: Dict[str, Counter] = {
+    k: Counter() for k in ("predicate_scan_multi", "dict_lookup_scan_multi",
+                           "bitmap_inter_multi", "bitmap_union_reduce")}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -72,6 +79,16 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_q in LAUNCHES_BY_Q.values():
+        by_q.clear()
+
+
+def count_launch(name: str, q: Optional[int] = None) -> None:
+    """Count one launch of kernel ``name`` (of ``q`` stacked record sets,
+    for a stacked kernel)."""
+    LAUNCHES[name] += 1
+    if q is not None:
+        LAUNCHES_BY_Q[name][q] += 1
 
 
 def sources() -> List[Path]:
@@ -174,6 +191,14 @@ def expect_shared_words(w: int, name: str) -> None:
     if w > MAX_SHARED_WORDS:
         raise ValueError(f"{name}: {w} words per block exceed the "
                          f"{MAX_SHARED_WORDS} that fit in shared memory")
+
+
+def expect_aligned16(t, name: str) -> None:
+    """Raise unless ``t`` starts 16-byte aligned (the compare-and-pack
+    step loads 4 records at a time)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                         "loads 4 records at a time)")
 
 
 def check(rc: int, name: str) -> None:

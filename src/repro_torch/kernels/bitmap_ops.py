@@ -59,7 +59,7 @@ def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int):
             a.data_ptr(), b.data_ptr(), int(opcode), n, w, out.data_ptr(),
             pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "bitmap_setop")
-    _build.LAUNCHES["bitmap_setop"] += 1
+    _build.count_launch("bitmap_setop")
     return out, pops
 
 
@@ -137,7 +137,7 @@ def bitmap_setop_grouped(levels: Sequence[Sequence[SetOp]]) -> None:
         for level in levels:
             rc = lib.rt_bitmap_setop_grouped(base, len(level), n, w, stream)
             _build.check(rc, "bitmap_setop_grouped")
-            _build.LAUNCHES["bitmap_setop_grouped"] += 1
+            _build.count_launch("bitmap_setop_grouped")
             base += 8 * _GROUPED_FIELDS * len(level)
 
 
@@ -167,7 +167,7 @@ def bitmap_inter_multi(a: torch.Tensor, bits: torch.Tensor):
             a.data_ptr(), bits.data_ptr(), q, n, w, out.data_ptr(),
             pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "bitmap_inter_multi")
-    _build.LAUNCHES["bitmap_inter_multi"] += 1
+    _build.count_launch("bitmap_inter_multi", q)
     return out, pops
 
 
@@ -199,5 +199,5 @@ def bitmap_union_reduce(bits: torch.Tensor):
             bits.data_ptr(), q, n, w, out.data_ptr(), pops.data_ptr(),
             torch.cuda.current_stream(bits.device).cuda_stream)
     _build.check(rc, "bitmap_union_reduce")
-    _build.LAUNCHES["bitmap_union_reduce"] += 1
+    _build.count_launch("bitmap_union_reduce", q)
     return out, pops

@@ -21,8 +21,10 @@
 // re-reads code block k % N for each of the Q rows).  Bound: bytes, as
 // predicate_scan_multi.  Same design as predicate_scan_multi: one thread
 // block per code block n tests the block's codes once into W hit words in
-// shared memory, then ANDs them into each of the Q rows of that block; the
-// mask is read only by blocks live in some row.
+// shared memory, then ANDs them into each of the Q rows of that block
+// (rt::and_hits_into_rows, shared with predicate_scan_multi: 16-byte row
+// loads when W % 4 == 0); the mask is read only by blocks live in some
+// row.  Its code test still gives a warp one word at a time.
 #include "common.cuh"
 
 namespace {
@@ -45,7 +47,7 @@ dict_lookup_kernel(const float* __restrict__ col,
                    const int* __restrict__ pops_in,
                    const unsigned* __restrict__ mask, int u, int w,
                    int* __restrict__ out, int* __restrict__ pops_out) {
-  extern __shared__ unsigned smask[];
+  extern __shared__ __align__(16) unsigned smask[];
   const int n = blockIdx.x;
   const long long row = (long long)n * w;
   if (pops_in[n] == 0) {
@@ -88,7 +90,7 @@ dict_lookup_multi_kernel(const float* __restrict__ col,
                          const unsigned* __restrict__ mask, int u, int q,
                          int n_blocks, int w, int* __restrict__ out,
                          int* __restrict__ pops_out) {
-  extern __shared__ unsigned smem[];
+  extern __shared__ __align__(16) unsigned smem[];
   unsigned* hit = smem;
   const int n = blockIdx.x;
   if (rt::any_row_live(pops_in, q, n_blocks, n)) {

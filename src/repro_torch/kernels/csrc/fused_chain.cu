@@ -15,7 +15,9 @@
 // Design: the K columns are NOT stacked (a stack would copy K columns per
 // CHAIN op).  The kernel takes a table of K column base pointers, K f32
 // constants and K opcodes; K and the connective have no cap.  One thread
-// block owns one column block.  Each warp reads 32 bitmap words with one
+// block owns one column block.  The compare-and-pack step is
+// rt::pack_words32 (common.cuh, shared with predicate_scan and
+// predicate_scan_multi): each warp reads 32 bitmap words with one
 // coalesced load and shuffles each word to the lanes that need it; the
 // column loads are 16 bytes a lane (a 512-byte warp load covers 4 words),
 // all K of a step issued before any compare.  K = 1..8 are compiled
@@ -24,42 +26,16 @@
 // loop is unrolled, and registers are capped so that enough blocks stay
 // resident.  A larger K takes a generic path that reads an uploaded table
 // from global memory in a runtime loop.  Comparisons are selected by a
-// 4-bit mask per opcode (lt, eq, gt, unordered), branch-free and without
-// fast-math: NaN compares false except under NE.  Dead blocks and zero
-// input words skip their column reads.  The columns must be 16-byte
-// aligned (the wrapper checks).
+// 4-bit mask per opcode (lt, eq, gt, unordered; rt::compare_mask),
+// branch-free and without fast-math: NaN compares false except under NE.
+// Dead blocks and zero input words skip their column reads.  The columns
+// must be 16-byte aligned (the wrapper checks).
 #include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 // widest chain compiled with its own unrolled column loop
 constexpr int kMaxStaticK = 8;
-
-// opcode (LT, LE, GT, GE, EQ, NE) -> which of x < v, x == v, x > v and
-// "unordered" (a NaN on either side) make the comparison true
-__host__ __device__ __forceinline__ int compare_mask(int op) {
-  switch (op) {
-    case 0: return 1;          // <
-    case 1: return 1 | 2;      // <=
-    case 2: return 4;          // >
-    case 3: return 4 | 2;      // >=
-    case 4: return 2;          // ==
-    default: return 1 | 4 | 8; // != (true on NaN)
-  }
-}
-
-__device__ __forceinline__ int hit(float x, float v, int mask) {
-  int r = (int)(x < v) | ((int)(x == v) << 1) | ((int)(x > v) << 2);
-  r |= (int)(r == 0) << 3;
-  return (r & mask) != 0;
-}
-
-// the comparisons of 4 consecutive records as bits 0..3
-__device__ __forceinline__ int nibble(float4 x, float v, int mask) {
-  return hit(x.x, v, mask) | (hit(x.y, v, mask) << 1) |
-         (hit(x.z, v, mask) << 2) | (hit(x.w, v, mask) << 3);
-}
 
 // a chain of K <= kMaxStaticK columns, passed by value
 struct ChainArgs {
@@ -78,14 +54,8 @@ struct MinBlocks {
 
 // K > 0: a K-column chain from ``args``, staged in shared memory; K == 0:
 // the generic path, k columns from the device table (col_ptrs, values,
-// opcodes).
-//
-// A warp owns 32 words of the row at a time (lane i ends with word
-// base + i).  Each step covers 4 of them: lane 8 * s + q loads records
-// 4q..4q+3 of word u + s as one float4 from each of the K columns (a
-// 512-byte warp load per column), makes their 4-bit nibble of hits, and
-// the 8 lanes of word u + s OR their nibbles into the word by shuffles.
-// A zero input word is skipped by the 8 lanes that would load it.
+// opcodes).  The step (rt::pack_words32) loads records 4q..4q+3 of a word
+// as one float4 from each of the K columns, all K before any compare.
 template <int K, bool kConj>
 __global__ void __launch_bounds__(rt::kThreads, MinBlocks<K>::value)
 fused_chain_kernel(ChainArgs args, const long long* __restrict__ col_ptrs,
@@ -99,9 +69,8 @@ fused_chain_kernel(ChainArgs args, const long long* __restrict__ col_ptrs,
   __shared__ float s_val[KS];
   __shared__ int s_mask[KS];
   const int n = blockIdx.x;
-  const long long row = (long long)n * w;
   if (pops_in[n] == 0) {
-    rt::write_dead_block(out + row, w, pops_out + n);
+    rt::write_dead_block(out + (long long)n * w, w, pops_out + n);
     return;
   }
   if constexpr (K > 0) {
@@ -117,60 +86,32 @@ fused_chain_kernel(ChainArgs args, const long long* __restrict__ col_ptrs,
     }
     __syncthreads();
   }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int s = lane >> 3;     // which of the step's 4 words
-  const int q = lane & 7;      // which 4 records of that word
-  int count = 0;
-  for (int base = warp * 32; base < w; base += rt::kThreads) {
-    const int mine = base + lane < w ? __ldg(bits + row + base + lane) : 0;
-    int res = 0;
+  rt::scan_live_block(bits, n, w, out, pops_out + n,
+                      [&](bool load, long long f4) {
+    int acc = kConj ? 0xF : 0;
+    if constexpr (K > 0) {
+      float4 x[K];
 #pragma unroll
-    for (int u = 0; u < 32; u += 4) {
-      if (base + u >= w) break;                // warp-uniform
-      const int in = __shfl_sync(kFull, mine, u + s);
-      // float4 index of records 4q..4q+3 of word base + u + s
-      const long long f4 = (row + base + u + s) * 8 + q;
-      int acc = kConj ? 0xF : 0;
-      if constexpr (K > 0) {
-        float4 x[K];
+      for (int j = 0; j < K; ++j)
+        x[j] = load ? __ldg(s_col[j] + f4) : make_float4(0, 0, 0, 0);
 #pragma unroll
-        for (int j = 0; j < K; ++j)
-          x[j] = in != 0 ? __ldg(s_col[j] + f4) : make_float4(0, 0, 0, 0);
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const int h = nibble(x[j], s_val[j], s_mask[j]);
-          acc = kConj ? (acc & h) : (acc | h);
-        }
-      } else {
-#pragma unroll 4
-        for (int j = 0; j < k; ++j) {
-          const float4* c =
-              reinterpret_cast<const float4*>(__ldg(col_ptrs + j));
-          const float4 x = in != 0 ? __ldg(c + f4) : make_float4(0, 0, 0, 0);
-          const int h = nibble(x, __ldg(values + j),
-                               compare_mask(__ldg(opcodes + j)));
-          acc = kConj ? (acc & h) : (acc | h);
-        }
+      for (int j = 0; j < K; ++j) {
+        const int h = rt::nibble(x[j], s_val[j], s_mask[j]);
+        acc = kConj ? (acc & h) : (acc | h);
       }
-      int word = acc << (4 * q);
-      word |= __shfl_xor_sync(kFull, word, 1);
-      word |= __shfl_xor_sync(kFull, word, 2);
-      word |= __shfl_xor_sync(kFull, word, 4);
-      word &= in;
-      // lane u + t takes word u + t from the first lane of group t
-      const int got = __shfl_sync(kFull, word, 8 * ((lane - u) & 3));
-      if ((lane >> 2) == (u >> 2)) res = got;
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) {
+        const float4* c =
+            reinterpret_cast<const float4*>(__ldg(col_ptrs + j));
+        const float4 x = load ? __ldg(c + f4) : make_float4(0, 0, 0, 0);
+        const int h = rt::nibble(x, __ldg(values + j),
+                                 rt::compare_mask(__ldg(opcodes + j)));
+        acc = kConj ? (acc & h) : (acc | h);
+      }
     }
-    if (base + lane < w) {
-      out[row + base + lane] = res;
-      count += __popc(res);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(kFull, count, off);
-  rt::block_store_sum(count, pops_out + n);
+    return acc;
+  });
 }
 
 template <int K>
@@ -203,7 +144,7 @@ extern "C" int rt_fused_chain_scan_small(const long long* host_cols,
   for (int j = 0; j < k; ++j) {
     args.col[j] = reinterpret_cast<const float4*>(host_cols[j]);
     args.val[j] = host_values[j];
-    args.mask[j] = compare_mask(host_opcodes[j]);
+    args.mask[j] = rt::compare_mask(host_opcodes[j]);
   }
   if (n > 0) {
     const cudaStream_t s = (cudaStream_t)stream;

@@ -8,37 +8,51 @@
 // Bound on an H100: bytes.  The column blocks that are live in any row are
 // read once (B * 4 bytes each), every live input row's W words once, and
 // Q * N * W output words plus 2 * Q * N popcounts are written: at
-// N = 1024, B = 8192, Q = 64 about 168 MB, some 50 µs at 3.35 TB/s, where
-// re-reading the column per row would move 2.15 GB.
-// Design: one thread block per column block n.  It computes the block's W
-// packed comparison words once, one warp per word with __ballot_sync as in
-// predicate_scan, into shared memory (1 KiB at B = 8192), then ANDs them
-// into each of the Q input rows of that block, one warp per row, reducing
-// each row's popcount by warp shuffles.  A block dead in every row writes
-// zeros and reads no column; a dead row (q, n) writes zeros and reads no
-// bits.
+// N = 1024, B = 8192 about 15 us at Q = 8 and 50 us at Q = 64 at
+// 3.35 TB/s, where re-reading the column per row would move Q times the
+// column.
+// Design: one thread block per column block n, in two phases.
+//  1. Hit words: the block's W packed comparison words, computed once into
+//     shared memory (1 KiB at B = 8192) by the compare-and-pack step that
+//     fused_chain_scan and predicate_scan use (rt::pack_words32): each
+//     lane loads 4 records as one float4, a 512-byte warp load covers 4
+//     words, and all loads of a step are issued before any compare.
+//  2. Rows: rt::and_hits_into_rows ANDs the hit words into each of the Q
+//     input rows of that block, one warp per row, 16 bytes a lane when
+//     W % 4 == 0 (one warp load covers 128 words), all of a pass's loads
+//     issued before the ANDs, and each row's popcount reduced by warp
+//     shuffles.
+// At Q = 8 the column is two thirds of the bytes and phase 1 sets the
+// pace; at Q = 64 phase 2 does.  A block dead in every row writes zeros
+// and reads no column; a dead row (q, n) writes zeros and reads neither
+// its bits nor the hit words.  The column must be 16-byte aligned (the
+// wrapper checks).
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(rt::kThreads)
-predicate_scan_multi_kernel(const float* __restrict__ col,
+__global__ void __launch_bounds__(rt::kThreads, 8)
+predicate_scan_multi_kernel(const float4* __restrict__ col,
                             const int* __restrict__ bits,
                             const int* __restrict__ pops_in, float value,
-                            int opcode, int q, int n_blocks, int w,
+                            int mask, int q, int n_blocks, int w,
                             int* __restrict__ out,
                             int* __restrict__ pops_out) {
-  extern __shared__ unsigned hit[];
+  extern __shared__ __align__(16) unsigned hit[];
   const int n = blockIdx.x;
   if (rt::any_row_live(pops_in, q, n_blocks, n)) {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const float* col_row = col + (long long)n * w * 32;
-    for (int i = warp; i < w; i += rt::kWarps) {
-      const bool h =
-          rt::compare(__ldg(col_row + (long long)i * 32 + lane), value, opcode);
-      const unsigned word = __ballot_sync(0xffffffffu, h);
-      if (lane == 0) hit[i] = word;
+    const long long row = (long long)n * w;
+    for (int base = warp * 32; base < w; base += rt::kThreads) {
+      // every word of the block is computed: some live row may need it
+      const int words = rt::pack_words32(
+          base + lane < w ? -1 : 0, base, w, row + base,
+          [&](bool load, long long f4) {
+            const float4 x = load ? __ldg(col + f4) : make_float4(0, 0, 0, 0);
+            return rt::nibble(x, value, mask);
+          });
+      if (base + lane < w) hit[base + lane] = (unsigned)words;
     }
     __syncthreads();
   }
@@ -56,7 +70,8 @@ extern "C" int rt_predicate_scan_multi(const float* col, const int* bits,
   if (n > 0 && q > 0) {
     predicate_scan_multi_kernel<<<n, rt::kThreads, w * sizeof(unsigned),
                                   (cudaStream_t)stream>>>(
-        col, bits, pops_in, value, opcode, q, n, w, out, pops_out);
+        reinterpret_cast<const float4*>(col), bits, pops_in, value,
+        rt::compare_mask(opcode), q, n, w, out, pops_out);
   }
   return (int)cudaGetLastError();
 }

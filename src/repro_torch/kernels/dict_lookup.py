@@ -53,7 +53,7 @@ def dict_lookup_scan(col: torch.Tensor, bits: torch.Tensor,
             mask_words.data_ptr(), u, n, w, out.data_ptr(),
             out_pops.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "dict_lookup_scan")
-    _build.LAUNCHES["dict_lookup_scan"] += 1
+    _build.count_launch("dict_lookup_scan")
     return out, out_pops
 
 
@@ -104,5 +104,5 @@ def dict_lookup_scan_multi(col: torch.Tensor, bits: torch.Tensor,
             mask_words.data_ptr(), u, qn // n, n, w, out.data_ptr(),
             out_pops.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "dict_lookup_scan_multi")
-    _build.LAUNCHES["dict_lookup_scan_multi"] += 1
+    _build.count_launch("dict_lookup_scan_multi", qn // n)
     return out, out_pops

@@ -61,9 +61,7 @@ def fused_chain_scan(cols: Sequence[torch.Tensor], bits: torch.Tensor,
     dev = bits.device
     for j, c in enumerate(cols):
         _build.expect(c, f"cols[{j}]", torch.float32, (n, 32 * w), dev)
-        if c.data_ptr() % 16:
-            raise ValueError(f"cols[{j}] must be 16-byte aligned (the "
-                             "kernel loads 4 records at a time)")
+        _build.expect_aligned16(c, f"cols[{j}]")
     _build.expect(pops, "pops", torch.int32, (n,), dev)
     if any(not 0 <= int(op) <= ref.NE for op in opcodes):
         raise ValueError(f"bad opcodes {tuple(opcodes)}")
@@ -82,5 +80,5 @@ def fused_chain_scan(cols: Sequence[torch.Tensor], bits: torch.Tensor,
                     out_pops.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_chain_scan")
-    _build.LAUNCHES["fused_chain_scan"] += 1
+    _build.count_launch("fused_chain_scan")
     return out, out_pops

@@ -5,11 +5,13 @@ for Q stacked record sets against one column.
 Replaces the TPU kernel ``src/repro/kernels/predicate_scan.py``,
 ``predicate_scan``.  The CUDA kernel is ``csrc/predicate_scan.cu``; its
 header states the bound (bytes: the live blocks' column reads) and the
-design (record-major columns, one warp per word, ``__ballot_sync``, dead
-blocks and zero words skip their column reads).  K5 replaces the TPU
-kernel ``predicate_scan_multi`` of the same file; its CUDA kernel is
-``csrc/predicate_scan_multi.cu``, which reads each live column block once
-for all Q rows instead of once per row.
+design (record-major columns, the compare-and-pack step of
+``csrc/common.cuh`` that K3 also runs: 16-byte column loads, a warp load
+covering 4 words; dead blocks and zero words skip their column reads).
+K5 replaces the TPU kernel ``predicate_scan_multi`` of the same file; its
+CUDA kernel is ``csrc/predicate_scan_multi.cu``, which reads each live
+column block once for all Q rows instead of once per row.  Both need the
+column 16-byte aligned.
 
 The wrapper takes the tensors' device as the choice of path: CPU tensors
 run :func:`predicate_scan_plain`, CUDA tensors launch the kernel (or
@@ -44,6 +46,7 @@ def predicate_scan(col: torch.Tensor, bits: torch.Tensor, pops: torch.Tensor,
     n, w = bits.shape
     dev = col.device
     _build.expect(col, "col", torch.float32, (n, 32 * w), dev)
+    _build.expect_aligned16(col, "col")
     _build.expect(bits, "bits", torch.int32, (n, w), dev)
     _build.expect(pops, "pops", torch.int32, (n,), dev)
     if not 0 <= int(opcode) <= ref.NE:
@@ -56,7 +59,7 @@ def predicate_scan(col: torch.Tensor, bits: torch.Tensor, pops: torch.Tensor,
             int(opcode), n, w, out.data_ptr(), out_pops.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "predicate_scan")
-    _build.LAUNCHES["predicate_scan"] += 1
+    _build.count_launch("predicate_scan")
     return out, out_pops
 
 
@@ -93,6 +96,7 @@ def predicate_scan_multi(col: torch.Tensor, bits: torch.Tensor,
                          f"column's {n} blocks")
     _build.expect_shared_words(w, "predicate_scan_multi")
     _build.expect(col, "col", torch.float32, (n, 32 * w), dev)
+    _build.expect_aligned16(col, "col")
     _build.expect(bits, "bits", torch.int32, (qn, w), dev)
     _build.expect(pops, "pops", torch.int32, (qn,), dev)
     if not 0 <= int(opcode) <= ref.NE:
@@ -105,5 +109,5 @@ def predicate_scan_multi(col: torch.Tensor, bits: torch.Tensor,
             int(opcode), qn // n, n, w, out.data_ptr(), out_pops.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "predicate_scan_multi")
-    _build.LAUNCHES["predicate_scan_multi"] += 1
+    _build.count_launch("predicate_scan_multi", qn // n)
     return out, out_pops

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch import ExecConfig, make_forest_table, random_query_suite, run_query
-from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, ref
 from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_inter_multi,
                                             bitmap_inter_multi_plain,
                                             bitmap_setop,
@@ -31,7 +31,10 @@ from repro_torch.kernels.predicate_scan import (predicate_scan,
                                                 predicate_scan_multi_plain,
                                                 predicate_scan_plain)
 
-SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (1024, 8192)]
+# W = 1, 3 and 9 (the last three) take the stacked kernels' 4-byte row
+# loads and end a warp's 32 words inside a group of 4
+SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (1024, 8192), (2, 32),
+          (3, 96), (5, 288)]
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +57,7 @@ def _inputs(rng, n, b, dev):
     col.reshape(-1)[:4] = [np.nan, 1e-45, -0.0, np.inf]   # NaN, denormal
     bits = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
     bits[:, 0] |= np.uint32(1 << 31)
+    bits[:, 2::7] = 0                    # zero words inside groups of 4
     if n > 1:
         bits[1] = 0                                      # a dead block
     bits = torch.from_numpy(bits.view(np.int32)).to(dev)
@@ -104,12 +108,16 @@ def test_cuda_kernels_match_plain(cuda_device, n, b):
 
 def _stacked(rng, q, n, w, dev):
     """Q stacked bitmaps i32[Q*N, W] with dead rows (all-zero bits), masked
-    rows (bits set, popcount given as 0) and one block dead in every row."""
+    rows (bits set, popcount given as 0), zero words, one block dead in
+    every row and one live in one row only."""
     bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
     bits[:, :, 0] |= np.uint32(1 << 31)
+    bits[:, :, 2::5] = 0                                 # zero words
     bits[q // 2, 0] = 0                                  # a dead row
     if n > 1:
         bits[:, n - 1] = 0                               # dead in every row
+    if n > 2:
+        bits[:q - 1, 1] = 0                              # live in one row
     bits = torch.from_numpy(bits.reshape(q * n, w).view(np.int32)).to(dev)
     pops = ref.popcount_ref(bits)
     pops[q * n // 3] = 0                                 # a masked row
@@ -117,7 +125,8 @@ def _stacked(rng, q, n, w, dev):
 
 
 @pytest.mark.parametrize("n,b,q", [
-    (n, b, q) for n, b in ((1, 256), (3, 1024), (7, 2048))
+    (n, b, q) for n, b in ((1, 256), (3, 1024), (7, 2048), (2, 32), (3, 96),
+                           (5, 288))
     for q in (1, 2, 8, 65)] + [(1024, 8192, 1), (1024, 8192, 8)])
 def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
     dev = cuda_device
@@ -126,6 +135,7 @@ def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
     col, _, _ = _inputs(rng, n, b, dev)
     bits, pops = _stacked(rng, q, n, w, dev)
     before = dict(LAUNCHES)
+    before_q = {k: v[q] for k, v in LAUNCHES_BY_Q.items()}
     for op in range(6):
         for v in (0.0, 1e-45, 0.3, float("nan")):
             _equal(predicate_scan_multi(col, bits, pops, v, op),
@@ -151,6 +161,9 @@ def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
     assert LAUNCHES["bitmap_inter_multi"] == before["bitmap_inter_multi"] + 1
     assert LAUNCHES["bitmap_union_reduce"] == before[
         "bitmap_union_reduce"] + 1
+    assert {k: v[q] - before_q[k] for k, v in LAUNCHES_BY_Q.items()} == {
+        "predicate_scan_multi": 24, "dict_lookup_scan_multi": 3,
+        "bitmap_inter_multi": 1, "bitmap_union_reduce": 1}
 
 
 @pytest.mark.parametrize("n,b", SHAPES)
@@ -193,7 +206,7 @@ def test_cuda_grouped_setop_matches_plain(cuda_device, n, b, g):
 
 
 @pytest.mark.parametrize("n,b", [(1, 256), (3, 1024), (7, 2048),
-                                 (1024, 8192)])
+                                 (1024, 8192), (3, 96), (5, 288)])
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 9])
 def test_cuda_fused_chain_every_width(cuda_device, n, b, k):
     """K3 at the compiled widths 1..8 and past them (9): both connectives,
@@ -243,6 +256,10 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     flat = torch.zeros(2 * 256 + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         fused_chain_scan([flat[1:].view(2, 256)], bits, pops, [0.0], [0])
+    with pytest.raises(ValueError, match="aligned"):
+        predicate_scan(flat[1:].view(2, 256), bits, pops, 0.0, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        predicate_scan_multi(flat[1:].view(2, 256), bits, pops, 0.0, 0)
     with pytest.raises(ValueError):
         bitmap_setop_grouped([[SetOp(bits, pops, bits, pops, bits[:1],
                                      pops, 0)]])

@@ -20,7 +20,10 @@ from repro.kernels import ops as kops, ref as kref
 from repro_torch.kernels import ops as tops, ref as tref
 from repro_torch.kernels.predicate_scan import predicate_scan
 
-SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048)]   # (blocks, block_size)
+# (blocks, block_size); W = 1, 3 and 9 end a warp's words inside a group
+# of 4 and take the stacked kernels' 4-byte row loads on the card
+SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (2, 32), (3, 96),
+          (5, 288)]
 OPS = list(range(6))
 
 
@@ -77,6 +80,7 @@ def test_predicate_scan_plain_matches_reference(n, b, opcode):
     rng = np.random.default_rng(opcode * 100 + n)
     col = _column(rng, n, b)
     bits = _bits(rng, n, b // 32)
+    bits[:, 2::7] = 0                       # zero words inside groups of 4
     value = float(rng.normal())
     got = _u32(tops.predicate_blocks(_t(col), _t(bits), value, opcode))
     want = np.asarray(kref.predicate_blocks_ref(jnp.asarray(col),
@@ -305,13 +309,17 @@ def test_code_conversion_matches_reference_on_nan_and_overflow():
 # -- K5 predicate_scan_multi, K6 dict_lookup_scan_multi -----------------------
 
 def _stacked_bits(rng, q, n, w):
-    """Q stacked bitmaps u32[Q*N, W] with a dead row and a block dead in
-    every row, plus their popcounts with one live row masked to 0."""
+    """Q stacked bitmaps u32[Q*N, W] with a dead row, zero words, a block
+    dead in every row and one live in the last row only, plus their
+    popcounts with one live row masked to 0."""
     bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
     bits[:, :, 0] |= np.uint32(1 << 31)
+    bits[:, :, 2::5] = 0                            # zero words
     bits[q - 1, 0] = 0                              # a dead row
     if n > 1:
         bits[:, 1] = 0                              # dead in every row
+    if n > 2:
+        bits[:q - 1, n - 1] = 0                     # live in one row
     bits = bits.reshape(q * n, w)
     pops = np.array(kref.popcount_ref(jnp.asarray(bits)), dtype=np.int32)
     pops[(q * n) // 2] = 0                          # masked, bits still set
@@ -414,3 +422,31 @@ def test_stacked_set_ops_match_reference(q, n, w):
     want, want_pops = _union_impl(jnp.asarray(bits), jnp.asarray(pops))
     np.testing.assert_array_equal(_u32(out), np.asarray(want))
     np.testing.assert_array_equal(out_pops.numpy(), np.asarray(want_pops))
+
+
+# -- launch counters ----------------------------------------------------------
+
+def test_stacked_launches_are_counted_by_q():
+    """A stacked wrapper's launch counts once in LAUNCHES and once under
+    its Q in LAUNCHES_BY_Q; reset_launches clears both (the CUDA wrappers
+    call count_launch right after their launch)."""
+    from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, _build
+    saved = dict(LAUNCHES), {k: dict(v) for k, v in LAUNCHES_BY_Q.items()}
+    try:
+        _build.reset_launches()
+        _build.count_launch("predicate_scan_multi", 9)
+        _build.count_launch("predicate_scan_multi", 9)
+        _build.count_launch("bitmap_union_reduce", 2)
+        _build.count_launch("predicate_scan")
+        assert LAUNCHES["predicate_scan_multi"] == 2
+        assert LAUNCHES["predicate_scan"] == 1
+        assert dict(LAUNCHES_BY_Q["predicate_scan_multi"]) == {9: 2}
+        assert dict(LAUNCHES_BY_Q["bitmap_union_reduce"]) == {2: 1}
+        assert "predicate_scan" not in LAUNCHES_BY_Q
+        _build.reset_launches()
+        assert not any(LAUNCHES.values())
+        assert not any(LAUNCHES_BY_Q.values())
+    finally:
+        LAUNCHES.update(saved[0])
+        for k, v in saved[1].items():
+            LAUNCHES_BY_Q[k].update(v)
