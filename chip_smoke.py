@@ -14,19 +14,29 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
 1. device and kernel build
 2. kernels vs plain versions (exact, W = 1, 3, 9 among the shapes), and
    their times on the card, each with the L2 flushed by a write (the
-   earlier rows' method) and clean (``ms_clean_l2``); the lockstep
+   earlier rows' method) and clean (``ms_clean_l2``); the per-op set
+   operation with its input popcounts (dense, half its rows dead, the
+   empty set, ``a is b``) and timed dense and half dead; K1's and K3's
+   device-constant entries (the ones a captured tape reads); the lockstep
    kernels (Q stacked record sets) at Q = 1, 2, 8, 65 (timed in phase 7);
    the grouped set operation at G = 1, 2, 65, 512 and in a two-level
    flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2, 3, 5, 8,
    9, checked and timed
-3. numeric tape at paper scale: results, one host sync and one device
-   program per query, no host fallback
-4. strings and fragmented strings: no host fallback, the lookup kernel runs
-5. zone-pruned tapes: identical results, pruned blocks accounted
-6. a mixed tape with a UDF atom: one host fallback
+3. numeric tape at paper scale: a cold pass (each tape's program made and
+   its CUDA graph captured) and warm passes (each query one graph replay,
+   one host sync, one device program, no host fallback), the host calls
+   per warm query, peak device memory with the graphs' pools, and two
+   key-equal tapes with other constants on one program
+4. strings and fragmented strings, cold and warm: no host fallback, the
+   lookup kernel runs
+5. zone-pruned tapes, cold and warm: identical results, pruned blocks
+   accounted
+6. a mixed tape with a UDF atom: one host fallback, op by op, no program
 7. the stacked kernels timed at Q = 8, 64 and at each path's median Q
-   (the numeric lockstep path's K5 median is their headline), a ranking
-   by launches x (time - bound), and the kernels line
+   (the numeric lockstep path's K5 median is their headline); the tape's
+   kernels and an empty kernel timed inside a CUDA graph (32 launches per
+   replay) and the empty kernel alone; a ranking by launches x (time -
+   bound), and the kernels line
 8. lockstep batches: 64 paper queries (8 templates), twice (the second
    serves cached shared atoms), and a strings batch holding the fragmented
    tree twice; one host sync per batch, records_evaluated equal to a host
@@ -37,7 +47,8 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
 
 Each path of phases 3-6, 8 and 9 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
-equal the launches its tapes need; on a lockstep path the grouped set
+equal the launches its tapes need (a graph replay counts the launches its
+capture recorded); on a lockstep path the grouped set
 operation's launches must equal its backend's ``setop_launches`` and all
 other launches its device dispatches less the set operations it deferred
 (each other dispatch is one launch); and each kernel the path runs must
@@ -48,19 +59,21 @@ CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 
 ``python3 chip_smoke.py --compare SRC`` runs only what compares two trees
-on one card: K1's, K5's (Q = 8, 64) and the fused chain's times and a
-lockstep batch (its walls, launches and a cProfile split of the cached
-batch), with the package from ``SRC`` (a ``src`` directory of another
-checkout).
+on one card: K1's, K5's (Q = 8, 64) and the fused chain's times, the
+numeric tape's warm breakdown (wall, plan and ``run_tape`` p50 over the
+32 paper queries) and a lockstep batch (its walls, launches and a
+cProfile split of the cached batch), with the package from ``SRC`` (a
+``src`` directory of another checkout).
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 import warnings
-from collections import Counter
+from collections import Counter, defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -132,6 +145,8 @@ HEADLINE_G = 64
 #: generic path); K = 3 is the row's headline, as in earlier runs
 CHAIN_KS = (1, 2, 3, 5, 8, 9)
 TIMED_KS = CHAIN_KS
+#: paths whose tapes run as CUDA-graph replays
+GRAPH_PATHS = ("numeric", "strings", "zones")
 #: backend counters the lockstep paths' launch accounting reads
 ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
 
@@ -217,7 +232,8 @@ class Tracker:
     """Per-query deltas of a reused backend's counters."""
 
     FIELDS = ("host_syncs", "device_dispatches", "host_fallbacks",
-              "blocks_touched", "blocks_pruned")
+              "blocks_touched", "blocks_pruned", "tape_programs",
+              "graph_captures", "graph_replays")
 
     def __init__(self):
         self.be = None
@@ -242,7 +258,9 @@ class Tracker:
     def _snap(self):
         if self.be is None:
             return {k: 0 for k in self.FIELDS + ("records_evaluated",)}
-        out = {k: getattr(self.be, k) for k in self.FIELDS}
+        # getattr: --compare also drives trees that lack the program
+        # counters
+        out = {k: getattr(self.be, k, 0) for k in self.FIELDS}
         out["records_evaluated"] = self.be.stats.records_evaluated
         return out
 
@@ -268,8 +286,9 @@ def check_query(tr: Tracker, tree, table, res, where: str,
               f"{rec}")
         got_obs = [(s, o) for (_, _, s, o) in tr.be.drain_op_log()]
         check(got_obs == obs, f"{where}: per-op popcounts differ")
-    else:
-        tr.be.drain_op_log()
+        return got_obs
+    tr.be.drain_op_log()
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +335,11 @@ def phase_kernels(dev, shapes):
                                                 bitmap_setop_plain)
     from repro_torch.kernels.dict_lookup import (dict_lookup_scan,
                                                  dict_lookup_scan_plain)
-    from repro_torch.kernels.fused_chain import (fused_chain_scan,
-                                                 fused_chain_scan_plain)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_chain import (MAX_STATIC_K,
+                                                 fused_chain_scan,
+                                                 fused_chain_scan_plain,
+                                                 fused_chain_table)
     from repro_torch.kernels.predicate_scan import (predicate_scan,
                                                     predicate_scan_plain)
     errs = {k: 0 for k in KERNELS}
@@ -337,10 +359,29 @@ def phase_kernels(dev, shapes):
                 cmp("predicate_scan", predicate_scan(col, bits, pops, v, op),
                     predicate_scan_plain(col, bits, pops, v, op),
                     f"n={n} b={b} op={op} v={v}")
-        other = bits.flip(0).contiguous()
-        for op in range(3):
-            cmp("bitmap_setop", bitmap_setop(bits, other, op),
-                bitmap_setop_plain(bits, other, op), f"n={n} op={op}")
+        # the tape reads its constants from device memory: K1's
+        # value-pointer entry, every opcode and value again
+        dvals = torch.tensor([0.0, 1e-45, 0.25, float("nan")],
+                             dtype=torch.float32, device=dev)
+        for op in range(6):
+            for j in range(len(dvals)):
+                cmp("predicate_scan",
+                    predicate_scan(col, bits, pops, dvals[j], op),
+                    predicate_scan_plain(col, bits, pops, dvals[j], op),
+                    f"n={n} b={b} op={op} device value {j}")
+        # the per-op set operation takes the inputs' exact popcounts: dense
+        # rows, a dead block, half its rows dead, the empty set, a is b
+        half = bits.clone()
+        half[::2] = 0
+        sets = [bits, bits.flip(0).contiguous(), half, torch.zeros_like(bits)]
+        for ia, x in enumerate(sets):
+            for ib, y in enumerate(sets):
+                for op in range(3):
+                    cmp("bitmap_setop",
+                        bitmap_setop(x, y, op, ref.popcount_ref(x),
+                                     ref.popcount_ref(y)),
+                        bitmap_setop_plain(x, y, op),
+                        f"n={n} op={op} sets {ia}, {ib}")
         for k in CHAIN_KS:
             for conj in (True, False):
                 for nan_value in (False, True):
@@ -354,6 +395,17 @@ def phase_kernels(dev, shapes):
                         fused_chain_scan_plain(cols[:k], bits, pops, vals,
                                                ops, conj),
                         f"n={n} k={k} conj={conj} nan_value={nan_value}")
+                    # the device-constant entries (K > 8: a prebuilt table)
+                    dv = torch.tensor(vals, dtype=torch.float32, device=dev)
+                    table = (fused_chain_table(cols[:k], ops)
+                             if k > MAX_STATIC_K else None)
+                    cmp("fused_chain_scan",
+                        fused_chain_scan(cols[:k], bits, pops, dv, ops, conj,
+                                         table=table),
+                        fused_chain_scan_plain(cols[:k], bits, pops, dv, ops,
+                                               conj),
+                        f"n={n} k={k} conj={conj} nan_value={nan_value} "
+                        "device values")
         for case in grouped_cases(rng, bits, dev):
             cmp(*case)
         for u in (1, 2, 64):
@@ -575,6 +627,8 @@ def kernel_timings(dev, only=None):
                             ).to(dev)
     from repro_torch.kernels import ref
     pops = ref.popcount_ref(bits)
+    other = bits.flip(0).contiguous()
+    other_pops = ref.popcount_ref(other)
     live_words = int(((bits != 0) & (pops > 0)[:, None]).sum().item())
     live_rows = int((pops > 0).sum().item())
     bitmaps = live_rows * w * 4 + n * w * 4 + 2 * n * 4
@@ -584,9 +638,12 @@ def kernel_timings(dev, only=None):
                            lambda: predicate_scan(col, bits, pops, 0.25, 0),
                            lambda: predicate_scan_plain(col, bits, pops,
                                                         0.25, 0)),
-        "bitmap_setop": (3 * n * w * 4 + n * 4, n * w,
-                         lambda: bitmap_setop(bits, bits, 0),
-                         lambda: bitmap_setop_plain(bits, bits, 0)),
+        # two distinct dense inputs: two rows and popcounts read, one
+        # written (rows before PR 15 timed a is b, see "a_is_b" below)
+        "bitmap_setop": (3 * n * w * 4 + 3 * n * 4, n * w,
+                         lambda: bitmap_setop(bits, other, 0, pops,
+                                              other_pops),
+                         lambda: bitmap_setop_plain(bits, other, 0)),
         "dict_lookup_scan": (live_words * 128 + bitmaps + 4, records,
                              lambda: dict_lookup_scan(codes, bits, pops,
                                                       mask),
@@ -597,6 +654,21 @@ def kernel_timings(dev, only=None):
            if only is None or name in only}
     if only is not None:
         return out
+    # the set operation with a is b (the method of the rows before PR 15:
+    # one row and one popcount array read, one of each written), and with
+    # every other row of ``a`` dead: an AND reads neither input row there
+    out["bitmap_setop"]["a_is_b"] = timed(
+        2 * n * w * 4 + 2 * n * 4, n * w,
+        lambda: bitmap_setop(bits, bits, 0, pops, pops),
+        lambda: bitmap_setop_plain(bits, bits, 0))
+    half = bits.clone()
+    half[::2] = 0
+    half_pops = ref.popcount_ref(half)
+    live = int((half_pops > 0).sum().item())
+    out["bitmap_setop"]["half_dead"] = timed(
+        2 * live * w * 4 + n * w * 4 + 3 * n * 4, live * w,
+        lambda: bitmap_setop(half, other, 0, half_pops, other_pops),
+        lambda: bitmap_setop_plain(half, other, 0))
     by_k = chain_timings(dev)
     out["fused_chain_scan"] = dict(by_k[3], by_k=by_k)
     by_g = grouped_timings(dev)
@@ -671,6 +743,152 @@ def grouped_timings(dev):
     return out
 
 
+#: launches per replay of the in-graph timings
+GRAPH_LAUNCHES = 32
+
+
+def graph_us(chain, reps=25):
+    """Device time per launch, in us, of ``chain()`` (GRAPH_LAUNCHES
+    launches) captured into one CUDA graph: the median over ``reps``
+    replays queued back to back behind a device-side sleep, each between
+    two events, divided by the launches.  Nothing is flushed: the inputs
+    stay in the L2, as a tape's sets do between its ops."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()                                  # warm-up, outside
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chain()
+    graph.replay()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for st, en in zip(starts, ends):
+        st.record()
+        graph.replay()
+        en.record()
+    torch.cuda.synchronize()
+    times = sorted(st.elapsed_time(en) for st, en in zip(starts, ends))
+    return times[len(times) // 2] / GRAPH_LAUNCHES * 1e3
+
+
+def setop_args(bitmap_setop):
+    """``bitmap_setop`` called as ``(a, b, opcode, a_pops, b_pops)``, also
+    where it takes no popcounts (a tree before PR 15, for --compare)."""
+    import inspect
+    if len(inspect.signature(bitmap_setop).parameters) > 3:
+        return bitmap_setop
+    return lambda a, b, opcode, a_pops, b_pops: bitmap_setop(a, b, opcode)
+
+
+def setop_graph_us(dev):
+    """The per-op K2 as a tape's graph runs it, per launch (us), at the
+    main shape: chains of GRAPH_LAUNCHES dependent set operations (each
+    reads the previous output and its popcounts, and a second input that
+    stays in the L2).  ``dense``: the opcodes cycle OR, AND, ANDNOT over
+    dense random inputs, so that no row dies.  ``half_dead``: every other
+    row of the first set and of the OR inputs is empty, and the chain
+    alternates AND with a dense input and OR with a half-dead one, so the
+    same half of the rows stays dead in every launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import bitmap_setop
+    setop = setop_args(bitmap_setop)
+    n, b = MAIN_SHAPE
+    w = b // 32
+    rng = np.random.default_rng(10)
+
+    def words(dead=False):
+        x = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
+        if dead:
+            x[::2] = 0
+        x = torch.from_numpy(x.view(np.int32)).to(dev)
+        return x, ref.popcount_ref(x)
+    x0, ys = words(), [words(), words()]
+    h0, zs = words(dead=True), [words(dead=True), words(dead=True)]
+
+    def dense():
+        x = x0
+        for j in range(GRAPH_LAUNCHES):
+            y = ys[j % 2]
+            x = setop(x[0], y[0], (1, 0, 2)[j % 3], x[1], y[1])
+
+    def half_dead():
+        x = h0
+        for j in range(GRAPH_LAUNCHES):
+            y = zs[j // 2 % 2] if j % 2 else ys[j // 2 % 2]
+            x = setop(x[0], y[0], j % 2, x[1], y[1])     # AND, then OR
+    return {"dense": graph_us(dense), "half_dead": graph_us(half_dead)}
+
+
+def graph_timings(dev):
+    """The tape path's kernels as the tape's graph runs them, per launch
+    (us), at the main shape on dense random inputs: K2 as chains of
+    dependent set operations (:func:`setop_graph_us`); K1, K3 (K = 3) with
+    device constants and K4 GRAPH_LAUNCHES times, each launch on columns
+    of its own, so every launch reads its columns from HBM as a tape's
+    ops do (a 32 MiB column left in the 50 MB L2 would not be), while the
+    input set, as a tape's sets between its ops, stays in the L2; and an
+    empty kernel (``torch.cuda._sleep(0)``) in a graph and alone, the
+    fixed part of a launch."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dict_lookup import dict_lookup_scan
+    from repro_torch.kernels.fused_chain import fused_chain_scan
+    from repro_torch.kernels.predicate_scan import predicate_scan
+    n, b = MAIN_SHAPE
+    w = b // 32
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x0 = torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
+                       dtype=torch.int32, device=dev)
+    x0_pops = ref.popcount_ref(x0)
+    mask = torch.tensor([0x5A5], dtype=torch.int32, device=dev)
+    vals = torch.tensor([0.25, 0.1, -0.3], dtype=torch.float32, device=dev)
+
+    def columns(k, codes=False):
+        if codes:
+            return [torch.randint(0, 12, (n, b), generator=gen, device=dev)
+                    .float() for _ in range(k)]
+        return [torch.randn((n, b), generator=gen, device=dev)
+                for _ in range(k)]
+
+    def per_launch(fn, cols):
+        def chain():
+            for j in range(GRAPH_LAUNCHES):
+                fn(cols[j])
+        us = graph_us(chain)
+        cols.clear()
+        torch.cuda.empty_cache()
+        return us
+    k2 = setop_graph_us(dev)
+    out = {
+        "bitmap_setop": k2["dense"],
+        "bitmap_setop half_dead": k2["half_dead"],
+        "predicate_scan": per_launch(
+            lambda c: predicate_scan(c, x0, x0_pops, vals[0], 0),
+            columns(GRAPH_LAUNCHES)),
+        "fused_chain_scan": per_launch(
+            lambda c: fused_chain_scan(c, x0, x0_pops, vals, [0, 2, 3],
+                                       True),
+            [columns(3) for _ in range(GRAPH_LAUNCHES)]),
+        "dict_lookup_scan": per_launch(
+            lambda c: dict_lookup_scan(c, x0, x0_pops, mask),
+            columns(GRAPH_LAUNCHES, codes=True)),
+        "empty kernel": graph_us(
+            lambda: [torch.cuda._sleep(0) for _ in range(GRAPH_LAUNCHES)]),
+    }
+    empty = {"ms": gpu_ms(lambda: torch.cuda._sleep(0)),
+             "ms_clean_l2": gpu_ms(lambda: torch.cuda._sleep(0), clean=True)}
+    return out, empty
+
+
 def stacked_timings(dev, qs, only=None):
     """Time K5, K6 and the stacked set operations (or those named in
     ``only``), and their plain versions, at the main path's shape for each
@@ -743,60 +961,92 @@ def stacked_timings(dev, qs, only=None):
 # phases 3-6: the main path
 # ---------------------------------------------------------------------------
 
-def phase_numeric(rows, n_queries, dev_name, sync_check):
+PROGRAM_FIELDS = ("tape_programs", "graph_captures", "graph_replays")
+
+
+def program_text(be) -> str:
+    c = {k: getattr(be, k, 0) for k in PROGRAM_FIELDS}
+    return (f"{c['tape_programs']} programs made, {c['graph_captures']} "
+            f"graphs captured, {c['graph_replays']} graph replays")
+
+
+def cold_pass(tr, trees, table, label, **cfg):
+    """Each tree once on the Tracker's backend, held against the numpy
+    oracle and the host tape (result, records_evaluated, per-op
+    popcounts).  Returns (results, records_evaluated, per-op popcounts,
+    tape keys, tape op counts), one entry per tree."""
+    out = ([], [], [], [], [])
+    for i, tree in enumerate(trees):
+        res = tr.run(tree, table, **cfg)
+        obs = check_query(tr, tree, table, res, f"{label} query {i}")
+        for acc, v in zip(out, (res, tr.last["records_evaluated"], obs,
+                                tr.be.last_tape.key,
+                                len(tr.be.last_tape.ops))):
+            acc.append(v)
+    return out
+
+
+def warm_pass(tr, trees, table, cold, label, sync_check, **cfg):
+    """Each tree again on the same backend: one graph replay and no new
+    program or capture, one host sync (counted by sync debug mode when
+    ``sync_check``) and one device program per query, and the cold pass's
+    result, records_evaluated and per-op popcounts.  Sync debug mode is
+    switched on once, before the queries (switching it on warns once that
+    the mode is a prototype).  Returns the walls (ms) and syncs per
+    query."""
     import numpy as np
     import torch
-
-    from repro_torch import make_forest_table, random_query_suite
-    t0 = time.perf_counter()
-    table = make_forest_table(rows, n_dup=12, seed=7)
-    trees = random_query_suite(table, n_queries, 16, 3, seed=0)
-    log(f"  table {rows} x {len(table.columns)} and {len(trees)} trees "
-        f"built in {time.perf_counter() - t0:.1f} s")
-    tr = Tracker()
-    results, n_ops = [], []
-    for i, tree in enumerate(trees):
-        res = tr.run(tree, table, device=dev_name)
-        check_query(tr, tree, table, res, f"numeric query {i}")
-        results.append(res)
-        n_ops.append(len(tr.be.last_tape.ops))
-    log(f"  {len(trees)} queries identical to the numpy oracle "
-        f"(records_evaluated and per-op popcounts equal to the host tape); "
-        f"uploaded_bytes={tr.be.uploaded_bytes}; tape ops per query "
-        f"mean={np.mean(n_ops):.1f} max={max(n_ops)}")
-    # warm pass: every column is resident.  Sync debug mode turns each
-    # synchronizing CUDA call into a warning; it is switched on once, before
-    # the queries (switching it on warns once that the mode is a prototype)
+    results, recs, obs = cold[:3]
     walls, syncs = [], []
     sites, messages = Counter(), set()
     if sync_check:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             torch.cuda.set_sync_debug_mode("warn")
-    for i, tree in enumerate(trees):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            res = tr.run(tree, table, device=dev_name)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        messages.update(str(w.message)[:80] for w in caught)
-        where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                 if SYNC_WARNING in str(w.message)]
-        syncs.append(len(where))
-        sites.update(where)
-        check(np.array_equal(res, results[i]), f"warm query {i} differs")
-        check(tr.last["host_syncs"] == 1 and tr.last["device_dispatches"]
-              == 1, f"warm query {i}: syncs/dispatches")
-        tr.be.drain_op_log()
+    try:
+        for i, tree in enumerate(trees):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = tr.run(tree, table, **cfg)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            messages.update(str(w.message)[:80] for w in caught)
+            where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                     if SYNC_WARNING in str(w.message)]
+            syncs.append(len(where))
+            sites.update(where)
+            d = tr.last
+            what = f"{label} warm query {i}"
+            check(np.array_equal(res, results[i]), f"{what} differs")
+            check(d["host_syncs"] == 1 and d["device_dispatches"] == 1,
+                  f"{what}: syncs/dispatches {d}")
+            check(d["graph_replays"] == 1 and d["graph_captures"] == 0
+                  and d["tape_programs"] == 0,
+                  f"{what}: not one replay of a captured graph {d}")
+            check(d["records_evaluated"] == recs[i],
+                  f"{what}: records_evaluated {d['records_evaluated']}")
+            got = [(s, o) for (_, _, s, o) in tr.be.drain_op_log()]
+            check(got == obs[i], f"{what}: per-op popcounts differ")
+    finally:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode(0)
     if sync_check:
-        torch.cuda.set_sync_debug_mode(0)
-    log(f"  warm queries: wall ms p50={np.median(walls):.3f} "
-        f"min={min(walls):.3f} max={max(walls):.3f}; device syncs per "
-        f"query={sorted(set(syncs))} at {dict(sites)}; warnings seen: "
-        f"{sorted(messages)}")
-    # where a warm query's time goes: host planning (string rewrite,
-    # DeepFish, tape compile) against the tape's execution, which ends in
-    # the one fetch and so includes the device's work
+        check(set(syncs) == {1}, f"{label}: device syncs per warm query "
+              f"{syncs} at {dict(sites)}")
+    log(f"  {label} warm pass of {len(trees)}: wall ms p50="
+        f"{np.median(walls):.3f} min={min(walls):.3f} max={max(walls):.3f};"
+        f" device syncs per query={sorted(set(syncs))} at {dict(sites)}; "
+        f"warnings seen: {sorted(messages)}; every query one graph replay")
+    return walls, syncs
+
+
+def warm_breakdown(tr, table, trees):
+    """Where a warm query's time goes: host planning (string rewrite,
+    DeepFish, tape compile) against the tape's execution, which ends in
+    the one fetch and so includes the device's work.  Returns the ms of
+    each per query and the kernel launches per query."""
+    import numpy as np
+
     from repro_torch.columnar import rewrite_string_atoms
     from repro_torch.core import PerAtomCostModel, compile_tape, deepfish
     from repro_torch.kernels import LAUNCHES
@@ -814,42 +1064,220 @@ def phase_numeric(rows, n_queries, dev_name, sync_check):
         plan_ms.append((t1 - t0) * 1e3)
         tape_ms.append((t2 - t1) * 1e3)
     tr.be.drain_op_log()
-    per_query = (sum(LAUNCHES.values()) - launches0) / len(trees)
-    log(f"  warm breakdown: plan+compile ms p50={np.median(plan_ms):.3f}, "
-        f"run_tape ms p50={np.median(tape_ms):.3f} "
+    out = {"plan_ms_p50": float(np.median(plan_ms)),
+           "run_tape_ms_p50": float(np.median(tape_ms)),
+           "run_tape_ms_min": min(tape_ms), "run_tape_ms_max": max(tape_ms),
+           "launches_per_query":
+               (sum(LAUNCHES.values()) - launches0) / len(trees)}
+    log(f"  warm breakdown: plan+compile ms p50={out['plan_ms_p50']:.3f}, "
+        f"run_tape ms p50={out['run_tape_ms_p50']:.3f} "
         f"(min={min(tape_ms):.3f} max={max(tape_ms):.3f}); kernel launches "
-        f"per query={per_query:.2f}")
+        f"per query={out['launches_per_query']:.2f}")
+    return out
+
+
+def drifted(tree, table, shift=0.05):
+    """A copy of ``tree`` whose constants sit at the selectivity ``g +
+    shift`` while each atom keeps its annotated ``g``: the plan, and so the
+    tape's structural key, stays the same; the constants change."""
+    import dataclasses
+
+    from repro_torch.core import And, Or, normalize
+
+    def copy(node):
+        if isinstance(node, (And, Or)):
+            return type(node)([copy(c) for c in node.children])
+        g = min(max(node.selectivity + shift, 0.01), 0.99)
+        return dataclasses.replace(
+            node, value=float(table.value_at_selectivity(node.column, g)),
+            name=None, aid=-1)
+    return normalize(copy(tree.root))
+
+
+def memory_text(be) -> str:
+    """Peak and current device memory against the resident columns."""
+    import torch
+    progs = getattr(be, "_programs", {})
+    static = sum(p.inputs.numel() * 4 for p in progs.values())
+    return (f"torch.cuda.max_memory_allocated={torch.cuda.max_memory_allocated()}"
+            f" B, memory_allocated={torch.cuda.memory_allocated()} B, of "
+            f"which resident columns {be.uploaded_bytes} B and the "
+            f"{len(progs)} programs' static inputs {static} B (the rest: "
+            f"the graphs' shared pool, the full set, the last outputs)")
+
+
+def phase_numeric(rows, n_queries, dev_name, sync_check):
+    import numpy as np
+    import torch
+
+    from repro_torch import make_forest_table, random_query_suite
+    from repro_torch.columnar.bitmap import popcount
+    from repro_torch.kernels import LAUNCHES
+    t0 = time.perf_counter()
+    table = make_forest_table(rows, n_dup=12, seed=7)
+    trees = random_query_suite(table, n_queries, 16, 3, seed=0)
+    log(f"  table {rows} x {len(table.columns)} and {len(trees)} trees "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    tr = Tracker()
+    cold = cold_pass(tr, trees, table, "numeric", device=dev_name)
+    results, n_ops = cold[0], cold[4]
+    be = tr.be
+    # a program per structural key (and per pruning shape, which random
+    # rows leave the same), each captured once
+    check(be.graph_captures == be.tape_programs == len(be._programs)
+          >= len(set(cold[3])), f"numeric cold pass: {program_text(be)} "
+          f"for {len(set(cold[3]))} distinct tape keys")
+    log(f"  {len(trees)} queries identical to the numpy oracle "
+        f"(records_evaluated and per-op popcounts equal to the host tape); "
+        f"uploaded_bytes={be.uploaded_bytes}; tape ops per query "
+        f"mean={np.mean(n_ops):.1f} max={max(n_ops)}; cold pass: "
+        f"{program_text(be)}")
+    launches0 = sum(LAUNCHES.values())
+    walls, syncs = warm_pass(tr, trees, table, cold, "numeric", sync_check,
+                             device=dev_name)
+    log(f"  kernels per warm query, as counted at replay: "
+        f"{(sum(LAUNCHES.values()) - launches0) / len(trees):.2f}; "
+        f"{program_text(be)}")
+    breakdown = warm_breakdown(tr, table, trees)
+    tape_split(tr, table, trees)
+    # two key-equal tapes with other constants: one program, one graph,
+    # each its own oracle result
+    c0 = {k: getattr(be, k) for k in PROGRAM_FIELDS}
+    twin = drifted(trees[0], table)
+    res = tr.run(twin, table, device=dev_name)
+    check_query(tr, twin, table, res, "numeric twin query")
+    check(be.last_tape.key == cold[3][0], "the twin's tape is not key-equal")
+    check(not np.array_equal(res, results[0]), "the twin's constants "
+          "changed no record")
+    res0 = tr.run(trees[0], table, device=dev_name)
+    check(np.array_equal(res0, results[0]), "query 0 after its twin differs")
+    tr.be.drain_op_log()
+    d = {k: getattr(be, k) - c0[k] for k in PROGRAM_FIELDS}
+    check(d == {"tape_programs": 0, "graph_captures": 0, "graph_replays": 2},
+          f"key-equal twin: {d}")
+    log(f"  key-equal twin of query 0 (constants moved by 0.05 in "
+        f"selectivity): one program and one graph for both, each equal to "
+        f"its numpy oracle ({popcount(res)} vs {popcount(results[0])} "
+        "records)")
     info = {"walls_ms": walls, "syncs": syncs, "table": table,
-            "trees": trees, "tracker": tr, "results": results}
+            "trees": trees, "tracker": tr, "results": results,
+            "breakdown": breakdown}
     if dev_name != "cpu":
         info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        log(f"  torch.cuda.max_memory_allocated={info['max_memory_allocated']}")
+        log(f"  {memory_text(be)}")
     return info
 
 
+#: the kernel functions of kernels/csrc, by the LAUNCHES entry of the
+#: wrapper that launches them
+KERNEL_SYMBOLS = {
+    "predicate_scan_kernel": "predicate_scan",
+    "bitmap_setop_kernel": "bitmap_setop",
+    "fused_chain_kernel": "fused_chain_scan",
+    "dict_lookup_kernel": "dict_lookup_scan",
+    "predicate_scan_multi_kernel": "predicate_scan_multi",
+    "dict_lookup_multi_kernel": "dict_lookup_scan_multi",
+    "bitmap_setop_grouped_kernel": "bitmap_setop_grouped",
+    "inter_multi_kernel": "bitmap_inter_multi",
+    "bitmap_union_reduce_kernel": "bitmap_union_reduce",
+}
+
+
+def primer_graph():
+    """A CUDA graph of 8 empty kernels.  The profiler (torch 2.11, CUDA
+    12.8, on an H100) drops the first few kernel records of the first
+    graph launch in a session, so a profiled window launches this graph
+    first and leaves its records out."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(8):
+            torch.cuda._sleep(0)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return graph
+
+
 def device_busy(tr, table, trees, results):
-    """Kernel time summed by the profiler over a few warm queries, against
-    their wall time: the device's busy share on the main path.  Each
-    query's result is held against its first run's."""
+    """Device time over a few warm queries (the durations of the kernels
+    and copies the profiler saw run), against their wall time: the
+    device's busy share on the main path; and the CUDA runtime calls the
+    host made per query.  Each query's result is held against its first
+    run's.  The kernels the profiler saw run on the card are held against
+    the window's launch counts, which a graph replay adds without running
+    a wrapper: each of the port's kernels ran exactly as often as it was
+    counted, replay by replay.  Returns the device ms, the wall ms, the
+    runtime calls per query and the kernels the profiler saw per query
+    (the port's by their LAUNCHES name, PyTorch's own kernels, such as the
+    tape's counter packing, under their function names)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    got = []
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import LAUNCHES
+    primer = primer_graph()
+    got, counted_by_query = [], []
+    before = dict(LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for tree in trees:
-            got.append(tr.run(tree, table))
+        primer.replay()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with record_function("warm queries"):
+            t0 = time.perf_counter()
+            for tree in trees:
+                b = dict(LAUNCHES)
+                got.append(tr.run(tree, table))
+                counted_by_query.append({k: v - b.get(k, 0)
+                                         for k, v in LAUNCHES.items()
+                                         if v - b.get(k, 0)})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
     tr.be.drain_op_log()
     for i, res in enumerate(got):
         check(np.array_equal(res, results[i]), f"profiled query {i} differs")
+    counted = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+               if v - before.get(k, 0)}
+    events = prof.events()
+    window = next(ev.time_range for ev in events
+                  if ev.name == "warm queries"
+                  and ev.device_type != DeviceType.CUDA)
+    launches = sorted((ev.time_range.start, ev.id) for ev in events
+                      if ev.name == "cudaGraphLaunch")
+    primer_id = launches.pop(0)[1]
     dev_us = 0.0
-    for ev in prof.key_averages():
-        dev_us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-    return dev_us / 1e3, wall
+    calls, ran, by_launch = Counter(), Counter(), defaultdict(Counter)
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA:
+            if (re.match(r"cu(da)?[A-Z]", ev.name)         # a CUDA API call
+                    and window.start <= ev.time_range.start <= window.end):
+                calls[ev.name] += 1
+            continue
+        if ev.id == primer_id or ev.is_user_annotation:
+            continue                # the primer's, or "warm queries" itself
+        dev_us += ev.time_range.elapsed_us()
+        if ev.name.startswith(("Memcpy", "Memset")):
+            continue
+        sym = re.search(r"(\w+_kernel)\b", ev.name)
+        name = KERNEL_SYMBOLS.get(sym.group(1) if sym else "", ev.name)
+        ran[name] += 1
+        if name in KERNELS:
+            by_launch[ev.id][name] += 1
+    ours = {k: v for k, v in ran.items() if k in KERNELS}
+    by_replay = [(i, dict(by_launch[cid]), counted_by_query[i])
+                 for i, (_, cid) in enumerate(launches[:len(trees)])
+                 if dict(by_launch[cid]) != counted_by_query[i]]
+    check(ours == counted and not by_replay, f"the profiler saw the port's "
+          f"kernels run {ours} times, the wrappers and replays counted "
+          f"{counted}; by replay (saw, counted): {by_replay}")
+    per_query = {k: v / len(trees) for k, v in sorted(calls.items())}
+    kernels = {k: v / len(trees) for k, v in sorted(ran.items())}
+    return dev_us / 1e3, wall, per_query, kernels
 
 
 def fragmented_tree(table):
@@ -880,7 +1308,7 @@ def fragmented_tree(table):
     return tree
 
 
-def phase_strings(rows, n_queries, dev_name):
+def phase_strings(rows, n_queries, dev_name, sync_check):
     from repro_torch import make_forest_table, random_query_suite
     from repro_torch.kernels import LAUNCHES
     t0 = time.perf_counter()
@@ -891,17 +1319,29 @@ def phase_strings(rows, n_queries, dev_name):
         f"{time.perf_counter() - t0:.1f} s")
     lookups0 = LAUNCHES["dict_lookup_scan"]
     tr = Tracker()
-    results = []
-    for i, tree in enumerate(trees):
-        res = tr.run(tree, table, device=dev_name)
-        check_query(tr, tree, table, res, f"string query {i}")
-        results.append(res)
+    cold = cold_pass(tr, trees, table, "string", device=dev_name)
+    results = cold[0]
     n_lookup = LAUNCHES["dict_lookup_scan"] - lookups0
     if dev_name != "cpu":
         check(n_lookup > 0, "dict_lookup_scan never launched on strings")
     log(f"  {len(trees)} string queries (last one fragmented) identical, "
-        f"host_fallbacks=0, dict_lookup_scan launches={n_lookup}")
-    return table, trees, results
+        f"host_fallbacks=0, dict_lookup_scan launches={n_lookup}; cold pass:"
+        f" {program_text(tr.be)}")
+    launches0 = sum(LAUNCHES.values())
+    walls, _ = warm_pass(tr, trees, table, cold, "strings", sync_check,
+                         device=dev_name)
+    log(f"  kernels per warm query, as counted at replay: "
+        f"{(sum(LAUNCHES.values()) - launches0) / len(trees):.2f}; "
+        f"{program_text(tr.be)}")
+    breakdown = warm_breakdown(tr, table, trees)
+    busy_ms, wall_ms, calls, ran = device_busy(tr, table, trees, results)
+    log(f"  profiled warm pass: device time {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall (busy share {busy_ms / wall_ms:.4f}); CUDA "
+        f"API calls per query {calls}; kernels run per query, as the "
+        f"profiler saw them (equal to the counts) {ran}")
+    log(f"  {memory_text(tr.be)}")
+    return table, trees, results, {"walls_ms": walls, "calls": calls,
+                                   "breakdown": breakdown}
 
 
 def selective_table(rows, block):
@@ -957,19 +1397,26 @@ def selective_trees(table, block):
     return trees
 
 
-def phase_zones(rows, block, dev_name):
+def phase_zones(rows, block, dev_name, sync_check):
     import numpy as np
+    import torch
     table = selective_table(rows, block)
     trees = selective_trees(table, block)
+    torch.cuda.reset_peak_memory_stats()
     pruned, unpruned = Tracker(), Tracker()
+    colds = {"pruned": ([], [], [], [], []), "unpruned": ([], [], [], [], [])}
     total_pruned = 0.0
     for i, tree in enumerate(trees):
-        a = pruned.run(tree, table, device=dev_name, block=block)
-        check_query(pruned, tree, table, a, f"pruned query {i}")
-        b = unpruned.run(tree, table, device=dev_name, block=block,
-                         zone_prune=False)
-        check_query(unpruned, tree, table, b, f"unpruned query {i}")
-        check(np.array_equal(a, b), f"zone query {i}: pruned != unpruned")
+        runs = {}
+        for label, tr, zp in (("pruned", pruned, True),
+                              ("unpruned", unpruned, False)):
+            got = cold_pass(tr, [tree], table, f"{label} query {i}",
+                            device=dev_name, block=block, zone_prune=zp)
+            for acc, v in zip(colds[label], got):
+                acc.extend(v)
+            runs[label] = got[0][0]
+        check(np.array_equal(runs["pruned"], runs["unpruned"]),
+              f"zone query {i}: pruned != unpruned")
         p, u = pruned.last, unpruned.last
         check(u["blocks_pruned"] == 0, "unpruned run pruned blocks")
         check(p["blocks_touched"] == u["blocks_touched"] - p["blocks_pruned"],
@@ -980,7 +1427,15 @@ def phase_zones(rows, block, dev_name):
     log(f"  {len(trees)} zone queries identical pruned/unpruned/oracle; "
         f"blocks_pruned={total_pruned:.0f} blocks_touched "
         f"{pruned.be.blocks_touched:.0f} vs {unpruned.be.blocks_touched:.0f} "
-        f"unpruned")
+        f"unpruned; cold pass: pruned {program_text(pruned.be)}, unpruned "
+        f"{program_text(unpruned.be)}")
+    for label, tr, zp in (("pruned", pruned, True),
+                          ("unpruned", unpruned, False)):
+        warm_pass(tr, trees, table, colds[label], f"zones {label}",
+                  sync_check, device=dev_name, block=block, zone_prune=zp)
+        log(f"  zones {label}: {program_text(tr.be)}")
+    log(f"  {memory_text(pruned.be)} (the unpruned backend's columns "
+        f"besides)")
 
 
 def phase_mixed(table, dev_name):
@@ -1001,8 +1456,11 @@ def phase_mixed(table, dev_name):
     tr = Tracker()
     res = tr.run(tree, table, device=dev_name)
     check_query(tr, tree, table, res, "mixed query", fallbacks=1, syncs=2)
+    check(tr.be.tape_programs == 0 and not tr.be._programs,
+          f"the mixed tape made a program: {program_text(tr.be)}")
     log(f"  UDF tree identical to the oracle; host_fallbacks=1, "
-        f"host_syncs=2, device_dispatches={tr.last['device_dispatches']:.0f}")
+        f"host_syncs=2, device_dispatches={tr.last['device_dispatches']:.0f};"
+        f" op by op: {program_text(tr.be)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1440,8 +1898,19 @@ def main_compare(src: Path) -> int:
     chain = chain_timings(dev)
     for k, t in chain.items():
         log_timing(f"fused_chain_scan K={k}", t)
+    k2 = setop_timing(dev)
+    for variant in ("distinct", "a_is_b", "half_dead"):
+        log_timing(f"bitmap_setop {variant}", k2[variant])
+    log(f"  bitmap_setop in a CUDA graph, us per launch: "
+        f"dense {k2['graph_us']['dense']:.2f}, half dead "
+        f"{k2['graph_us']['half_dead']:.2f}")
+    grouped = grouped_timings(dev)
+    for g, t in grouped.items():
+        log_timing(f"bitmap_setop_grouped G={g}", t)
     table = make_forest_table(5_800_000, n_dup=12, seed=7)
-    trees = random_query_suite(table, 32, 16, 3, seed=0)[:8]
+    paper = random_query_suite(table, 32, 16, 3, seed=0)
+    numeric = numeric_warm(table, paper)
+    trees = paper[:8]
     rng = np.random.default_rng(0)
     batch = [trees[int(rng.integers(len(trees)))] for _ in range(64)]
     sess = QuerySession(table, config=ExecConfig(
@@ -1471,9 +1940,104 @@ def main_compare(src: Path) -> int:
             for q, t in k5.items()}, **{
             f"fused_chain_scan K={k}": t["ms_clean_l2"]
             for k, t in chain.items()}}, "runs": runs,
+        "bitmap_setop_ms": {v: [k2[v]["ms"], k2[v]["ms_clean_l2"]]
+                            for v in ("distinct", "a_is_b", "half_dead")},
+        "bitmap_setop_graph_us": k2["graph_us"],
+        "grouped_ms": {str(g): [t["ms"], t["ms_clean_l2"]]
+                       for g, t in grouped.items()},
         "cprofile_wall_ms": wall, "split_s": cats,
-        "bitmaps_sha256": digest.hexdigest()}))
+        "bitmaps_sha256": digest.hexdigest(), "numeric": numeric}))
     return 0
+
+
+def setop_timing(dev):
+    """The per-op K2 at the main shape for --compare, alone (two distinct
+    dense inputs; a is b, the method of the rows before PR 15; every other
+    row of ``a`` dead) and in a graph (:func:`setop_graph_us`, dense and
+    with half the rows dead).  A tree whose wrapper takes no popcounts is
+    called without them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (bitmap_setop,
+                                                bitmap_setop_plain)
+    setop = setop_args(bitmap_setop)
+    n, b = MAIN_SHAPE
+    w = b // 32
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
+    half = bits.copy()
+    half[::2] = 0
+    bits, other, half = (torch.from_numpy(x.view(np.int32)).to(dev)
+                         for x in (bits, bits[::-1].copy(), half))
+    pops, other_pops, half_pops = (ref.popcount_ref(x)
+                                   for x in (bits, other, half))
+    live = int((half_pops > 0).sum().item())
+    out = {
+        "distinct": timed(3 * n * w * 4 + 3 * n * 4, n * w,
+                          lambda: setop(bits, other, 0, pops, other_pops),
+                          lambda: bitmap_setop_plain(bits, other, 0)),
+        "a_is_b": timed(2 * n * w * 4 + 2 * n * 4, n * w,
+                        lambda: setop(bits, bits, 0, pops, pops),
+                        lambda: bitmap_setop_plain(bits, bits, 0)),
+        "half_dead": timed(2 * live * w * 4 + n * w * 4 + 3 * n * 4,
+                           live * w,
+                           lambda: setop(half, other, 0, half_pops,
+                                         other_pops),
+                           lambda: bitmap_setop_plain(half, other, 0)),
+    }
+    out["graph_us"] = setop_graph_us(dev)
+    return out
+
+
+def tape_split(tr, table, trees):
+    """A cProfile split of ``run_tape`` alone over the trees' compiled
+    tapes (warm: programs made, columns resident)."""
+    from repro_torch.columnar import rewrite_string_atoms
+    from repro_torch.core import PerAtomCostModel, compile_tape, deepfish
+    tapes = [compile_tape(deepfish(rewrite_string_atoms(t, table),
+                                   PerAtomCostModel(),
+                                   total_records=table.n_records))
+             for t in trees]
+    for tape in tapes:
+        need_launches(tr.be, tape)
+    _, wall, cats, rows = host_split(
+        lambda: [tr.be.run_tape(tape) for tape in tapes])
+    tr.be.drain_op_log()
+    log_split(f"run_tape of {len(tapes)} warm tapes", wall, cats, rows)
+    return wall / len(tapes)
+
+
+def numeric_warm(table, trees):
+    """The numeric tape's warm breakdown, for --compare: the 32 paper
+    queries once cold and once warm on one backend (warm wall p50), then
+    plan+compile against ``run_tape`` (p50 each), with a digest of the
+    results."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    tr = Tracker()
+    cold = [tr.run(tree, table) for tree in trees]
+    tr.be.drain_op_log()
+    walls = []
+    for i, tree in enumerate(trees):
+        t0 = time.perf_counter()
+        res = tr.run(tree, table)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(res, cold[i]), f"warm query {i} differs")
+    tr.be.drain_op_log()
+    out = warm_breakdown(tr, table, trees)
+    out["run_tape_cprofile_ms"] = tape_split(tr, table, trees)
+    out["wall_ms_p50"] = float(np.median(walls))
+    out["bitmaps_sha256"] = hashlib.sha256(
+        b"".join(r.tobytes() for r in cold)).hexdigest()
+    log(f"  numeric warm queries: wall ms p50={out['wall_ms_p50']:.3f}; "
+        f"{program_text(tr.be)}")
+    del tr
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv) -> int:
@@ -1523,6 +2087,9 @@ def main(argv) -> int:
         for by, tag in (("by_k", "K"), ("by_g", "G")):
             for x, v in t.get(by, {}).items():
                 log_timing(f"{name} {tag}={x}", v)
+        for variant in ("a_is_b", "half_dead"):
+            if variant in t:
+                log_timing(f"{name} {variant}", t[variant])
     # the stacked kernels are timed in phase 7, at the Q the paths launched
 
     # each path of the main path is driven with the launch counts set to 0
@@ -1575,13 +2142,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     start_path()
     info = phase_numeric(5_800_000, 32, "cuda", sync_check=True)
-    busy_ms, wall_ms = device_busy(info["tracker"], info["table"],
-                                   info["trees"][:8], info["results"])
+    busy_ms, wall_ms, calls, ran = device_busy(
+        info["tracker"], info["table"], info["trees"][:8], info["results"])
     end_path("numeric")
-    syncs = info["syncs"]
     log(f"  profiler: device time {busy_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall over 8 warm queries (device busy share "
-        f"{busy_ms / wall_ms:.4f})")
+        f"{busy_ms / wall_ms:.4f}); CUDA API calls per warm query {calls}; "
+        f"kernels run per warm query, as the profiler saw them (equal to "
+        f"the counts) {ran}")
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 6: mixed tape (UDF host fallback)")
@@ -1611,7 +2179,8 @@ def main(argv) -> int:
     log("phase 4: strings and fragmented strings")
     t0 = time.perf_counter()
     start_path()
-    table, trees, results = phase_strings(5_800_000, 8, "cuda")
+    table, trees, results, _ = phase_strings(5_800_000, 8, "cuda",
+                                             sync_check=True)
     end_path("strings")
     torch.cuda.empty_cache()
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
@@ -1629,12 +2198,10 @@ def main(argv) -> int:
     log("phase 5: zone-pruned tapes")
     t0 = time.perf_counter()
     start_path()
-    phase_zones(5_800_000, 8192, "cuda")
+    phase_zones(5_800_000, 8192, "cuda", sync_check=True)
     end_path("zones")
     torch.cuda.empty_cache()
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    # one host sync per warm all-device query (sync debug mode, phase 3)
-    check(set(syncs) == {1}, f"device syncs per warm query: {syncs}")
 
     log("phase 9: StreamSession, 6 append rounds of 2 % on the strings "
         "table")
@@ -1655,6 +2222,20 @@ def main(argv) -> int:
         for q, t in by_q.items():
             log_timing(f"{name} Q={q}", t)
         timing[name] = dict(by_q[path_q], by_q=by_q, headline_q=path_q)
+    in_graph, empty = graph_timings(dev)
+    log(f"  in a CUDA graph ({GRAPH_LAUNCHES} launches per replay; each "
+        f"scan launch on columns of its own, read from HBM; the sets in "
+        f"the L2), us per launch: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in in_graph.items()))
+    log(f"  empty kernel (torch.cuda._sleep(0)) alone: "
+        f"{empty['ms'] * 1e3:.2f} us (L2 flushed by zeroing), "
+        f"{empty['ms_clean_l2'] * 1e3:.2f} us (flushed by reading); in a "
+        f"graph {in_graph['empty kernel']:.2f} us")
+    for name, us in in_graph.items():
+        if name in timing:
+            timing[name]["graph_us"] = us
+    timing["bitmap_setop"]["graph_us_half_dead"] = \
+        in_graph["bitmap_setop half_dead"]
     log(f"  took {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1668,8 +2249,21 @@ def main(argv) -> int:
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": None}
         # what the main paths lose on this kernel: launches x (time -
-        # bound), a stacked kernel's taken at each path's median Q
+        # bound), a stacked kernel's taken at each path's median Q, a
+        # tape kernel's on the graph paths at its in-graph time
         row["lost_ms"] = sum(paths.values()) * (t["ms"] - t["bound_ms"])
+        if "graph_us" in t:
+            row["graph_us"] = t["graph_us"]
+            if "graph_us_half_dead" in t:
+                row["graph_us_half_dead"] = t["graph_us_half_dead"]
+            row["lost_ms"] = sum(
+                v * ((t["graph_us"] * 1e-3 if p in GRAPH_PATHS else t["ms"])
+                     - t["bound_ms"]) for p, v in paths.items())
+        for variant in ("a_is_b", "half_dead"):
+            if variant in t:
+                row[variant] = {k: t[variant][k] for k in
+                                ("ms", "ms_clean_l2", "plain_ms",
+                                 "bound_ms")}
         if "headline_q" in t:
             row["headline_q"] = t["headline_q"]
             row["q_by_path"] = {p: got[name] for p, got in q_by_path.items()
@@ -1691,8 +2285,11 @@ def main(argv) -> int:
             f"median={t['ms'] * 1e3:.2f} us "
             f"clean L2={t['ms_clean_l2'] * 1e3:.2f} us "
             f"bound={t['bound_ms'] * 1e3:.2f} us "
-            f"plain={t['plain_ms'] * 1e3:.2f} us")
-    log("  ranking, launches x (time - bound) on the main paths: " + ", ".join(
+            f"plain={t['plain_ms'] * 1e3:.2f} us"
+            + (f" in a graph={t['graph_us']:.2f} us" if "graph_us" in t
+               else ""))
+    log("  ranking, launches x (time - bound) on the main paths (a tape "
+        "kernel on the graph paths at its in-graph time): " + ", ".join(
         f"{r['name']} {r['lost_ms']:.3f} ms" for r in
         sorted(rows, key=lambda r: -r["lost_ms"])))
     log(f"  total {time.perf_counter() - t_start:.1f} s")

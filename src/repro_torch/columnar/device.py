@@ -8,15 +8,32 @@ order: a slot file of ``i32[N, W]`` packed bitmaps plus per-block
 through ``fused_chain_scan`` (K3), SETOPs through ``bitmap_setop`` (K2)
 and dictionary-membership ATOMs through ``dict_lookup_scan`` (K4).  Each
 kernel also returns its output's per-block popcounts, which feed the next
-kernel's dead-block skip.  At the end the result words and the per-op
-record / touched-block / pruned-block / output-popcount counters are
-gathered into one int32 buffer on the device and fetched with a single
-copy: one host sync per query.  ``device_dispatches`` counts device
-programs started (one per all-device ``run_tape``); the kernels' own
-launch counters (``repro_torch.kernels.LAUNCHES``) show the launches.
+kernel's dead-block skip.  At the end the per-op record / touched-block /
+pruned-block / output-popcount counters and the result words are gathered
+into one int32 buffer on the device and fetched with a single copy: one
+host sync per query.
 
-On ``device="cpu"`` the same op loop runs the kernels' plain PyTorch
-versions; nothing falls back from the card to the CPU.
+Whole-tape programs.  As the reference runs an all-device tape as one
+jitted program, cached by the tape's structural key, the port runs it as
+one CUDA-graph replay: the backend keeps one :class:`_TapeProgram` per
+key (the tape's structural key, which ops blend zone verdicts, the lookup
+masks' shape, the block count and the identity of the tensors the graph
+reads by address), LRU-bounded at 256 as the reference's cache is.  A
+program owns static device buffers for the tape's constants, lookup masks
+and zone rows; the kernels read them when they run (K1 and K3 take their
+constants by device address), so key-equal tapes with other constants
+replay one graph.  A query stages its inputs with one pinned copy,
+replays the graph and fetches the result: on the card three host calls
+and no Python per kernel.  The graph is captured at the program's first
+run, on a side stream, without a host sync.  ``device_dispatches`` counts
+device programs started (one per all-device ``run_tape``); the port-only
+``tape_programs``, ``graph_captures`` and ``graph_replays`` count programs
+made, captures and replays; the kernels' launch counters
+(``repro_torch.kernels.LAUNCHES``) count the launches a replay makes.
+
+On ``device="cpu"`` the same program runs the kernels' plain PyTorch
+versions eagerly over the same buffers (no graph); nothing falls back from
+the card to the CPU, and a capture or replay that fails raises.
 
 Layout: columns upload once per backend, **record-major** ``f32[N, B]``
 (row n is block n), so a warp reads 32 consecutive records and
@@ -30,14 +47,14 @@ on the host from the zone maps.  An op with a decided block runs its
 kernel with the popcounts masked to its MAYBE blocks, then blends: ALL
 blocks take the source bits, NONE blocks zeros.  ``records_evaluated``
 stays the pre-prune paper metric; live non-MAYBE blocks land in
-``blocks_pruned``.  Per-query inputs (zone rows, lookup masks, the chain
-kernel's argument tables) upload from pinned memory without a host sync.
+``blocks_pruned``.  Per-query inputs (zone rows, lookup masks, constants)
+upload from pinned memory without a host sync.
 
 Tapes with ops no kernel runs (UDF atoms, unrewritten non-numeric
-columns) go op by op: each such op pulls its source set to the host
-(one sync), gathers and evaluates there, and pushes the result back; the
-counters still ride one final bundled fetch.  ``host_fallbacks`` counts
-those ops.
+columns) go op by op and make no program: each such op pulls its source
+set to the host (one sync), gathers and evaluates there, and pushes the
+result back; the counters still ride one final bundled fetch.
+``host_fallbacks`` counts those ops.
 
 The backend is also a device-resident :class:`~repro_torch.core.sets.
 SetBackend`, which the lockstep ``QuerySession`` drives (every
@@ -66,10 +83,12 @@ counters keep their meaning (``stats.setops`` and ``device_dispatches``
 count one per set operation); the port-only ``setops_deferred``,
 ``setop_launches``, ``setop_flushes`` and ``setop_level_max`` count the
 queued operations, the grouped launches, the flushes and the largest
-level.  The tape paths launch their SETOPs one by one, as before.
+level.  The tape paths run their SETOPs one by one: inside the tape's
+graph on the all-device path, launched from Python on the mixed path.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,7 +104,9 @@ from ..core.tape import (ATOM, CHAIN, CMP_OPCODE, EMPTY, FULL, IN_OPCODE,
 from ..kernels.bitmap_ops import (SetOp, bitmap_inter_multi, bitmap_setop,
                                   bitmap_setop_grouped, bitmap_union_reduce)
 from ..kernels.dict_lookup import dict_lookup_scan, dict_lookup_scan_multi
-from ..kernels.fused_chain import fused_chain_scan
+from ..kernels import _build as _kbuild
+from ..kernels.fused_chain import (MAX_STATIC_K, fused_chain_scan,
+                                   fused_chain_table)
 from ..kernels.predicate_scan import predicate_scan, predicate_scan_multi
 from ..runtime import faults as _faults
 from .bitmap import (WORD, bitmap_full, extend_bitmap, live_block_count,
@@ -126,14 +147,17 @@ def _block_pops(words2d: np.ndarray) -> np.ndarray:
 
 
 def _costed_eval(kind: str, opcodes, cols, values, lmask, conj: bool,
-                 bits: torch.Tensor, pops: torch.Tensor):
+                 bits: torch.Tensor, pops: torch.Tensor, table=None):
     """One ATOM / CHAIN / lookup op on source ``bits``, with ``pops`` as the
-    kernels' dead-block input.  Returns (bits, pops) of the output."""
+    kernels' dead-block input.  ``values`` are the op's constants (host
+    numbers, or an f32[K] tensor on the device); ``table`` a wide chain's
+    prebuilt device table.  Returns (bits, pops) of the output."""
     if opcodes[0] == IN_OPCODE:
         return dict_lookup_scan(cols[0], bits, pops, lmask)
     if kind == ATOM:
         return predicate_scan(cols[0], bits, pops, values[0], opcodes[0])
-    return fused_chain_scan(cols, bits, pops, values, opcodes, conj)
+    return fused_chain_scan(cols, bits, pops, values, opcodes, conj,
+                            table=table)
 
 
 def _zone_blend(evaluate, bits: torch.Tensor, pops: torch.Tensor,
@@ -176,17 +200,24 @@ def _op_counters(srcs: List[torch.Tensor], outs: List[torch.Tensor],
     return torch.stack([rec, blk, prn, out]).to(torch.int32)
 
 
-def _tape_forward(ops, meta, result: int, n_slots: int, cols, values,
-                  lmasks, zrows, blend: Sequence[bool], full: "_DevSet",
-                  nw: int) -> torch.Tensor:
+def _tape_forward(ops, meta, result: int, n_slots: int, cols,
+                  values: torch.Tensor, lmasks, zrows,
+                  blend: Sequence[bool], full: "_DevSet",
+                  tables: Optional[Dict[int, torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """The whole-tape op loop.
 
-    ``cols`` are the bound device columns, ``values`` the host f32
-    constants, ``lmasks`` the device ``i32[L, U]`` lookup masks, ``zrows``
-    the device ``i32[M, N]`` zone rows (None when no op is pruned) and
-    ``blend[m]`` says costed op ``m`` has a decided block.  Returns the
-    device ``i32`` buffer ``[result words (nw) | rec | blk | prn | out]``
-    that :meth:`DeviceTapeBackend.run_tape` fetches with one copy.
+    ``cols`` are the bound device columns, ``values`` the f32 constants on
+    the device (a CHAIN's K constants are consecutive), ``lmasks`` the
+    device ``i32[L, U]`` lookup masks, ``zrows`` the device ``i32[M, N]``
+    zone rows (None when no op is pruned), ``blend[m]`` says costed op
+    ``m`` has a decided block and ``tables`` maps a wide CHAIN's op index
+    to its prebuilt device table.  Every kernel reads its constants, masks
+    and zone rows from these tensors when it runs, so a captured graph of
+    this loop serves new values at each replay.  Returns the device
+    ``i32`` buffer ``[rec | blk | prn | out (M each) | result words (all
+    N * W)]``: :meth:`DeviceTapeBackend.run_tape` fetches its prefix
+    through the last real word with one copy.
     """
     bits: List[Optional[torch.Tensor]] = [None] * n_slots
     pops: List[Optional[torch.Tensor]] = [None] * n_slots
@@ -200,7 +231,8 @@ def _tape_forward(ops, meta, result: int, n_slots: int, cols, values,
             b = torch.zeros_like(full.bits)
             p = torch.zeros_like(full.pops)
         elif op.kind == SETOP:
-            b, p = bitmap_setop(bits[op.a], bits[op.b], op.setop)
+            b, p = bitmap_setop(bits[op.a], bits[op.b], op.setop,
+                                pops[op.a], pops[op.b])
         else:
             cixs, vixs, opcodes = meta[oi]
             sb, sp = bits[op.a], pops[op.a]
@@ -211,15 +243,132 @@ def _tape_forward(ops, meta, result: int, n_slots: int, cols, values,
             if opcodes[0] == IN_OPCODE:
                 ovals, lm = (), lmasks[vixs[0]]
             else:
-                ovals, lm = [values[v] for v in vixs], None
+                ovals, lm = values[vixs[0]: vixs[0] + len(vixs)], None
+            table = tables.get(oi) if tables else None
             b, p = _zone_blend(
                 lambda ep: _costed_eval(op.kind, opcodes, ocols, ovals, lm,
-                                        op.conj, sb, ep), sb, sp, zone)
+                                        op.conj, sb, ep, table),
+                sb, sp, zone)
             outs.append(p)
         bits[op.dst] = b
         pops[op.dst] = p
     counters = _op_counters(srcs, outs, zrows, full.bits.device)
-    return torch.cat([bits[result].reshape(-1)[:nw], counters.reshape(-1)])
+    return torch.cat([counters.reshape(-1), bits[result].reshape(-1)])
+
+
+class _TapeProgram:
+    """One tape's program on a backend: what the reference's jitted
+    whole-tape program is, as a CUDA graph on the card.
+
+    It owns the tape's static inputs in one device buffer, ``values``
+    f32[V] (every ATOM / CHAIN constant), ``lmasks`` i32[L, U] and, when
+    an op blends, ``zrows`` i32[M, N], and holds every tensor the loop
+    reads by address (the bound columns, ``full`` and a wide chain's
+    table), since a CUDA graph keeps none alive.  :meth:`stage` packs a
+    run's inputs into one pinned host buffer and copies it in with one
+    non-blocking copy; :meth:`run` replays the graph (captured once, when
+    the backend makes the program, on a side stream into the backend's
+    memory pool) or, on the CPU, runs :func:`_tape_forward` eagerly over
+    the same buffers.  The
+    kernels' launch counts of the capture are taken back out and added at
+    each replay.  A capture or replay that fails raises.
+    """
+
+    def __init__(self, be: "DeviceTapeBackend", tape: PlanTape, meta, cols,
+                 n_values: int, lmask_shape: Tuple[int, int],
+                 blend: Sequence[bool], full: "_DevSet"):
+        self.backend = be
+        self.ops, self.meta = tape.ops, meta
+        self.result, self.n_slots = tape.result, tape.n_slots
+        self.cols, self.full, self.blend = list(cols), full, tuple(blend)
+        n_l, u = lmask_shape
+        m, nblocks = len(blend), be.nblocks
+        zr = m * nblocks if any(blend) else 0
+        self.sizes = (n_values, n_l * u, zr)
+        dev = be.device
+        self.inputs = torch.zeros(max(sum(self.sizes), 1), dtype=torch.int32,
+                                  device=dev)
+        v, lw = n_values, n_l * u
+        self.values = self.inputs[:v].view(torch.float32)
+        self.lmasks = self.inputs[v: v + lw].view(n_l, u) if n_l else None
+        self.zrows = (self.inputs[v + lw: v + lw + zr].view(m, nblocks)
+                      if zr else None)
+        self.tables: Dict[int, torch.Tensor] = {}
+        if dev.type == "cuda":
+            for oi, op in enumerate(tape.ops):
+                cixs, _, opcodes = meta[oi]
+                if op.kind == CHAIN and len(cixs) > MAX_STATIC_K:
+                    self.tables[oi] = fused_chain_table(
+                        [self.cols[c] for c in cixs], opcodes)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+
+    def _forward(self) -> torch.Tensor:
+        return _tape_forward(self.ops, self.meta, self.result, self.n_slots,
+                             self.cols, self.values, self.lmasks, self.zrows,
+                             self.blend, self.full, self.tables)
+
+    def capture(self) -> None:
+        """Capture the op loop into a CUDA graph on the backend's side
+        stream (no host sync), keeping its output buffer."""
+        be = self.backend
+        dev = be.device
+        _kbuild.lib()               # built and its kernels loaded before
+        side = be._capture_stream()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_kbuild.LAUNCHES)
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                graph.capture_begin(pool=be._graph_pool())
+                try:
+                    out = self._forward()
+                finally:
+                    graph.capture_end()
+        finally:
+            launches = _kbuild.take_launches(before)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph, self.out, self.launches = graph, out, launches
+        be.graph_captures += 1
+
+    def stage(self, values: np.ndarray, lmasks: np.ndarray,
+              zrows: Optional[np.ndarray]) -> None:
+        """Pack one run's constants, lookup masks and zone rows into one
+        host buffer (pinned on CUDA) and copy it into the static inputs."""
+        total = sum(self.sizes)
+        if not total:
+            return
+        cuda = self.inputs.device.type == "cuda"
+        host = torch.empty(total, dtype=torch.int32, pin_memory=cuda)
+        h = host.numpy()
+        v, lw, zr = self.sizes
+        h[:v].view(np.float32)[:] = values
+        if lw:
+            h[v: v + lw] = lmasks.view(np.int32).reshape(-1)
+        if zr:
+            h[v + lw:] = zrows.reshape(-1)
+        self.inputs[:total].copy_(host, non_blocking=cuda)
+
+    def run(self, n: int) -> np.ndarray:
+        """One run over the staged inputs (on the card, a replay of the
+        graph :meth:`capture` made), and the first ``n`` int32 words of its
+        output fetched to the host (the run's one host sync).  The fetch
+        comes before any other replay: the backend's graphs share one
+        memory pool, so a later replay of another program may overwrite
+        this one's output buffer."""
+        if self.inputs.device.type != "cuda":
+            return self._forward()[:n].numpy()
+        with torch.cuda.device(self.inputs.device):
+            self.graph.replay()
+        _kbuild.add_launches(self.launches)
+        self.backend.graph_replays += 1
+        return self.out[:n].cpu().numpy()
+
+
+#: programs a backend keeps (least recently used dropped first), as the
+#: reference bounds its whole-tape program cache
+_TAPE_PROGRAM_CAP = 256
 
 
 #: bound on a backend's undrained observation log — sessions drain it every
@@ -268,6 +417,14 @@ class DeviceTapeBackend(SetBackend):
         self.setop_level_max = 0
         self._setop_queue: List[Tuple[int, SetOp]] = []
         self._pending: Dict[int, int] = {}   # id(out bits) -> its level
+        # whole-tape programs (port-only counters, see run_tape): programs
+        # made, CUDA graphs captured and graph replays
+        self.tape_programs = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._programs: "OrderedDict[tuple, _TapeProgram]" = OrderedDict()
+        self._side_stream = None
+        self._pool = None
         self.last_tape: Optional[PlanTape] = None
         self._cols: Dict[str, object] = {}
         self._full: Optional[_DevSet] = None
@@ -392,9 +549,10 @@ class DeviceTapeBackend(SetBackend):
         columns keep every block below the append boundary and upload only
         the dirty tail (the power-of-two block-count bucket may grow, in
         which case the new padding blocks ride along as zeros).  A column
-        whose bucket did not grow is updated in place.  Caller must have
-        proven the append via :meth:`Table.delta_since`.  Returns the
-        bytes uploaded."""
+        whose bucket did not grow is updated in place, and so is the set
+        :meth:`full` returned: a holder of it sees the appended rows.
+        Caller must have proven the append via :meth:`Table.delta_since`.
+        Returns the bytes uploaded."""
         _faults.trip("device.upload", backend=self)
         self._flush()
         if self._zones:
@@ -404,9 +562,21 @@ class DeviceTapeBackend(SetBackend):
             return 0
         dirty = self.n // self.block
         self.n = n_new
-        self.nblocks = next_pow2((n_new + self.block - 1) // self.block)
+        nblocks = next_pow2((n_new + self.block - 1) // self.block)
+        if nblocks == self.nblocks:
+            # in place, as the columns are: the tape programs, which read
+            # both by address, stay valid
+            if self._full is not None:
+                full = self._from_flat(bitmap_full(n_new))
+                self._full.bits.copy_(full.bits)
+                self._full.pops.copy_(full.pops)
+        else:
+            # the columns are reallocated below: drop the programs that
+            # hold the old ones
+            self._full = self._empty = None
+            self._programs.clear()
+        self.nblocks = nblocks
         self._padded = self.nblocks * self.block
-        self._full = self._empty = None
         up = 0
         for name, col in list(self._cols.items()):
             if col is False:
@@ -435,16 +605,23 @@ class DeviceTapeBackend(SetBackend):
         words = np.zeros((self.nblocks - b0) * self.wpb, dtype=np.uint32)
         tail = flat[b0 * self.wpb:]
         words[: len(tail)] = tail
+        words = words.reshape(-1, self.wpb)
+        # the delta's popcounts are counted on the host, as _from_flat's
+        dpops = np.zeros(self.nblocks, dtype=np.int32)
+        dpops[b0:] = _block_pops(words)
         delta = torch.zeros((self.nblocks, self.wpb), dtype=torch.int32,
                             device=self.device)
-        delta[b0:] = self._place(words.reshape(-1, self.wpb).view(np.int32))
-        bits = s.bits
+        delta[b0:] = self._place(words.view(np.int32))
+        bits, pops = s.bits, s.pops
         if bits.shape[0] < self.nblocks:
+            grow = self.nblocks - bits.shape[0]
             bits = torch.cat([bits, torch.zeros(
-                (self.nblocks - bits.shape[0], self.wpb), dtype=torch.int32,
-                device=self.device)])
+                (grow, self.wpb), dtype=torch.int32, device=self.device)])
+            pops = torch.cat([pops, torch.zeros(
+                grow, dtype=torch.int32, device=self.device)])
         self.device_dispatches += 1
-        out, pops = bitmap_setop(bits, delta, OP_OR)
+        out, pops = bitmap_setop(bits, delta, OP_OR, pops,
+                                 self._place(dpops))
         return _DevSet(out, pops)
 
     def _from_flat(self, words: np.ndarray) -> _DevSet:
@@ -885,14 +1062,66 @@ class DeviceTapeBackend(SetBackend):
             return None, blend
         return np.stack(rows).astype(np.int32), blend
 
+    def _capture_stream(self) -> "torch.cuda.Stream":
+        """The side stream this backend captures its graphs on."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
+
+    def _graph_pool(self):
+        """The memory pool this backend's graphs share.  Sharing is safe
+        because replays are serialized on one stream and each replay's
+        output is fetched before the next replay starts.  A pool lives only
+        while one of its graphs does, so a backend that holds no program
+        (none made yet, all dropped, or the only capture failed) takes a
+        fresh pool."""
+        if self._pool is None or not self._programs:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _program(self, tape: PlanTape, meta, cols, n_values: int,
+                 lmask_shape: Tuple[int, int], blend: Sequence[bool]
+                 ) -> "_TapeProgram":
+        """The tape's program, made (and on the card captured) at its first
+        run.  Keyed as the reference keys its jitted programs — the tape's
+        structural key, its pruning shape (which ops blend) and the runtime
+        inputs' shapes (U, the block count) — plus the identity of every
+        tensor a captured graph reads by address (the bound columns and
+        ``full``), which the program holds: key-equal tapes with other
+        constants, lookup masks or zone rows share one program.  Least
+        recently used programs past :data:`_TAPE_PROGRAM_CAP` are dropped;
+        :meth:`refresh` drops them all when the columns move."""
+        full = self.full()
+        key = (tape.key, tuple(blend), tuple(lmask_shape), self.nblocks,
+               tuple(id(c) for c in cols), id(full.bits), id(full.pops))
+        prog = self._programs.get(key)
+        if prog is not None:
+            self._programs.move_to_end(key)
+            return prog
+        prog = _TapeProgram(self, tape, meta, cols, n_values, lmask_shape,
+                            blend, full)
+        if self.device.type == "cuda":
+            prog.capture()
+        self._programs[key] = prog
+        self.tape_programs += 1
+        if len(self._programs) > _TAPE_PROGRAM_CAP:
+            self._programs.popitem(last=False)
+        return prog
+
     def run_tape(self, tape: PlanTape) -> np.ndarray:
         """Execute a compiled tape; returns the host packed result bitmap.
 
         All-device tapes — including dictionary-rewritten string atoms —
         run as one device program (``device_dispatches`` += 1) with one
-        host sync.  Tapes with host-fallback ops (opaque UDF atoms,
-        unrewritten non-numeric columns) run op-by-op with device slots,
-        syncing only at each fallback and at the end.
+        host sync: on the card one CUDA-graph replay of the tape's kernel
+        sequence, after one staging copy of its constants, lookup masks and
+        zone rows, and before the one fetch; on the CPU the same program
+        runs the plain versions eagerly.  ``tape_programs``,
+        ``graph_captures`` and ``graph_replays`` count programs made,
+        graphs captured and replays.  Tapes with host-fallback ops (opaque
+        UDF atoms, unrewritten non-numeric columns) run op-by-op with
+        device slots and make no program, syncing only at each fallback
+        and at the end.
         """
         _faults.trip("device.dispatch", backend=self, where="run_tape")
         self.last_tape = tape
@@ -901,7 +1130,6 @@ class DeviceTapeBackend(SetBackend):
             return self._run_tape_mixed(tape, values, lmasks, meta,
                                         device_ok)
         atoms = tape.tree.atoms
-        full = self.full()
         costed = tape.costed_ops()
         # a K-atom CHAIN evaluates K atoms on all of src's live blocks:
         # counts scale by K, matching the fused +evaluations trade
@@ -909,18 +1137,18 @@ class DeviceTapeBackend(SetBackend):
         self.stats.atom_applications += int(ks.sum())
         self.stats.setops += sum(1 for op in tape.ops if op.kind == SETOP)
         zrows, blend = self._tape_zone_masks(tape)
-        nw = n_words(self.n)
+        prog = self._program(tape, meta, cols, len(values), lmasks.shape,
+                             blend)
+        prog.stage(np.asarray(values, dtype=np.float32), lmasks, zrows)
         self.device_dispatches += 1
-        buf = _tape_forward(
-            tape.ops, meta, tape.result, tape.n_slots, cols,
-            np.asarray(values, dtype=np.float32),
-            self._place(lmasks.view(np.int32)) if len(lmasks) else None,
-            None if zrows is None else self._place(zrows), blend, full, nw)
-        self.host_syncs += 1
-        host = buf.cpu().numpy()
         m = len(costed)
-        res = host[:nw].view(np.uint32).copy()
-        cnt = host[nw:].reshape(4, m)
+        nw = n_words(self.n)
+        self.host_syncs += 1
+        # a fresh host array (the fetch's own, or the CPU run's output):
+        # the result is a view of it, not a copy
+        host = prog.run(4 * m + nw)
+        cnt = host[: 4 * m].reshape(4, m)
+        res = host[4 * m:].view(np.uint32)
         rec = cnt[0].astype(np.float64)
         weights = np.asarray([sum(atoms[a].cost_factor for a in op.aids)
                               for op in costed])
@@ -952,8 +1180,9 @@ class DeviceTapeBackend(SetBackend):
                 # by one, as on the all-device tape path
                 self.stats.setops += 1
                 self.device_dispatches += 1
-                s = _DevSet(*bitmap_setop(slots[op.a].bits, slots[op.b].bits,
-                                          op.setop))
+                a, b = slots[op.a], slots[op.b]
+                s = _DevSet(*bitmap_setop(a.bits, b.bits, op.setop, a.pops,
+                                          b.pops))
             else:
                 src = slots[op.a]
                 cixs, vixs, opcodes = meta[oi]

@@ -53,13 +53,18 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # col, bits, pops_in, value, opcode, n, w, out, pops_out, stream
     "rt_predicate_scan": [_P, _P, _P, _F, _I, _I, _I, _P, _P, _P],
-    # a, b, opcode, n, w, out, pops_out, stream
-    "rt_bitmap_setop": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # the same with the value's device address
+    "rt_predicate_scan_dv": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # a, a_pops, b, b_pops, opcode, n, w, out, pops_out, stream
+    "rt_bitmap_setop": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # col_ptrs, values, opcodes, k, conj, bits, pops_in, n, w, out,
-    # pops_out, stream (the table on the device; _small: on the host)
+    # pops_out, stream (the table on the device; _small: on the host;
+    # _small_dv: on the host but the values on the device)
     "rt_fused_chain_scan": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "rt_fused_chain_scan_small": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
                                   _P],
+    "rt_fused_chain_scan_small_dv": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
+                                     _P, _P],
     # col, bits, pops_in, mask, u, n, w, out, pops_out, stream
     "rt_dict_lookup_scan": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # col, bits, pops_in, value, opcode, q, n, w, out, pops_out, stream
@@ -74,6 +79,10 @@ _SIGNATURES = {
     # table, g, n, w, stream
     "rt_bitmap_setop_grouped": [_P, _I, _I, _I, _P],
 }
+#: entries that load the tape path's kernels (and the set operations') at
+#: once: a CUDA graph capture must not be a kernel's first use
+_LOADERS = ("rt_load_predicate_scan", "rt_load_bitmap_setop",
+            "rt_load_fused_chain", "rt_load_dict_lookup")
 
 
 def reset_launches() -> None:
@@ -89,6 +98,22 @@ def count_launch(name: str, q: Optional[int] = None) -> None:
     LAUNCHES[name] += 1
     if q is not None:
         LAUNCHES_BY_Q[name][q] += 1
+
+
+def take_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a copy of :data:`LAUNCHES`),
+    which are taken back out of :data:`LAUNCHES`.  A CUDA graph's capture
+    runs the wrappers, which count their kernels, but launches nothing; its
+    replays launch them, and :func:`add_launches` counts them there."""
+    delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+    LAUNCHES.update({k: before.get(k, 0) for k in LAUNCHES})
+    return {k: v for k, v in delta.items() if v}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for k, v in delta.items():
+        LAUNCHES[k] += v
 
 
 def sources() -> List[Path]:
@@ -162,6 +187,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _LOADERS:
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            check(fn(), name)
         _LIB = handle
     return _LIB
 
@@ -202,7 +231,8 @@ def expect_aligned16(t, name: str) -> None:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+    """Raise if a C entry point reported a CUDA error for its launch (or
+    its kernels' loading)."""
     if rc != 0:
         raise RuntimeError(f"CUDA error {rc}: kernel {name} failed to "
                            "launch")

@@ -3,9 +3,12 @@ result's per-block popcount.
 
 Replaces the TPU kernel ``src/repro/kernels/bitmap_ops.py``,
 ``bitmap_setop``.  The CUDA kernel is ``csrc/bitmap_setop.cu`` (bound:
-bytes, about 3 MiB at the tape's shapes, so in practice its launch).
-CPU tensors run :func:`bitmap_setop_plain`; CUDA tensors launch the
-kernel or raise.
+bytes, at most about 3 MiB at the tape's shapes, so launched alone its
+launch; the tape path replays it inside the tape's CUDA graph).  The
+wrapper takes the inputs' exact per-row popcounts: the kernel reads no
+word of a dead row (popcount 0) and writes what the row's zeros give.
+CPU tensors run :func:`bitmap_setop_plain`, which ignores the popcounts
+(skipping a dead row is exact); CUDA tensors launch the kernel or raise.
 
 The lockstep and stream paths run K2 as :func:`bitmap_setop_grouped`:
 the independent set operations of one dependency level in one launch
@@ -30,6 +33,8 @@ AND, OR, ANDNOT = range(3)
 
 
 def bitmap_setop_plain(a: torch.Tensor, b: torch.Tensor, opcode: int):
+    """Plain version of :func:`bitmap_setop` (it needs no popcounts: a
+    dead row is all zeros, which the words already say)."""
     if opcode == AND:
         out = a & b
     elif opcode == OR:
@@ -41,23 +46,29 @@ def bitmap_setop_plain(a: torch.Tensor, b: torch.Tensor, opcode: int):
     return out, ref.popcount_ref(out)
 
 
-def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int):
-    """a, b: i32[N, W] -> (i32[N, W] result, i32[N] per-row popcounts)."""
+def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int,
+                 a_pops: torch.Tensor, b_pops: torch.Tensor):
+    """a, b: i32[N, W]; a_pops, b_pops: i32[N], their exact per-row
+    popcounts -> (i32[N, W] result, i32[N] per-row popcounts)."""
     if a.device.type == "cpu":
         return bitmap_setop_plain(a, b, opcode)
     if a.device.type != "cuda":
         raise ValueError(f"bitmap_setop: unsupported device {a.device}")
     n, w = a.shape
-    _build.expect(a, "a", torch.int32, (n, w), a.device)
-    _build.expect(b, "b", torch.int32, (n, w), a.device)
+    dev = a.device
+    _build.expect(a, "a", torch.int32, (n, w), dev)
+    _build.expect(b, "b", torch.int32, (n, w), dev)
+    _build.expect(a_pops, "a_pops", torch.int32, (n,), dev)
+    _build.expect(b_pops, "b_pops", torch.int32, (n,), dev)
     if opcode not in (AND, OR, ANDNOT):
         raise ValueError(f"bad opcode {opcode}")
     out = torch.empty_like(a)
-    pops = torch.empty(n, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
+    pops = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         rc = _build.lib().rt_bitmap_setop(
-            a.data_ptr(), b.data_ptr(), int(opcode), n, w, out.data_ptr(),
-            pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+            a.data_ptr(), a_pops.data_ptr(), b.data_ptr(), b_pops.data_ptr(),
+            int(opcode), n, w, out.data_ptr(), pops.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "bitmap_setop")
     _build.count_launch("bitmap_setop")
     return out, pops

@@ -29,6 +29,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Load a kernel's module now: under lazy loading a kernel is loaded at its
+// first use, and cudaFuncGetAttributes is one, so a CUDA graph capture is
+// never the first use of a kernel (the rt_load_* entries; the wrappers'
+// library loader calls them once).
+template <class Kernel>
+inline int load_kernel(Kernel* kernel) {
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, kernel);
+}
+
 // opcode (LT, LE, GT, GE, EQ, NE; shared with repro_torch.kernels.ref) ->
 // which of x < v, x == v, x > v and "unordered" (a NaN on either side)
 // make the comparison true
@@ -166,6 +176,14 @@ __device__ __forceinline__ int band(int a, int b) { return a & b; }
 __device__ __forceinline__ int4 band(int4 a, int4 b) {
   return make_int4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
+// x OP y for the set operations' opcodes (0 AND, 1 OR, 2 ANDNOT)
+__device__ __forceinline__ int setop_word(int x, int y, int opcode) {
+  return opcode == 0 ? (x & y) : opcode == 1 ? (x | y) : (x & ~y);
+}
+__device__ __forceinline__ int4 setop_word(int4 x, int4 y, int opcode) {
+  return make_int4(setop_word(x.x, y.x, opcode), setop_word(x.y, y.y, opcode),
+                   setop_word(x.z, y.z, opcode), setop_word(x.w, y.w, opcode));
+}
 template <class V> __device__ __forceinline__ V zero();
 template <> __device__ __forceinline__ int zero<int>() { return 0; }
 template <> __device__ __forceinline__ int4 zero<int4>() {
@@ -207,6 +225,73 @@ __device__ __forceinline__ int and_row(const V* __restrict__ bits,
     }
   }
   return count;
+}
+
+// vectors of each input a lane loads before it combines any (the set
+// operations' row body): 2 int4, so a 256-word row (B = 8192) takes one
+// pass and few registers, as in and_row; or 4 ints
+template <class V> struct SetopLoads { static constexpr int value = 4; };
+template <> struct SetopLoads<int4> { static constexpr int value = 2; };
+
+// One warp: out = a OP b over a row of ``nv`` vectors V (int4: 4 words, or
+// int: 1), returning this lane's popcount.  A row that is not read stands
+// for zeros.
+template <class V>
+__device__ __forceinline__ int setop_vec(const V* __restrict__ a,
+                                         const V* __restrict__ b,
+                                         V* __restrict__ out, int nv,
+                                         int opcode, bool read_a,
+                                         bool read_b) {
+  constexpr int kLoads = SetopLoads<V>::value;
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int i0 = lane; i0 < nv; i0 += 32 * kLoads) {
+    V x[kLoads], y[kLoads];
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t) {
+      const int i = i0 + 32 * t;
+      x[t] = (read_a && i < nv) ? __ldg(a + i) : zero<V>();
+      y[t] = (read_b && i < nv) ? __ldg(b + i) : zero<V>();
+    }
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t) {
+      const int i = i0 + 32 * t;
+      if (i < nv) {
+        const V v = setop_word(x[t], y[t], opcode);
+        out[i] = v;
+        count += popc(v);
+      }
+    }
+  }
+  return count;
+}
+
+// The set operations' row body (K2, per op and grouped): one warp writes
+// out = a OP b over one row of W words and returns the row's popcount in
+// lane 0.  ``a_live`` / ``b_live`` say whether each input row's popcount
+// is non-zero; a dead row is all zeros, so it is not read: AND with either
+// row dead, and ANDNOT with a dead, read no word; OR and ANDNOT with b
+// dead, and OR with a dead, read only the live row.  Each lane keeps
+// SetopLoads loads of each input in flight: 2 of 16 bytes when W % 4 == 0
+// and the three rows are 16-byte aligned, else 4 of 4 bytes.  Every lane of
+// the warp must call it.
+__device__ __forceinline__ int setop_row(const int* __restrict__ a,
+                                         const int* __restrict__ b,
+                                         int* __restrict__ out, int w,
+                                         int opcode, bool a_live,
+                                         bool b_live) {
+  const bool read_a = opcode == 0 ? (a_live && b_live) : a_live;
+  const bool read_b = opcode == 1 ? b_live : (a_live && b_live);
+  const bool vec = (w & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int count =
+      vec ? setop_vec(reinterpret_cast<const int4*>(a),
+                      reinterpret_cast<const int4*>(b),
+                      reinterpret_cast<int4*>(out), w >> 2, opcode, read_a,
+                      read_b)
+          : setop_vec(a, b, out, w, opcode, read_a, read_b);
+  return warp_sum(count);
 }
 
 // AND column block n's W packed hit words (``hit``, in shared memory,

@@ -155,3 +155,13 @@ extern "C" int rt_dict_lookup_scan(const float* col, const int* bits,
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int rt_load_dict_lookup() {
+  const int rcs[] = {rt::load_kernel(dict_lookup_kernel<true>),
+                     rt::load_kernel(dict_lookup_kernel<false>),
+                     rt::load_kernel(dict_lookup_multi_kernel<true>),
+                     rt::load_kernel(dict_lookup_multi_kernel<false>)};
+  for (int rc : rcs)
+    if (rc) return rc;
+  return 0;
+}

@@ -30,6 +30,12 @@
 // branch-free and without fast-math: NaN compares false except under NE.
 // Dead blocks and zero input words skip their column reads.  The columns
 // must be 16-byte aligned (the wrapper checks).
+//
+// Constants: rt_fused_chain_scan_small copies the K constants into the
+// kernel's parameters; rt_fused_chain_scan_small_dv takes them as a device
+// array instead, which thread 0 of each live block reads (one __ldg per
+// constant) when it stages the table, so a captured CUDA graph reads new
+// constants at every replay.  The generic path always reads device arrays.
 #include "common.cuh"
 
 namespace {
@@ -42,6 +48,7 @@ struct ChainArgs {
   const float4* col[kMaxStaticK];
   float val[kMaxStaticK];
   int mask[kMaxStaticK];
+  const float* dev_val;  // non-null: the K constants on the device
 };
 
 // thread blocks per SM the compiler must fit (registers cap at
@@ -80,7 +87,8 @@ fused_chain_kernel(ChainArgs args, const long long* __restrict__ col_ptrs,
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         s_col[j] = args.col[j];
-        s_val[j] = args.val[j];
+        s_val[j] = args.dev_val != nullptr ? __ldg(args.dev_val + j)
+                                           : args.val[j];
         s_mask[j] = args.mask[j];
       }
     }
@@ -128,24 +136,24 @@ void launch(const ChainArgs& args, const long long* col_ptrs,
   }
 }
 
-}  // namespace
+template <int K>
+int load_chain() {
+  const int rc = rt::load_kernel(fused_chain_kernel<K, true>);
+  return rc ? rc : rt::load_kernel(fused_chain_kernel<K, false>);
+}
 
-// K <= 8: host_cols, host_values and host_opcodes are HOST arrays, copied
-// into the kernel's parameters at the launch.
-extern "C" int rt_fused_chain_scan_small(const long long* host_cols,
-                                         const float* host_values,
-                                         const int* host_opcodes, int k,
-                                         int conj, const int* bits,
-                                         const int* pops_in, int n, int w,
-                                         int* out, int* pops_out,
-                                         void* stream) {
+int launch_small(const long long* host_cols, const float* host_values,
+                 const float* dev_values, const int* host_opcodes, int k,
+                 int conj, const int* bits, const int* pops_in, int n, int w,
+                 int* out, int* pops_out, void* stream) {
   if (k < 1 || k > kMaxStaticK) return (int)cudaErrorInvalidValue;
   ChainArgs args = {};
   for (int j = 0; j < k; ++j) {
     args.col[j] = reinterpret_cast<const float4*>(host_cols[j]);
-    args.val[j] = host_values[j];
+    args.val[j] = host_values != nullptr ? host_values[j] : 0.0f;
     args.mask[j] = rt::compare_mask(host_opcodes[j]);
   }
+  args.dev_val = dev_values;
   if (n > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     switch (k) {
@@ -162,6 +170,34 @@ extern "C" int rt_fused_chain_scan_small(const long long* host_cols,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// K <= 8: host_cols, host_values and host_opcodes are HOST arrays, copied
+// into the kernel's parameters at the launch.
+extern "C" int rt_fused_chain_scan_small(const long long* host_cols,
+                                         const float* host_values,
+                                         const int* host_opcodes, int k,
+                                         int conj, const int* bits,
+                                         const int* pops_in, int n, int w,
+                                         int* out, int* pops_out,
+                                         void* stream) {
+  return launch_small(host_cols, host_values, nullptr, host_opcodes, k, conj,
+                      bits, pops_in, n, w, out, pops_out, stream);
+}
+
+// K <= 8, constants on the DEVICE (dev_values, K floats, 4-byte aligned);
+// host_cols and host_opcodes are HOST arrays as above.
+extern "C" int rt_fused_chain_scan_small_dv(const long long* host_cols,
+                                            const float* dev_values,
+                                            const int* host_opcodes, int k,
+                                            int conj, const int* bits,
+                                            const int* pops_in, int n, int w,
+                                            int* out, int* pops_out,
+                                            void* stream) {
+  return launch_small(host_cols, nullptr, dev_values, host_opcodes, k, conj,
+                      bits, pops_in, n, w, out, pops_out, stream);
+}
+
 // any K: col_ptrs, values and opcodes are DEVICE arrays (the generic path)
 extern "C" int rt_fused_chain_scan(const long long* col_ptrs,
                                    const float* values, const int* opcodes,
@@ -173,4 +209,13 @@ extern "C" int rt_fused_chain_scan(const long long* col_ptrs,
               pops_in, n, w, out, pops_out, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_load_fused_chain() {
+  const int rcs[] = {load_chain<0>(), load_chain<1>(), load_chain<2>(),
+                     load_chain<3>(), load_chain<4>(), load_chain<5>(),
+                     load_chain<6>(), load_chain<7>(), load_chain<8>()};
+  for (int rc : rcs)
+    if (rc) return rc;
+  return 0;
 }

@@ -25,6 +25,11 @@
 // input word skips its 128 column bytes.  The output popcount is reduced
 // in the same pass.  The column must be 16-byte aligned (the wrapper
 // checks).
+//
+// Two entries: rt_predicate_scan takes the constant by value, and
+// rt_predicate_scan_dv reads it from device memory (each thread of a live
+// block loads the same 4 bytes, a broadcast), so a captured CUDA graph
+// reads a new constant at every replay instead of baking one in.
 #include "common.cuh"
 
 namespace {
@@ -34,19 +39,32 @@ namespace {
 __global__ void __launch_bounds__(rt::kThreads, 8)
 predicate_scan_kernel(const float4* __restrict__ col,
                       const int* __restrict__ bits,
-                      const int* __restrict__ pops_in, float value, int mask,
-                      int w, int* __restrict__ out,
+                      const int* __restrict__ pops_in,
+                      const float* __restrict__ value_ptr, float value,
+                      int mask, int w, int* __restrict__ out,
                       int* __restrict__ pops_out) {
   const int n = blockIdx.x;
   if (pops_in[n] == 0) {
     rt::write_dead_block(out + (long long)n * w, w, pops_out + n);
     return;
   }
+  if (value_ptr != nullptr) value = __ldg(value_ptr);
   rt::scan_live_block(bits, n, w, out, pops_out + n,
                       [&](bool load, long long f4) {
     const float4 x = load ? __ldg(col + f4) : make_float4(0, 0, 0, 0);
     return rt::nibble(x, value, mask);
   });
+}
+
+int launch(const float* col, const int* bits, const int* pops_in,
+           const float* value_ptr, float value, int opcode, int n, int w,
+           int* out, int* pops_out, void* stream) {
+  if (n > 0) {
+    predicate_scan_kernel<<<n, rt::kThreads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(col), bits, pops_in, value_ptr, value,
+        rt::compare_mask(opcode), w, out, pops_out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -55,10 +73,19 @@ extern "C" int rt_predicate_scan(const float* col, const int* bits,
                                  const int* pops_in, float value, int opcode,
                                  int n, int w, int* out, int* pops_out,
                                  void* stream) {
-  if (n > 0) {
-    predicate_scan_kernel<<<n, rt::kThreads, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(col), bits, pops_in, value,
-        rt::compare_mask(opcode), w, out, pops_out);
-  }
-  return (int)cudaGetLastError();
+  return launch(col, bits, pops_in, nullptr, value, opcode, n, w, out,
+                pops_out, stream);
+}
+
+// the constant is read from device memory at ``value`` (4-byte aligned)
+extern "C" int rt_predicate_scan_dv(const float* col, const int* bits,
+                                    const int* pops_in, const float* value,
+                                    int opcode, int n, int w, int* out,
+                                    int* pops_out, void* stream) {
+  return launch(col, bits, pops_in, value, 0.0f, opcode, n, w, out, pops_out,
+                stream);
+}
+
+extern "C" int rt_load_predicate_scan() {
+  return rt::load_kernel(predicate_scan_kernel);
 }

@@ -49,7 +49,8 @@ def dict_lookup_blocks(col: torch.Tensor, bits: torch.Tensor,
 
 def bitmap_op(a: torch.Tensor, b: torch.Tensor, opcode: int):
     """Fused set op + per-row popcount.  a, b: i32[N, W]."""
-    return bitmap_setop(a, b, opcode)
+    return bitmap_setop(a, b, opcode, ref.popcount_ref(a),
+                        ref.popcount_ref(b))
 
 
 def fused_chain_blocks(cols: torch.Tensor, bits: torch.Tensor,

@@ -37,8 +37,10 @@ def predicate_scan(col: torch.Tensor, bits: torch.Tensor, pops: torch.Tensor,
                    value, opcode: int):
     """col f32[N, B] record-major blocks; bits i32[N, W] (W = B // 32);
     pops i32[N] (a block with ``pops == 0`` is dead: zero output, column
-    not read); value rounded to f32; opcode in ``ref.LT..ref.NE``.
-    Returns ``(out i32[N, W], out_pops i32[N])``."""
+    not read); value: a number, rounded to f32, or a one-element f32
+    tensor on the column's device, which the kernel reads when it runs (a
+    captured CUDA graph then reads the value at each replay); opcode in
+    ``ref.LT..ref.NE``.  Returns ``(out i32[N, W], out_pops i32[N])``."""
     if col.device.type == "cpu":
         return predicate_scan_plain(col, bits, pops, value, opcode)
     if col.device.type != "cuda":
@@ -51,13 +53,19 @@ def predicate_scan(col: torch.Tensor, bits: torch.Tensor, pops: torch.Tensor,
     _build.expect(pops, "pops", torch.int32, (n,), dev)
     if not 0 <= int(opcode) <= ref.NE:
         raise ValueError(f"bad opcode {opcode}")
+    if isinstance(value, torch.Tensor):
+        _build.expect(value, "value", torch.float32, value.shape, dev)
+        if value.numel() != 1:
+            raise ValueError("value must hold one float32")
+        launch, value = _build.lib().rt_predicate_scan_dv, value.data_ptr()
+    else:
+        launch, value = _build.lib().rt_predicate_scan, ref.f32(value)
     out = torch.empty_like(bits)
     out_pops = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _build.lib().rt_predicate_scan(
-            col.data_ptr(), bits.data_ptr(), pops.data_ptr(), ref.f32(value),
-            int(opcode), n, w, out.data_ptr(), out_pops.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(col.data_ptr(), bits.data_ptr(), pops.data_ptr(), value,
+                    int(opcode), n, w, out.data_ptr(), out_pops.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "predicate_scan")
     _build.count_launch("predicate_scan")
     return out, out_pops

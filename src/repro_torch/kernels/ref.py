@@ -15,7 +15,8 @@ for bit 31; packing sums in int64 and wraps to int32 explicitly.
 
 Comparisons run in float32 against a float32 constant, as the reference
 does: a Python double is rounded through ``np.float32`` first and never
-compared with an f32 tensor directly.
+compared with an f32 tensor directly.  A constant may also be a
+one-element float32 tensor (the tape program's device constants).
 """
 from __future__ import annotations
 
@@ -56,9 +57,15 @@ def f32(value) -> float:
 
 
 def compare(col: torch.Tensor, value, opcode: int) -> torch.Tensor:
-    """``col OP value`` in float32; NaN compares false except under NE."""
-    # a 0-d CPU tensor enters a CUDA op as a scalar argument: no upload
-    v = torch.tensor(f32(value), dtype=torch.float32)
+    """``col OP value`` in float32; NaN compares false except under NE.
+    ``value`` is a number or a one-element float32 tensor."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype != torch.float32 or value.numel() != 1:
+            raise ValueError("a tensor constant must be one float32 value")
+        v = value.reshape(())
+    else:
+        # a 0-d CPU tensor enters a CUDA op as a scalar argument: no upload
+        v = torch.tensor(f32(value), dtype=torch.float32)
     if opcode == LT:
         return col < v
     if opcode == LE:
@@ -160,11 +167,11 @@ def fused_chain_ref(cols: Sequence[torch.Tensor], bits_in: torch.Tensor,
 
     cols:    K tensors f32[N, B] (or one f32[K, N, B] tensor)
     bits_in: i32[N, W]
-    values:  K constants (rounded through f32)
+    values:  K constants (rounded through f32), or an f32[K] tensor
     opcodes: K opcodes
     """
     acc = None
     for k, op in enumerate(opcodes):
-        c = compare(cols[k], float(values[k]), int(op))
+        c = compare(cols[k], values[k], int(op))
         acc = c if acc is None else (acc & c if conj else acc | c)
     return pack_u32(acc & unpack_u32(bits_in))

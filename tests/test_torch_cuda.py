@@ -13,6 +13,9 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch import ExecConfig, make_forest_table, random_query_suite, run_query
+import repro_torch.columnar.device as port_device
+from repro_torch.columnar.device import DeviceTapeBackend
+from repro_torch.core import And, Atom, Or, normalize
 from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, ref
 from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_inter_multi,
                                             bitmap_inter_multi_plain,
@@ -25,7 +28,9 @@ from repro_torch.kernels.dict_lookup import (dict_lookup_scan,
                                              dict_lookup_scan_multi,
                                              dict_lookup_scan_multi_plain,
                                              dict_lookup_scan_plain)
-from repro_torch.kernels.fused_chain import fused_chain_scan, fused_chain_scan_plain
+from repro_torch.kernels.fused_chain import (fused_chain_scan,
+                                             fused_chain_scan_plain,
+                                             fused_chain_table)
 from repro_torch.kernels.predicate_scan import (predicate_scan,
                                                 predicate_scan_multi,
                                                 predicate_scan_multi_plain,
@@ -78,8 +83,9 @@ def test_cuda_kernels_match_plain(cuda_device, n, b):
             _equal(predicate_scan(col, bits, pops, v, op),
                    predicate_scan_plain(col, bits, pops, v, op))
     other = bits.flip(0).contiguous()
+    exact, other_pops = ref.popcount_ref(bits), ref.popcount_ref(other)
     for op in range(3):
-        _equal(bitmap_setop(bits, other, op),
+        _equal(bitmap_setop(bits, other, op, exact, other_pops),
                bitmap_setop_plain(bits, other, op))
     cols = [torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32))
             .to(dev) for _ in range(5)]
@@ -245,7 +251,9 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         predicate_scan(col, bits, pops, 0.0, 6)
     with pytest.raises(ValueError):
-        bitmap_setop(bits, bits.cpu(), 0)
+        bitmap_setop(bits, bits.cpu(), 0, pops, pops)
+    with pytest.raises(ValueError):
+        bitmap_setop(bits, bits, 0, pops[:1], pops)
     with pytest.raises(ValueError):
         predicate_scan_multi(col, torch.zeros((3, 8), dtype=torch.int32,
                                               device=dev),
@@ -282,3 +290,140 @@ def test_tape_on_the_card_matches_the_cpu(cuda_device):
         assert gbe.stats.records_evaluated == wbe.stats.records_evaluated
         assert gbe.blocks_touched == wbe.blocks_touched
         assert gbe.drain_op_log() == wbe.drain_op_log()
+
+
+@pytest.mark.parametrize("n,b", SHAPES)
+def test_cuda_setop_and_device_constants_match_plain(cuda_device, n, b):
+    """The per-op K2 with the inputs' popcounts (dense, half its rows
+    dead, the empty set, ``a is b``), and K1's and K3's device-constant
+    entries (K3 at K = 3 and at K = 9 with a prebuilt table), each against
+    its plain version."""
+    dev = cuda_device
+    rng = np.random.default_rng(3 * n + b)
+    col, bits, pops = _inputs(rng, n, b, dev)
+    half = bits.clone()
+    half[::2] = 0
+    sets = [bits, bits.flip(0).contiguous(), half, torch.zeros_like(bits)]
+    for x in sets:
+        for y in sets:
+            for op in range(3):
+                _equal(bitmap_setop(x, y, op, ref.popcount_ref(x),
+                                    ref.popcount_ref(y)),
+                       bitmap_setop_plain(x, y, op))
+    vals = torch.tensor([0.0, 1e-45, 0.3, float("nan"), -0.2, 0.7, 0.1,
+                         -1.0, 0.05], dtype=torch.float32, device=dev)
+    for op in range(6):
+        for j in range(4):
+            _equal(predicate_scan(col, bits, pops, vals[j], op),
+                   predicate_scan_plain(col, bits, pops, vals[j], op))
+    cols = [torch.from_numpy(rng.normal(size=(n, b)).astype(np.float32))
+            .to(dev) for _ in range(9)]
+    ops = [int(x) for x in rng.integers(0, 6, size=9)]
+    for k in (3, 9):
+        table = fused_chain_table(cols[:k], ops[:k]) if k > 8 else None
+        for conj in (True, False):
+            _equal(fused_chain_scan(cols[:k], bits, pops, vals[:k], ops[:k],
+                                    conj, table=table),
+                   fused_chain_scan_plain(cols[:k], bits, pops, vals[:k],
+                                          ops[:k], conj))
+
+
+def _graph_trees(table):
+    """Paper trees plus a wide chain (K = 9 siblings: the generic path with
+    its prebuilt table)."""
+    trees = random_query_suite(table, 4, 12, 3, seed=1)
+
+    def num(col, g):
+        return Atom(col, "lt", table.value_at_selectivity(col, g),
+                    selectivity=g)
+    cols = [c for c in table.columns if c.endswith("_0")][:9]
+    trees.append(normalize(And([num("elevation_1", 0.8),
+                                Or([num(c, 0.2) for c in cols])])))
+    return trees
+
+
+def test_graph_replay_matches_the_eager_loop_and_the_cpu(cuda_device):
+    table = make_forest_table(50_000, n_dup=2, seed=7, strings=True)
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=2048)
+    be = DeviceTapeBackend(table, block=2048)
+    for tree in _graph_trees(table):
+        got, _, be = run_query(tree, table, backend=be, config=cfg)
+        want, _, wbe = run_query(tree, table, config=cfg.replace(
+            device="cpu"))
+        np.testing.assert_array_equal(got, want)
+        assert be.drain_op_log() == wbe.drain_op_log()
+        prog = next(reversed(be._programs.values()))
+        m = len(be.last_tape.costed_ops())
+        k = 4 * m + (table.n_records + 31) // 32
+        eager = prog._forward()
+        assert torch.equal(eager[:k].cpu(), prog.out[:k].cpu())
+    assert any(op.kind == "CHAIN" and len(op.aids) > 8
+               for op in be.last_tape.ops)
+    assert be.graph_captures == be.tape_programs == len(be._programs)
+    assert be.graph_replays == len(_graph_trees(table))
+
+
+def test_replays_add_the_captured_launches(cuda_device):
+    table = make_forest_table(50_000, n_dup=2, seed=7)
+    tree = random_query_suite(table, 1, 16, 3, seed=3)[0]
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=2048)
+    be = DeviceTapeBackend(table, block=2048)
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    first, _, _ = run_query(tree, table, backend=be, config=cfg)
+    (prog,) = be._programs.values()
+    delta = prog.launches
+    assert delta and delta.get("bitmap_setop", 0) > 0
+    for _ in range(4):
+        res, _, _ = run_query(tree, table, backend=be, config=cfg)
+        np.testing.assert_array_equal(res, first)
+    assert be.graph_captures == 1 and be.graph_replays == 5
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        k: 5 * delta.get(k, 0) for k in LAUNCHES}
+
+
+def test_failing_capture_raises(cuda_device, monkeypatch):
+    table = make_forest_table(20_000, n_dup=1, seed=7)
+    tree = random_query_suite(table, 1, 8, 2, seed=4)[0]
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=2048)
+    be = DeviceTapeBackend(table, block=2048)
+    real = port_device._tape_forward
+
+    def broken(*args, **kwargs):
+        real(*args, **kwargs)
+        raise RuntimeError("broken forward")
+    monkeypatch.setattr(port_device, "_tape_forward", broken)
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match="broken forward"):
+        run_query(tree, table, backend=be, config=cfg)
+    assert not be._programs and be.graph_captures == 0
+    assert dict(LAUNCHES) == before
+    monkeypatch.setattr(port_device, "_tape_forward", real)
+    got, _, _ = run_query(tree, table, backend=be, config=cfg)
+    want, _, _ = run_query(tree, table, config=cfg.replace(device="cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert be.graph_captures == be.graph_replays == 1
+
+
+def test_graphs_across_refresh_on_the_card(cuda_device):
+    """An append inside the block bucket keeps the program (its zone rows
+    and constants are runtime inputs); one that grows the bucket drops
+    every program, and the next capture takes a fresh memory pool.  Each
+    result equals the CPU run on the same table."""
+    table = make_forest_table(20_000, n_dup=1, seed=7)
+    extra = make_forest_table(30_000, n_dup=1, seed=9)
+    tree = random_query_suite(table, 1, 12, 3, seed=6)[0]
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=1024)
+    be = DeviceTapeBackend(table, block=1024)
+
+    def check_run():
+        got, _, _ = run_query(tree, table, backend=be, config=cfg)
+        want, _, _ = run_query(tree, table, config=cfg.replace(device="cpu"))
+        np.testing.assert_array_equal(got, want)
+    check_run()
+    for rows, programs in ((1000, 1), (28_000, 2)):
+        table.append({k: v[:rows].copy() for k, v in extra.columns.items()})
+        be.refresh()
+        check_run()
+        assert be.tape_programs == be.graph_captures == programs
+    assert be.nblocks == 64 and len(be._programs) == 1
