@@ -18,7 +18,10 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
    operation with its input popcounts (dense, half its rows dead, the
    empty set, ``a is b``) and timed dense and half dead; K1's and K3's
    device-constant entries (the ones a captured tape reads); the lockstep
-   kernels (Q stacked record sets) at Q = 1, 2, 8, 65 (timed in phase 7);
+   kernels (Q stacked record sets) at Q = 1, 2, 8, 65 (timed in phase 7),
+   the stacked set operations also at Q = 130 (two launches) and with sets
+   at offsets that are not 16-byte aligned, the OR-reduce's stacked copy
+   held against its inputs;
    the grouped set operation at G = 1, 2, 65, 512 and in a two-level
    flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2, 3, 5, 8,
    9, checked and timed
@@ -33,17 +36,21 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
    accounted
 6. a mixed tape with a UDF atom: one host fallback, op by op, no program
 7. the stacked kernels timed at Q = 8, 64 and at each path's median Q
-   (the numeric lockstep path's K5 median is their headline); the tape's
+   (the numeric lockstep path's K5 median is their headline), the stacked
+   set operations beside a ``torch.stack`` of their sets and (the stacked
+   AND) a ``torch.bitwise_and`` of the words; the tape's
    kernels and an empty kernel timed inside a CUDA graph (32 launches per
    replay) and the empty kernel alone; a ranking by launches x (time -
    bound), and the kernels line
 8. lockstep batches: 64 paper queries (8 templates), twice (the second
    serves cached shared atoms), and a strings batch holding the fragmented
    tree twice; one host sync per batch, records_evaluated equal to a host
-   lockstep session's
+   lockstep session's; in the profiled batch the port's kernels the
+   profiler saw equal the launches counted
 9. a StreamSession over the strings table: 6 rounds of a 2 % append and a
    drain of 64 queries; one host sync per drain, uploads within the dirty
-   tail blocks, cached atoms spliced, nothing degraded to the host
+   tail blocks, cached atoms spliced, nothing degraded to the host; the
+   profiled drain's kernels held against the counts as in phase 8
 
 Each path of phases 3-6, 8 and 9 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
@@ -59,11 +66,15 @@ CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 
 ``python3 chip_smoke.py --compare SRC`` runs only what compares two trees
-on one card: K1's, K5's (Q = 8, 64) and the fused chain's times, the
-numeric tape's warm breakdown (wall, plan and ``run_tape`` p50 over the
-32 paper queries) and a lockstep batch (its walls, launches and a
-cProfile split of the cached batch), with the package from ``SRC`` (a
-``src`` directory of another checkout).
+on one card: K1's, K5's (Q = 8, 64), the fused chain's and K2's times, the
+stacked set operations as the tree's backend runs them (with the
+``torch.stack`` copies before them, where it makes them) at Q = 4, 8, 9,
+64, the numeric tape's warm breakdown (wall, plan and ``run_tape`` p50
+over the 32 paper queries), a lockstep batch (its walls, launches, a
+cProfile split of the cached batch and the device time of a batch with
+the atom cache off) and three stream drains, with digests of the bitmaps,
+with the package from ``SRC`` (a ``src`` directory of another
+checkout).
 """
 from __future__ import annotations
 
@@ -83,32 +94,46 @@ ROOT = Path(__file__).resolve().parent
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-#: where each kernel came from: the reference's Pallas call (file:line)
+#: where each kernel came from: its source, the reference's Pallas call
+#: (file:line) and the CUDA kernel functions its wrapper launches (the
+#: names the profiler reports)
 KERNELS = {
     "predicate_scan": ("src/repro_torch/kernels/csrc/predicate_scan.cu",
-                       "src/repro/kernels/predicate_scan.py:70"),
+                       "src/repro/kernels/predicate_scan.py:70",
+                       ("predicate_scan_kernel",)),
     "bitmap_setop": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
-                     "src/repro/kernels/bitmap_ops.py:44"),
+                     "src/repro/kernels/bitmap_ops.py:44",
+                     ("bitmap_setop_kernel",)),
     "fused_chain_scan": ("src/repro_torch/kernels/csrc/fused_chain.cu",
-                         "src/repro/kernels/fused_chain.py:70"),
+                         "src/repro/kernels/fused_chain.py:70",
+                         ("fused_chain_kernel",)),
     "dict_lookup_scan": ("src/repro_torch/kernels/csrc/dict_lookup.cu",
-                         "src/repro/kernels/dict_lookup.py:81"),
+                         "src/repro/kernels/dict_lookup.py:81",
+                         ("dict_lookup_kernel",)),
     "predicate_scan_multi": (
         "src/repro_torch/kernels/csrc/predicate_scan_multi.cu",
-        "src/repro/kernels/predicate_scan.py:102"),
+        "src/repro/kernels/predicate_scan.py:102",
+        ("predicate_scan_multi_kernel",)),
     "dict_lookup_scan_multi": ("src/repro_torch/kernels/csrc/dict_lookup.cu",
-                               "src/repro/kernels/dict_lookup.py:111"),
+                               "src/repro/kernels/dict_lookup.py:111",
+                               ("dict_lookup_multi_kernel",)),
     # the lockstep executor's stacked set operations: jnp code in the
     # reference, not TPU kernels
     "bitmap_inter_multi": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
-                           "src/repro/columnar/device.py:328"),
+                           "src/repro/columnar/device.py:328",
+                           ("bitmap_inter_multi_kernel",)),
     "bitmap_union_reduce": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
-                            "src/repro/columnar/device.py:336"),
+                            "src/repro/columnar/device.py:336",
+                            ("bitmap_union_stack_kernel",)),
     # K2 as the lockstep and stream paths run it: one launch per
     # dependency level of deferred set operations
     "bitmap_setop_grouped": ("src/repro_torch/kernels/csrc/bitmap_setop.cu",
-                             "src/repro/kernels/bitmap_ops.py:44"),
+                             "src/repro/kernels/bitmap_ops.py:44",
+                             ("bitmap_setop_grouped_kernel",)),
 }
+#: CUDA kernel function -> the KERNELS entry of the wrapper that launches it
+KERNEL_SYMBOLS = {sym: name for name, (_, _, syms) in KERNELS.items()
+                  for sym in syms}
 #: entries of KERNELS that replace no Pallas kernel
 NOT_TPU_KERNELS = ("bitmap_inter_multi", "bitmap_union_reduce")
 #: the warning torch.cuda.set_sync_debug_mode("warn") gives per sync
@@ -134,9 +159,15 @@ MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
 SHAPES = [(1, 256), (3, 1024), (4, 8192), (7, 2048), (2, 32), (3, 96),
           (5, 288)]
 #: lockstep group sizes the stacked kernels are checked at, and timed at
-#: (the full run adds each path's median Q, measured)
+#: (the full run adds each path's median Q, measured); the stacked set
+#: operations are also checked at CHUNKED_Q, above the 128 sets one launch
+#: reads by pointer (two launches)
 STACKED_QS = (1, 2, 8, 65)
+CHUNKED_Q = 130
 TIMED_QS = (8, 64)
+#: Q at which --compare times the stacked set operations as the device
+#: backend calls them (each path's median Q in earlier runs, and 64)
+PAIR_QS = (4, 8, 9, 64)
 #: grouped set-operation sizes checked, and timed (the row's headline G)
 GROUPED_GS = (1, 2, 65, 512)
 TIMED_GS = (1, 64, 512)
@@ -422,6 +453,9 @@ def phase_kernels(dev, shapes):
         for q in STACKED_QS:
             for case in stacked_cases(rng, col, n, b, q, dev):
                 cmp(*case)
+        for q in STACKED_QS + (CHUNKED_Q,):
+            for case in stacked_setop_cases(rng, n, b // 32, q, dev):
+                cmp(*case)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return errs, cases
@@ -510,15 +544,11 @@ def stacked_inputs(rng, n, w, q, dev):
 
 def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
                   values=(0.0, 1e-45, 0.25, float("nan")), us=(1, 2, 64)):
-    """(name, kernel output, plain output, what) for K5, K6 and the two
-    stacked set operations at one shape and group size Q."""
+    """(name, kernel output, plain output, what) for K5 and K6 at one
+    shape and group size Q."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
-                                                bitmap_inter_multi_plain,
-                                                bitmap_union_reduce,
-                                                bitmap_union_reduce_plain)
     from repro_torch.kernels.dict_lookup import (dict_lookup_scan_multi,
                                                  dict_lookup_scan_multi_plain)
     from repro_torch.kernels.predicate_scan import (
@@ -544,12 +574,51 @@ def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
                dict_lookup_scan_multi(cd, bits, pops, mask),
                dict_lookup_scan_multi_plain(cd, bits, pops, mask),
                f"{what} u={u}")
+
+
+def at_offset(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    import torch
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+def stacked_setop_cases(rng, n, w, q, dev):
+    """(name, kernel output, plain output, what) for the two stacked set
+    operations at one shape and Q, on the sets of :func:`stacked_inputs`
+    with exact popcounts, one of them dead when Q > 2, and ``a`` with a
+    dead block: the Q sets passed by pointer as views of one stack, then
+    with every other set (and ``a``) a copy at an offset that is not
+    16-byte aligned.  The OR-reduce's stacked copy is also held against
+    its inputs, word for word."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                                bitmap_inter_multi_plain,
+                                                bitmap_union_reduce,
+                                                bitmap_union_reduce_plain)
+    bits, _ = stacked_inputs(rng, n, w, q, dev)
     stack = bits.reshape(q, n, w)
+    if q > 2:
+        stack[q // 2 + 1] = 0                         # a dead set
+    pops = ref.popcount_ref(stack)
     a = stack[0].flip(0).contiguous()
-    yield ("bitmap_inter_multi", bitmap_inter_multi(a, stack),
-           bitmap_inter_multi_plain(a, stack), what)
-    yield ("bitmap_union_reduce", bitmap_union_reduce(stack),
-           bitmap_union_reduce_plain(stack), what)
+    if n > 1:
+        a[n // 2] = 0                                 # a dead block of a
+    a_pops = ref.popcount_ref(a)
+    for unaligned in (False, True):
+        rows = [(at_offset(stack[j]) if unaligned and j % 2 else stack[j],
+                 pops[j]) for j in range(q)]
+        x = at_offset(a) if unaligned else a
+        what = f"n={n} w={w} q={q}" + (" unaligned" if unaligned else "")
+        yield ("bitmap_inter_multi", bitmap_inter_multi(x, a_pops, rows),
+               bitmap_inter_multi_plain(x, a_pops, rows), what)
+        got = bitmap_union_reduce(rows)
+        yield ("bitmap_union_reduce", got, bitmap_union_reduce_plain(rows),
+               what)
+        yield ("bitmap_union_reduce", got[2:], (stack, pops),
+               f"{what}: the stack against its inputs")
 
 
 def gpu_ms(fn, reps=25, clean=False):
@@ -894,7 +963,15 @@ def stacked_timings(dev, qs, only=None):
     ``only``), and their plain versions, at the main path's shape for each
     Q in ``qs``, on dense random bitmaps (every block live).  Bytes for
     the bound: the column blocks live in any row once, each live input row
-    once, every output row and popcount once (and the mask for K6)."""
+    once, every output row and popcount once (and the mask for K6); the
+    stacked set operations also read every input popcount once, and the
+    OR-reduce writes the stacked copy of its inputs.  Beside the set
+    operations, two yardsticks that are not the same function:
+    ``stack_ms``, a ``torch.stack`` of the Q sets alone (the copy the
+    device backend made before each stacked set operation until the
+    kernels read the sets by pointer), and, for the stacked AND,
+    ``words_and_ms``, ``torch.bitwise_and(stack, a)`` alone (the words
+    without their popcounts)."""
     import numpy as np
     import torch
 
@@ -930,7 +1007,11 @@ def stacked_timings(dev, qs, only=None):
         scan_bytes = (live_blocks * b * 4 + live_rows * w * 4
                       + q * n * w * 4 + 2 * q * n * 4)
         stack = bits.reshape(q, n, w)
+        rows = [(stack[j], pops.reshape(q, n)[j]) for j in range(q)]
         a = stack[0].flip(0).contiguous()
+        a_pops = ref.popcount_ref(a)
+        a_live = a_pops > 0
+        both_live = int((a_live[None] & live.reshape(q, n)).sum().item())
         work = {
             "predicate_scan_multi": (
                 scan_bytes, live_blocks * b + live_rows * w,
@@ -941,20 +1022,82 @@ def stacked_timings(dev, qs, only=None):
                 lambda: dict_lookup_scan_multi(codes, bits, pops, mask),
                 lambda: dict_lookup_scan_multi_plain(codes, bits, pops,
                                                      mask)),
+            # a's live rows once, each row whose block of a is live read,
+            # Q rows and Q * N popcounts written, N + Q * N popcounts read
             "bitmap_inter_multi": (
-                n * w * 4 + 2 * q * n * w * 4 + q * n * 4, q * n * w,
-                lambda: bitmap_inter_multi(a, stack),
-                lambda: bitmap_inter_multi_plain(a, stack)),
+                int(a_live.sum().item()) * w * 4 + both_live * w * 4
+                + q * n * w * 4 + (2 * q * n + n) * 4, both_live * w,
+                lambda: bitmap_inter_multi(a, a_pops, rows),
+                lambda: bitmap_inter_multi_plain(a, a_pops, rows)),
+            # the live rows read, the stack and the union written, Q * N
+            # popcounts read and written, N written
             "bitmap_union_reduce": (
-                q * n * w * 4 + n * w * 4 + n * 4, q * n * w,
-                lambda: bitmap_union_reduce(stack),
-                lambda: bitmap_union_reduce_plain(stack)),
+                live_rows * w * 4 + (q + 1) * n * w * 4
+                + (2 * q * n + n) * 4, live_rows * w,
+                lambda: bitmap_union_reduce(rows),
+                lambda: bitmap_union_reduce_plain(rows)),
         }
         for name in out:
             out[name][q] = timed(*work[name], plain_reps=11)
-        del bits, pops, stack, a
+        for name in ("bitmap_inter_multi", "bitmap_union_reduce"):
+            if name in out:
+                out[name][q]["stack_ms"] = gpu_ms(
+                    lambda: torch.stack([x for x, _ in rows]))
+        if "bitmap_inter_multi" in out:
+            out["bitmap_inter_multi"][q]["words_and_ms"] = gpu_ms(
+                lambda: torch.bitwise_and(stack, a))
+        del bits, pops, stack, rows, a, a_pops
         torch.cuda.empty_cache()
     return out
+
+
+def stacked_pair_timings(dev, qs):
+    """For --compare: each stacked set operation at the main shape for
+    each Q in ``qs``, as the device backend of the tree under test runs
+    it.  A tree whose wrappers take a stacked tensor copies the Q sets
+    with ``torch.stack`` first (the stacked AND its bits; the OR-reduce
+    its bits and its popcounts, as ``apply_atom_multi`` did), and the time
+    covers copy and kernel; a tree whose wrappers take (bits, pops) pairs
+    runs the kernel alone.  Dense random sets; the L2 flushed by zeroing
+    before each run.  Returns {name: {q: ms}}."""
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
+                                                bitmap_union_reduce)
+    by_rows = "rows" in inspect.signature(bitmap_union_reduce).parameters
+    n, b = MAIN_SHAPE
+    w = b // 32
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {"bitmap_inter_multi": {}, "bitmap_union_reduce": {}}
+    for q in qs:
+        sets = [torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
+                              dtype=torch.int32, device=dev)
+                for _ in range(q)]
+        rows = [(x, ref.popcount_ref(x)) for x in sets]
+        a = sets[0].flip(0).contiguous()
+        a_pops = ref.popcount_ref(a)
+        if by_rows:
+            def inter():
+                bitmap_inter_multi(a, a_pops, rows)
+
+            def union():
+                bitmap_union_reduce(rows)
+        else:
+            def inter():
+                bitmap_inter_multi(a, torch.stack([x for x, _ in rows]))
+
+            def union():
+                bits = torch.stack([x for x, _ in rows])
+                torch.stack([p for _, p in rows])
+                bitmap_union_reduce(bits)
+        out["bitmap_inter_multi"][q] = gpu_ms(inter)
+        out["bitmap_union_reduce"][q] = gpu_ms(union)
+        del sets, rows, a, a_pops
+        torch.cuda.empty_cache()
+    return {"pointer_rows": by_rows, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -1167,21 +1310,6 @@ def phase_numeric(rows, n_queries, dev_name, sync_check):
         info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         log(f"  {memory_text(be)}")
     return info
-
-
-#: the kernel functions of kernels/csrc, by the LAUNCHES entry of the
-#: wrapper that launches them
-KERNEL_SYMBOLS = {
-    "predicate_scan_kernel": "predicate_scan",
-    "bitmap_setop_kernel": "bitmap_setop",
-    "fused_chain_kernel": "fused_chain_scan",
-    "dict_lookup_kernel": "dict_lookup_scan",
-    "predicate_scan_multi_kernel": "predicate_scan_multi",
-    "dict_lookup_multi_kernel": "dict_lookup_scan_multi",
-    "bitmap_setop_grouped_kernel": "bitmap_setop_grouped",
-    "inter_multi_kernel": "bitmap_inter_multi",
-    "bitmap_union_reduce_kernel": "bitmap_union_reduce",
-}
 
 
 def primer_graph():
@@ -1592,24 +1720,63 @@ def checked_run(fn, sync_check):
     return out, wall, syncs, dict(spans)
 
 
+#: empty kernels each profiled window starts with: the profiler drops the
+#: first few kernel records of a session (up to 3 of these were lost in a
+#: diagnostic run of 6 sessions on an H100), so the primer's records take
+#: the loss and are left out of the window's device time
+PRIMER_KERNELS = 32
+
+
 def profiled(fn):
     """Run ``fn()`` under the profiler: its result, the device time the
-    profiler saw (ms) and the wall time (ms)."""
+    profiler saw (ms: the durations of the kernels and copies it saw run,
+    as :func:`device_busy` sums them), the wall time (ms), the port's
+    kernels the profiler
+    saw run (by their KERNELS name, from the CUDA function names in
+    KERNELS) and the launches the wrappers counted meanwhile.  The window
+    starts with PRIMER_KERNELS empty kernels (``torch.cuda._sleep(0)``,
+    whose function is ``spin_kernel``), outside the wall time and the
+    device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import LAUNCHES
     cuda = torch.cuda.is_available()
+    before = dict(LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU]
                  + [ProfilerActivity.CUDA] * cuda) as prof:
+        if cuda:
+            for _ in range(PRIMER_KERNELS):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         if cuda:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev_us = 0.0
-    for ev in prof.key_averages():
-        dev_us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-    return out, dev_us / 1e3, wall
+    seen = Counter()
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA or ev.is_user_annotation
+                or "spin_kernel" in ev.name):
+            continue
+        dev_us += ev.time_range.elapsed_us()
+        sym = re.search(r"(\w+_kernel)\b", ev.name)
+        if sym and sym.group(1) in KERNEL_SYMBOLS:
+            seen[KERNEL_SYMBOLS[sym.group(1)]] += 1
+    counted = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+               if v - before.get(k, 0)}
+    return out, dev_us / 1e3, wall, dict(seen), counted
+
+
+def check_seen(label, seen, counted):
+    """The port's kernels the profiler saw in a profiled run must be the
+    launches the wrappers counted, kernel by kernel."""
+    check(seen == counted, f"{label}: the profiler saw the port's kernels "
+          f"run {seen} times, the wrappers counted {counted}")
+    log(f"  {label}: the profiler saw the port's kernels run as counted: "
+        f"{dict(sorted(seen.items()))}")
 
 
 def upload_columns(sess, trees):
@@ -1707,8 +1874,9 @@ def lockstep_batches(table, batch, want, dev_name, label, sync_check,
     # the K5 path again on resident columns, under the profiler
     sess.persist_atom_cache = False
     setops = SetopLog(be)
-    res, dev_ms, wall = profiled(lambda: sess.execute(batch))
+    res, dev_ms, wall, seen, counted = profiled(lambda: sess.execute(batch))
     setops = setops.done(len(batch))
+    check_seen(f"{label} profiled batch", seen, counted)
     sess.persist_atom_cache = True
     for j, bm in enumerate(res.bitmaps):
         check(np.array_equal(bm, want[j]), f"{label} profiled batch: "
@@ -1836,7 +2004,8 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
             f"{SetopLog.text(setops)}")
     # one more drain of the same queries, no append, under the profiler
     futs = [stream.submit(q) for q in queries]
-    res, dev_ms, pwall = profiled(stream.drain)
+    res, dev_ms, pwall, seen, counted = profiled(stream.drain)
+    check_seen("stream profiled drain", seen, counted)
     check_round(rounds + 1, futs)
     check(res.stats.host_syncs == 1, "profiled drain: host_syncs != 1")
     counts = {k: v - c0[k] for k, v in counts_of(be).items()}
@@ -1907,6 +2076,12 @@ def main_compare(src: Path) -> int:
     grouped = grouped_timings(dev)
     for g, t in grouped.items():
         log_timing(f"bitmap_setop_grouped G={g}", t)
+    pairs = stacked_pair_timings(dev, PAIR_QS)
+    for name in ("bitmap_inter_multi", "bitmap_union_reduce"):
+        log(f"  {name} as the backend runs it ("
+            + ("kernel alone" if pairs["pointer_rows"] else
+               "torch.stack copy + kernel") + "), us: " + ", ".join(
+                f"Q={q} {ms * 1e3:.2f}" for q, ms in pairs[name].items()))
     table = make_forest_table(5_800_000, n_dup=12, seed=7)
     paper = random_query_suite(table, 32, 16, 3, seed=0)
     numeric = numeric_warm(table, paper)
@@ -1932,6 +2107,14 @@ def main_compare(src: Path) -> int:
     res, wall, cats, rows = host_split(lambda: sess.execute(batch))
     log_split("lockstep cached batch", wall, cats, rows)
     digest = hashlib.sha256(b"".join(b.tobytes() for b in res.bitmaps))
+    sess.persist_atom_cache = False
+    off, off_dev_ms, off_wall = profiled(lambda: sess.execute(batch))[:3]
+    check(off.bitmaps and all(np.array_equal(x, y) for x, y in
+                              zip(off.bitmaps, res.bitmaps)),
+          "compare: the cache-off batch differs from the cached one")
+    log(f"  lockstep batch, atom cache off, profiled: device time "
+        f"{off_dev_ms:.3f} ms of {off_wall:.3f} ms wall")
+    stream = stream_digest(table, trees)
     log(json.dumps({"compare": str(src), "predicate_scan_ms": k1["ms"],
         "predicate_scan_multi_ms": {str(q): t["ms"] for q, t in k5.items()},
         "chain_ms": {str(k): t["ms"] for k, t in chain.items()},
@@ -1946,8 +2129,46 @@ def main_compare(src: Path) -> int:
         "grouped_ms": {str(g): [t["ms"], t["ms_clean_l2"]]
                        for g, t in grouped.items()},
         "cprofile_wall_ms": wall, "split_s": cats,
-        "bitmaps_sha256": digest.hexdigest(), "numeric": numeric}))
+        "bitmaps_sha256": digest.hexdigest(), "numeric": numeric,
+        "stacked_pairs_ms": {k: {str(q): ms for q, ms in v.items()}
+                             if isinstance(v, dict) else v
+                             for k, v in pairs.items()},
+        "cache_off_device_ms": off_dev_ms, "cache_off_wall_ms": off_wall,
+        "stream": stream}))
     return 0
+
+
+def stream_digest(table, trees):
+    """For --compare: a default StreamSession on ``table``, three drains
+    of 64 queries drawn from ``trees`` with a 2 % append (fresh Forest
+    rows of the same schema) before the last two; the drain walls and
+    one sha256 over every drain's bitmaps."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch import make_forest_table
+    from repro_torch.columnar import StreamSession
+    rng = np.random.default_rng(0)
+    queries = [trees[int(rng.integers(len(trees)))] for _ in range(64)]
+    stream = StreamSession(table, max_pending=65)
+    digest = hashlib.sha256()
+    walls = []
+    for rnd in range(3):
+        if rnd:
+            extra = make_forest_table(int(table.n_records * 0.02), n_dup=12,
+                                      seed=100 + rnd)
+            stream.append({k: extra.columns[k] for k in table.columns})
+        futs = [stream.submit(q) for q in queries]
+        t0 = time.perf_counter()
+        stream.drain()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for f in futs:
+            digest.update(f.result().tobytes())
+    stream.close()
+    log(f"  stream: 3 drains of 64, walls ms {[round(x, 3) for x in walls]}"
+        f", bitmaps sha256 {digest.hexdigest()}")
+    return {"drain_wall_ms": walls, "bitmaps_sha256": digest.hexdigest()}
 
 
 def setop_timing(dev):
@@ -2221,6 +2442,12 @@ def main(argv) -> int:
     for name, by_q in stacked_timings(dev, qs).items():
         for q, t in by_q.items():
             log_timing(f"{name} Q={q}", t)
+            if "stack_ms" in t:
+                log(f"    beside it, not the same function: torch.stack of "
+                    f"the {q} sets alone {t['stack_ms'] * 1e3:.2f} us"
+                    + (f", torch.bitwise_and(stack, a) alone (the words "
+                       f"without popcounts) {t['words_and_ms'] * 1e3:.2f} us"
+                       if "words_and_ms" in t else ""))
         timing[name] = dict(by_q[path_q], by_q=by_q, headline_q=path_q)
     in_graph, empty = graph_timings(dev)
     log(f"  in a CUDA graph ({GRAPH_LAUNCHES} launches per replay; each "
@@ -2238,7 +2465,7 @@ def main(argv) -> int:
         in_graph["bitmap_setop half_dead"]
     log(f"  took {time.perf_counter() - t0:.1f} s")
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, _) in KERNELS.items():
         t = timing[name]
         paths = {p: got[name] for p, got in by_path.items()}
         row = {"name": name, "route": "cuda", "source": source,
@@ -2274,10 +2501,9 @@ def main(argv) -> int:
                                  for p, v in at.items())
         for by in ("by_q", "by_k", "by_g"):
             if by in t:
-                row[by] = {str(x): {k: v[k] for k in ("ms", "ms_clean_l2",
-                                                      "plain_ms",
-                                                      "bound_ms")}
-                           for x, v in t[by].items()}
+                row[by] = {str(x): {k: v[k] for k in (
+                    "ms", "ms_clean_l2", "plain_ms", "bound_ms", "stack_ms",
+                    "words_and_ms") if k in v} for x, v in t[by].items()}
         if name in NOT_TPU_KERNELS:
             row["tpu_kernel"] = False
         rows.append(row)

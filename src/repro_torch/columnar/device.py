@@ -64,10 +64,13 @@ atom wanted by Q queries in the same round
 through ``predicate_scan_multi`` (K5) or ``dict_lookup_scan_multi`` (K6)
 over the Q stacked sets, cached shared atoms through the stacked AND
 ``bitmap_inter_multi``, and the union a multi-set atom needs for its cost
-accounting through ``bitmap_union_reduce``.  Nothing leaves the device
-until the batch's one bundled :meth:`materialize`.  After a table append
-:meth:`refresh` uploads only the dirty tail blocks and :meth:`extend_set`
-splices appended rows into cached sets, neither with a host sync.
+accounting through ``bitmap_union_reduce``, whose launch also writes the
+stacked copy of the Q sets that K5 / K6 read.  Both read the Q sets by
+pointer where they lie, with no stacked copy before the launch.  Nothing
+leaves the device until the batch's one bundled :meth:`materialize`.
+After a table append :meth:`refresh` uploads only the dirty tail blocks
+and :meth:`extend_set` splices appended rows into cached sets, neither
+with a host sync.
 
 Deferred set operations.  ``inter`` / ``union`` / ``diff`` launch
 nothing: each allocates its output, queues ``(a, b, out, opcode)`` with a
@@ -712,10 +715,9 @@ class DeviceTapeBackend(SetBackend):
         if len(ds) == 1:
             return [self.inter(a, ds[0])]
         self._ready(a, *ds)
-        bits = torch.stack([d.bits for d in ds])
         self.stats.setops += len(ds)
         self.device_dispatches += 1
-        out, pops = bitmap_inter_multi(a.bits, bits)
+        out, pops = bitmap_inter_multi(a.bits, a.pops, ds)
         return [_DevSet(out[j], pops[j]) for j in range(len(ds))]
 
     def _zero(self) -> torch.Tensor:
@@ -876,13 +878,14 @@ class DeviceTapeBackend(SetBackend):
         if len(ds) == 1:
             return [self.apply_atom(atom, ds[0])]
         self._ready(*ds)
-        bits = torch.stack([d.bits for d in ds])
-        pops = torch.stack([d.pops for d in ds])
-        q, n, w = bits.shape
         # one reduce launch (not Q-1 setops): the union only feeds the
-        # fallback path and cost accounting
+        # fallback path and cost accounting; the same launch writes the
+        # stacked copy of the sets that the stacked scan and the zone
+        # blend read
         self.device_dispatches += 1
-        union = _DevSet(*bitmap_union_reduce(bits))
+        ubits, upops, bits, pops = bitmap_union_reduce(ds)
+        union = _DevSet(ubits, upops)
+        q, n, w = bits.shape
         col, lmask = self._bind_atom(atom)
         zone = self._bind_zone(atom, col)
         self._account([atom], union.pops, device=col is not None, zone=zone)

@@ -375,6 +375,27 @@ class StreamSession:
             self._drainer = BackgroundDrainer(self, policy or DrainPolicy())
             self._drainer.start()
 
+    # -- durability ------------------------------------------------------------
+    # Durable ingest and warm restarts are not yet ported (``durable=`` and
+    # ``cache_dir=`` raise ConfigError), so every session is non-durable
+    # without a ``cache_dir``, and these members give the reference's
+    # results for such a session.
+    @property
+    def durability(self):
+        """The durability manager, or None for a non-durable session (every
+        session, until durable ingest is ported)."""
+        return None
+
+    def sync(self) -> Optional[int]:
+        """Force a write-ahead-log group commit and return the committed
+        sequence number: None for a non-durable session."""
+        return None
+
+    def flush_caches(self) -> Optional[dict]:
+        """Write warm-restart state to ``cache_dir`` now and return persist
+        counts: None without a ``cache_dir``."""
+        return None
+
     # -- introspection ---------------------------------------------------------
     @property
     def pending(self) -> int:

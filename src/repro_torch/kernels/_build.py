@@ -72,10 +72,12 @@ _SIGNATURES = {
     # col, bits, pops_in, mask, u, q, n, w, out, pops_out, stream
     "rt_dict_lookup_scan_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                   _P],
-    # a, bits, q, n, w, out, pops_out, stream
-    "rt_bitmap_inter_multi": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # bits, q, n, w, out, pops_out, stream
-    "rt_bitmap_union_reduce": [_P, _I, _I, _I, _P, _P, _P],
+    # host_rows (q (bits, pops) int64 address pairs), q, a, a_pops, n, w,
+    # out, pops_out, stream
+    "rt_bitmap_inter_multi": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+    # host_rows, q, n, w, accumulate, stack, stack_pops, out, pops_out,
+    # stream
+    "rt_bitmap_union_reduce": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # table, g, n, w, stream
     "rt_bitmap_setop_grouped": [_P, _I, _I, _I, _P],
 }

@@ -17,14 +17,18 @@ kernel per level).  Its plain version runs the per-op plain versions in
 order.
 
 The lockstep executor's two stacked set operations live in the same CUDA
-source: :func:`bitmap_inter_multi` (one set ANDed into Q stacked sets) and
-:func:`bitmap_union_reduce` (the OR of Q stacked sets), both with the
-fused popcount.  They replace jnp code of the reference, not TPU kernels.
+source: :func:`bitmap_inter_multi` (one set ANDed into each of Q sets) and
+:func:`bitmap_union_reduce` (the OR of Q sets, which also writes their
+stacked copy), both with the fused popcount.  Each takes its Q input sets
+as ``(bits, pops)`` pairs, which the kernel reads by pointer where they
+lie, so no ``torch.stack`` copy precedes it; the popcounts must be exact.
+They replace jnp code of the reference, not TPU kernels.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, ref
@@ -152,63 +156,117 @@ def bitmap_setop_grouped(levels: Sequence[Sequence[SetOp]]) -> None:
             base += 8 * _GROUPED_FIELDS * len(level)
 
 
-def bitmap_inter_multi_plain(a: torch.Tensor, bits: torch.Tensor):
-    out = bits & a[None]
+#: a stacked set operation's input: one set's bits i32[N, W] and its
+#: exact per-row popcounts i32[N]
+Row = Tuple[torch.Tensor, torch.Tensor]
+
+#: rows one stacked launch reads by pointer (csrc kMaxStackRows); a wider
+#: stack launches in chunks of this many rows, each counted as a launch
+MAX_STACK_ROWS = 128
+
+
+def _check_rows(rows: Sequence[Row], shape, device, name: str) -> None:
+    if not rows:
+        raise ValueError(f"{name}: needs at least one row")
+    for j, (bits, pops) in enumerate(rows):
+        _build.expect(bits, f"rows[{j}] bits", torch.int32, shape, device)
+        _build.expect(pops, f"rows[{j}] pops", torch.int32, shape[:1],
+                      device)
+
+
+def _row_pointers(rows: Sequence[Row]) -> np.ndarray:
+    """The host int64 array of (bits, pops) device addresses the C entry
+    copies into the launch's parameters."""
+    return np.array([p for bits, pops in rows
+                     for p in (bits.data_ptr(), pops.data_ptr())],
+                    dtype=np.int64)
+
+
+def bitmap_inter_multi_plain(a: torch.Tensor, a_pops: torch.Tensor,
+                             rows: Sequence[Row]):
+    out = torch.stack([bits for bits, _ in rows]) & a[None]
     return out, ref.popcount_ref(out)
 
 
-def bitmap_inter_multi(a: torch.Tensor, bits: torch.Tensor):
-    """One set ANDed into Q stacked sets, with the fused popcount.
+def bitmap_inter_multi(a: torch.Tensor, a_pops: torch.Tensor,
+                       rows: Sequence[Row]):
+    """One set ANDed into each of Q sets, with the fused popcount.
 
-    a i32[N, W]; bits i32[Q, N, W] -> (i32[Q, N, W], i32[Q, N]).  The
-    stacked form of K2 the lockstep atom-cache hit path uses (the
-    reference computes it in jnp, ``bits & a[None]``)."""
+    a i32[N, W] with its exact popcounts a_pops i32[N]; rows: Q pairs
+    (bits i32[N, W], exact popcounts i32[N]) -> (i32[Q, N, W], i32[Q, N]).
+    The stacked form of K2 the lockstep atom-cache hit path uses (the
+    reference computes it in jnp, ``bits & a[None]`` over a stack).  The
+    kernel reads the rows where they lie: no stacked copy is made."""
     if a.device.type == "cpu":
-        return bitmap_inter_multi_plain(a, bits)
+        return bitmap_inter_multi_plain(a, a_pops, rows)
     if a.device.type != "cuda":
         raise ValueError(f"bitmap_inter_multi: unsupported device {a.device}")
     n, w = a.shape
-    q = bits.shape[0]
     _build.expect(a, "a", torch.int32, (n, w), a.device)
-    _build.expect(bits, "bits", torch.int32, (q, n, w), a.device)
-    out = torch.empty_like(bits)
+    _build.expect(a_pops, "a_pops", torch.int32, (n,), a.device)
+    _check_rows(rows, (n, w), a.device, "bitmap_inter_multi")
+    q = len(rows)
+    out = torch.empty((q, n, w), dtype=torch.int32, device=a.device)
     pops = torch.empty((q, n), dtype=torch.int32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    lib = _build.lib()
     with torch.cuda.device(a.device):
-        rc = _build.lib().rt_bitmap_inter_multi(
-            a.data_ptr(), bits.data_ptr(), q, n, w, out.data_ptr(),
-            pops.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "bitmap_inter_multi")
-    _build.count_launch("bitmap_inter_multi", q)
+        for j0 in range(0, q, MAX_STACK_ROWS):
+            chunk = rows[j0: j0 + MAX_STACK_ROWS]
+            ptrs = _row_pointers(chunk)
+            rc = lib.rt_bitmap_inter_multi(
+                ptrs.ctypes.data, len(chunk), a.data_ptr(), a_pops.data_ptr(),
+                n, w, out[j0].data_ptr(), pops[j0].data_ptr(), stream)
+            _build.check(rc, "bitmap_inter_multi")
+            _build.count_launch("bitmap_inter_multi", len(chunk))
     return out, pops
 
 
-def bitmap_union_reduce_plain(bits: torch.Tensor):
-    out = bits[0]
-    for j in range(1, bits.shape[0]):
-        out = out | bits[j]
-    return out, ref.popcount_ref(out)
+def bitmap_union_reduce_plain(rows: Sequence[Row]):
+    stack = torch.stack([bits for bits, _ in rows])
+    out = stack[0].clone()
+    for j in range(1, stack.shape[0]):
+        out |= stack[j]
+    return (out, ref.popcount_ref(out), stack,
+            torch.stack([pops for _, pops in rows]))
 
 
-def bitmap_union_reduce(bits: torch.Tensor):
-    """OR of Q stacked sets, with the fused popcount.
+def bitmap_union_reduce(rows: Sequence[Row]):
+    """OR of Q sets, with the fused popcount, and the stacked copy of the
+    sets written in the same pass.
 
-    bits i32[Q, N, W] (Q >= 1) -> (i32[N, W], i32[N]).  The lockstep
-    union the reference computes in jnp (an OR chain over the stack)."""
-    if bits.device.type == "cpu":
-        return bitmap_union_reduce_plain(bits)
-    if bits.device.type != "cuda":
-        raise ValueError(f"bitmap_union_reduce: unsupported device "
-                         f"{bits.device}")
-    if bits.dim() != 3 or bits.shape[0] < 1:
-        raise ValueError("bits must be i32[Q, N, W] with Q >= 1")
-    q, n, w = bits.shape
-    _build.expect(bits, "bits", torch.int32, (q, n, w), bits.device)
-    out = torch.empty((n, w), dtype=torch.int32, device=bits.device)
-    pops = torch.empty(n, dtype=torch.int32, device=bits.device)
-    with torch.cuda.device(bits.device):
-        rc = _build.lib().rt_bitmap_union_reduce(
-            bits.data_ptr(), q, n, w, out.data_ptr(), pops.data_ptr(),
-            torch.cuda.current_stream(bits.device).cuda_stream)
-    _build.check(rc, "bitmap_union_reduce")
-    _build.count_launch("bitmap_union_reduce", q)
-    return out, pops
+    rows: Q >= 1 pairs (bits i32[N, W], exact popcounts i32[N]) -> (union
+    i32[N, W], its popcounts i32[N], the stack i32[Q, N, W], its popcounts
+    i32[Q, N]).  The lockstep union the reference computes in jnp (an OR
+    chain over the stack); the stack is what the Q-stacked scans (K5, K6)
+    and the zone blend read, so no separate stacked copy is made."""
+    if not rows:
+        raise ValueError("bitmap_union_reduce: needs at least one row")
+    dev = rows[0][0].device
+    if dev.type == "cpu":
+        return bitmap_union_reduce_plain(rows)
+    if dev.type != "cuda":
+        raise ValueError(f"bitmap_union_reduce: unsupported device {dev}")
+    shape = tuple(rows[0][0].shape)
+    if len(shape) != 2:
+        raise ValueError("bitmaps must be i32[N, W]")
+    _check_rows(rows, shape, dev, "bitmap_union_reduce")
+    n, w = shape
+    q = len(rows)
+    out = torch.empty((n, w), dtype=torch.int32, device=dev)
+    pops = torch.empty(n, dtype=torch.int32, device=dev)
+    stack = torch.empty((q, n, w), dtype=torch.int32, device=dev)
+    stack_pops = torch.empty((q, n), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        for j0 in range(0, q, MAX_STACK_ROWS):
+            chunk = rows[j0: j0 + MAX_STACK_ROWS]
+            ptrs = _row_pointers(chunk)
+            rc = lib.rt_bitmap_union_reduce(
+                ptrs.ctypes.data, len(chunk), n, w, int(j0 > 0),
+                stack[j0].data_ptr(), stack_pops[j0].data_ptr(),
+                out.data_ptr(), pops.data_ptr(), stream)
+            _build.check(rc, "bitmap_union_reduce")
+            _build.count_launch("bitmap_union_reduce", len(chunk))
+    return out, pops, stack, stack_pops

@@ -154,6 +154,18 @@ def dict_lookup_multi_ref(col: torch.Tensor, bits_in: torch.Tensor,
     return pack_u32(hit[None] & unpack_u32(bits_in))
 
 
+def bitmap_and_ref(a, b):
+    return a & b
+
+
+def bitmap_or_ref(a, b):
+    return a | b
+
+
+def bitmap_andnot_ref(a, b):
+    return a & ~b
+
+
 def popcount_ref(words: torch.Tensor) -> torch.Tensor:
     """int32[..., W] packed words -> int32 total popcount over the last
     axis."""

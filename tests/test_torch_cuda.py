@@ -6,6 +6,8 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+from collections import Counter
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -130,18 +132,39 @@ def _stacked(rng, q, n, w, dev):
     return bits, pops
 
 
+def _at_offset(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary (as a view into a larger buffer)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+def _set_rows(stack, pops, unaligned):
+    """The Q sets of ``stack`` as (bits, exact pops) pairs, each a view of
+    the stack, or with ``unaligned`` every other set a copy at an offset
+    that is not 16-byte aligned."""
+    return [(_at_offset(stack[j]) if unaligned and j % 2 else stack[j],
+             pops[j]) for j in range(stack.shape[0])]
+
+
 @pytest.mark.parametrize("n,b,q", [
     (n, b, q) for n, b in ((1, 256), (3, 1024), (7, 2048), (2, 32), (3, 96),
                            (5, 288))
-    for q in (1, 2, 8, 65)] + [(1024, 8192, 1), (1024, 8192, 8)])
+    for q in (1, 2, 8, 65)] + [(1024, 8192, 1), (1024, 8192, 8),
+                               (3, 96, 130), (7, 2048, 130)])
 def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
+    """K5 and K6 on Q stacked sets, and the stacked set operations on Q
+    sets passed by pointer: views of one stack or copies at unaligned
+    offsets, dead sets and blocks, a block of ``a`` dead, and Q above the
+    128 rows one launch takes (two launches)."""
     dev = cuda_device
     rng = np.random.default_rng(q * 1000 + n + b)
     w = b // 32
     col, _, _ = _inputs(rng, n, b, dev)
     bits, pops = _stacked(rng, q, n, w, dev)
     before = dict(LAUNCHES)
-    before_q = {k: v[q] for k, v in LAUNCHES_BY_Q.items()}
+    before_q = {k: dict(v) for k, v in LAUNCHES_BY_Q.items()}
     for op in range(6):
         for v in (0.0, 1e-45, 0.3, float("nan")):
             _equal(predicate_scan_multi(col, bits, pops, v, op),
@@ -156,20 +179,31 @@ def test_cuda_stacked_kernels_match_plain(cuda_device, n, b, q):
         _equal(dict_lookup_scan_multi(codes, bits, pops, mask),
                dict_lookup_scan_multi_plain(codes, bits, pops, mask))
     stack = bits.reshape(q, n, w)
+    exact = ref.popcount_ref(stack)
     a = stack[0].flip(0).contiguous()
-    _equal(bitmap_inter_multi(a, stack), bitmap_inter_multi_plain(a, stack))
-    _equal(bitmap_union_reduce(stack), bitmap_union_reduce_plain(stack))
+    if n > 1:
+        a[n // 2] = 0                                    # a dead block of a
+    a_pops = ref.popcount_ref(a)
+    for unaligned in (False, True):
+        rows = _set_rows(stack, exact, unaligned)
+        for x in (a, _at_offset(a)):
+            _equal(bitmap_inter_multi(x, a_pops, rows),
+                   bitmap_inter_multi_plain(x, a_pops, rows))
+        got = bitmap_union_reduce(rows)
+        _equal(got, bitmap_union_reduce_plain(rows))
+        _equal(got[2:], (stack, exact))            # the stack is the input
     torch.cuda.synchronize()
-    assert LAUNCHES["predicate_scan_multi"] == before[
-        "predicate_scan_multi"] + 24
-    assert LAUNCHES["dict_lookup_scan_multi"] == before[
-        "dict_lookup_scan_multi"] + 3
-    assert LAUNCHES["bitmap_inter_multi"] == before["bitmap_inter_multi"] + 1
-    assert LAUNCHES["bitmap_union_reduce"] == before[
-        "bitmap_union_reduce"] + 1
-    assert {k: v[q] - before_q[k] for k, v in LAUNCHES_BY_Q.items()} == {
-        "predicate_scan_multi": 24, "dict_lookup_scan_multi": 3,
-        "bitmap_inter_multi": 1, "bitmap_union_reduce": 1}
+    chunks = Counter(min(128, q - j) for j in range(0, q, 128))
+    set_ops = {"bitmap_inter_multi": 4, "bitmap_union_reduce": 2}
+    want = {"predicate_scan_multi": Counter({q: 24}),
+            "dict_lookup_scan_multi": Counter({q: 3}),
+            **{k: Counter({c: m * v for c, m in chunks.items()})
+               for k, v in set_ops.items()}}
+    for name, by_q in want.items():
+        assert LAUNCHES[name] - before[name] == sum(by_q.values())
+        got_q = Counter(LAUNCHES_BY_Q[name])
+        got_q.subtract(before_q[name])
+        assert +got_q == by_q, name
 
 
 @pytest.mark.parametrize("n,b", SHAPES)
@@ -268,6 +302,21 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         predicate_scan(flat[1:].view(2, 256), bits, pops, 0.0, 0)
     with pytest.raises(ValueError, match="aligned"):
         predicate_scan_multi(flat[1:].view(2, 256), bits, pops, 0.0, 0)
+    with pytest.raises(ValueError):
+        bitmap_inter_multi(bits, pops, [(bits, pops), (bits.cpu(), pops)])
+    with pytest.raises(ValueError):
+        bitmap_inter_multi(bits, pops, [(bits, pops[:1])])
+    with pytest.raises(TypeError):
+        bitmap_inter_multi(bits, pops, [(bits.long(), pops)])
+    with pytest.raises(ValueError):
+        bitmap_inter_multi(bits, pops, [])
+    with pytest.raises(ValueError):
+        bitmap_union_reduce([(bits, pops), (bits[:1], pops[:1])])
+    with pytest.raises(ValueError):
+        bitmap_union_reduce([(bits, pops), (bits.t().contiguous().t(),
+                                            pops)])
+    with pytest.raises(ValueError):
+        bitmap_union_reduce([])
     with pytest.raises(ValueError):
         bitmap_setop_grouped([[SetOp(bits, pops, bits, pops, bits[:1],
                                      pops, 0)]])

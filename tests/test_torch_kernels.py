@@ -144,7 +144,11 @@ def test_bitmap_setop_plain_matches_reference(n, w, opcode):
     np.testing.assert_array_equal(pops.numpy(), np.asarray(want_pops))
     ref_fn = [kref.bitmap_and_ref, kref.bitmap_or_ref,
               kref.bitmap_andnot_ref][opcode]
-    np.testing.assert_array_equal(_u32(out), np.asarray(ref_fn(a, b)))
+    port_fn = [tref.bitmap_and_ref, tref.bitmap_or_ref,
+               tref.bitmap_andnot_ref][opcode]
+    want_words = np.asarray(ref_fn(a, b))
+    np.testing.assert_array_equal(_u32(port_fn(_t(a), _t(b))), want_words)
+    np.testing.assert_array_equal(_u32(out), want_words)
 
 
 # -- K2 grouped: bitmap_setop_grouped -----------------------------------------
@@ -402,26 +406,41 @@ def test_dict_lookup_scan_multi_plain_matches_pallas_kernel(n, b, u):
 
 # -- the lockstep executor's stacked set operations ---------------------------
 
-@pytest.mark.parametrize("q,n,w", [(2, 1, 8), (3, 4, 32), (9, 5, 256)])
-def test_stacked_set_ops_match_reference(q, n, w):
+@pytest.mark.parametrize("q,n,w,dead", [
+    (2, 1, 8, False), (3, 4, 32, False), (9, 5, 256, False),
+    (1, 3, 8, False), (1, 4, 3, True), (5, 3, 9, True), (8, 6, 256, True),
+    (130, 2, 4, True)])
+def test_stacked_set_ops_match_reference(q, n, w, dead):
     """bitmap_inter_multi and bitmap_union_reduce against the reference's
-    jnp ``_inter_multi_impl`` / ``_union_impl`` (words and popcounts)."""
+    jnp ``_inter_multi_impl`` / ``_union_impl`` (words and popcounts), on
+    Q sets passed as (bits, exact popcounts) pairs; ``dead`` adds a dead
+    set, a block dead in every set and dead blocks in a third of the sets
+    (``a`` always has a dead block when N > 1).  The OR-reduce's stacked
+    copy must equal its inputs, popcounts included."""
     from repro.columnar.device import _inter_multi_impl, _union_impl
     from repro_torch.kernels.bitmap_ops import (bitmap_inter_multi,
                                                 bitmap_union_reduce)
-    rng = np.random.default_rng(q * 10 + w)
+    rng = np.random.default_rng(q * 10 + w + n)
     a = _bits(rng, n, w)
     bits = rng.integers(0, 2 ** 32, size=(q, n, w), dtype=np.uint32)
     bits[0, 0] = 0
+    if dead:
+        bits[q // 2] = 0                                 # a dead set
+        bits[:, n - 1] = 0                               # dead in every set
+        bits[1::3, 0] = 0
     pops = np.asarray(kref.popcount_ref(jnp.asarray(bits)))
-    out, out_pops = bitmap_inter_multi(_t(a), _t(bits))
+    a_pops = np.asarray(kref.popcount_ref(jnp.asarray(a)))
+    rows = [(_t(bits[j]), _t(pops[j])) for j in range(q)]
+    out, out_pops = bitmap_inter_multi(_t(a), _t(a_pops), rows)
     want, want_pops = _inter_multi_impl(jnp.asarray(a), jnp.asarray(bits))
     np.testing.assert_array_equal(_u32(out), np.asarray(want))
     np.testing.assert_array_equal(out_pops.numpy(), np.asarray(want_pops))
-    out, out_pops = bitmap_union_reduce(_t(bits))
+    out, out_pops, stack, stack_pops = bitmap_union_reduce(rows)
     want, want_pops = _union_impl(jnp.asarray(bits), jnp.asarray(pops))
     np.testing.assert_array_equal(_u32(out), np.asarray(want))
     np.testing.assert_array_equal(out_pops.numpy(), np.asarray(want_pops))
+    np.testing.assert_array_equal(_u32(stack), bits)
+    np.testing.assert_array_equal(stack_pops.numpy(), pops)
 
 
 # -- launch counters ----------------------------------------------------------

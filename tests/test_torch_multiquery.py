@@ -51,18 +51,31 @@ def _same_batch(ref_res, port_res):
     assert port_res.stats.op_observations == ref_res.stats.op_observations
 
 
+#: the stacked set operations, which take their Q sets as (bits, pops)
+#: pairs in their last argument
+ROW_WRAPPERS = ("bitmap_inter_multi", "bitmap_union_reduce")
+
+
 @pytest.fixture
 def calls(monkeypatch):
     """Counts of the port backend's calls into the stacked kernels' wrappers
-    (on CPU tensors they run the plain versions and launch nothing)."""
+    (on CPU tensors they run the plain versions and launch nothing).  A
+    stacked set operation must get its Q >= 2 sets as (bits i32[N, W],
+    pops i32[N]) pairs, never a stacked tensor."""
     counts = {}
     for name in ("predicate_scan_multi", "dict_lookup_scan_multi",
-                 "bitmap_inter_multi", "bitmap_union_reduce"):
+                 *ROW_WRAPPERS):
         fn = getattr(port_device, name)
         counts[name] = 0
 
         def spy(*args, _fn=fn, _name=name):
             counts[_name] += 1
+            if _name in ROW_WRAPPERS:
+                rows = args[-1]
+                assert len(rows) >= 2
+                for bits, pops in rows:
+                    assert bits.dim() == 2 and bits.dtype == torch.int32
+                    assert tuple(pops.shape) == tuple(bits.shape[:1])
             return _fn(*args)
         monkeypatch.setattr(port_device, name, spy)
     return counts
@@ -230,6 +243,38 @@ def test_udf_atoms_fall_back_in_lockstep_like_reference(forest):
     rq, pq = [tree(RC) for _ in range(3)], [tree(TC) for _ in range(3)]
     first, _ = _run_batches(forest, port_table, rq, pq)
     assert first.stats.host_fallbacks > 0
+
+
+def _delete_steps(extra):
+    """delete, append, delete, compact: each applied to both tables."""
+    return [lambda t: t.delete(np.arange(100, 1600)),
+            lambda t: t.append({k: v[:1500].copy()
+                                for k, v in extra.columns.items()}),
+            lambda t: t.delete(np.arange(5200, 5900)),
+            lambda t: t.compact()]
+
+
+@pytest.mark.parametrize("batched", [True, False])
+def test_deletes_in_sessions_match_reference(batched):
+    """Tombstone deletes between batches of a tape QuerySession, batched
+    (lockstep) and per query, on a 6,000-row Forest table through delete,
+    append, delete and compact: bitmaps, BatchStats counters and
+    op_observations equal the reference session's after every step."""
+    ref_table = R.make_forest_table(6000, n_dup=1, seed=7)
+    port_table = table_from_arrays(ref_table.columns)
+    extra = R.make_forest_table(3000, n_dup=1, seed=9)
+    rq, pq = _draw(R.random_query_suite(ref_table, 4, 8, 3, seed=5),
+                   T.random_query_suite(port_table, 4, 8, 3, seed=5),
+                   10, seed=6)
+    rs, ps = _sessions(ref_table, port_table, batched=batched)
+    _same_batch(rs.execute(rq), ps.execute(pq))
+    for step in _delete_steps(extra):
+        step(ref_table)
+        step(port_table)
+        got = ps.execute(pq)
+        _same_batch(rs.execute(rq), got)
+        assert port_table.n_records == ref_table.n_records
+    assert port_table.n_deleted == 0 and port_table.n_records == 5300
 
 
 def test_numpy_session_needs_the_cpu(forest):

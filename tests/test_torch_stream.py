@@ -190,6 +190,54 @@ def test_a_cuda_error_mid_drain_degrades_to_the_host():
     assert ps.stats.quarantined_queries == 0
 
 
+def test_non_durable_session_members_match_reference():
+    """durability, sync() and flush_caches() of a non-durable session
+    without a cache_dir give the reference's results (all None), before
+    and after a drain and after close."""
+    ref_table, port_table = _tables(2000, strings=False)
+    rs, ps = _streams(ref_table, port_table)
+    rq, pq = _queries(ref_table, port_table, 4, seed=3)
+    for when in ("fresh", "drained", "closed"):
+        if when == "drained":
+            _drain_both(rs, ps, rq, pq)
+        elif when == "closed":
+            rs.close()
+            ps.close()
+        for member in ("sync", "flush_caches"):
+            want = getattr(rs, member)()
+            assert want is None
+            assert getattr(ps, member)() is want
+        assert rs.durability is None and ps.durability is None
+
+
+def test_stream_deletes_match_reference():
+    """Deletes between drains of the default StreamSession, on a
+    6,000-row Forest table through delete, append, delete and compact:
+    every drain resolves the reference's bitmaps with the same batch
+    counters and op_observations, and the stream stats agree."""
+    ref_table, port_table = _tables(6000, strings=False)
+    extra = R.make_forest_table(3000, n_dup=1, seed=9)
+    rs, ps = _streams(ref_table, port_table)
+    rq, pq = _queries(ref_table, port_table, 10, seed=4)
+    steps = [lambda s: s.delete(np.arange(100, 1600)),
+             lambda s: s.append({k: v[:1500].copy()
+                                 for k, v in extra.columns.items()}),
+             lambda s: s.delete(np.arange(5200, 5900)),
+             lambda s: s.compact()]
+    for step in [None] + steps:
+        if step is not None:
+            assert step(ps) == step(rs)
+        a, b = _drain_both(rs, ps, rq, pq)
+        assert b.stats.host_syncs == a.stats.host_syncs == 1
+        assert b.stats.op_observations == a.stats.op_observations
+        assert b.stats.records_evaluated == a.stats.records_evaluated
+        assert b.stats.device_dispatches == a.stats.device_dispatches
+        assert b.stats.blocks_touched == a.stats.blocks_touched
+    _same_stats(rs, ps)
+    assert port_table.n_deleted == ref_table.n_deleted == 0
+    assert ps.stats.degraded_batches == 0
+
+
 def test_durable_and_warm_restart_are_not_yet_ported(tmp_path):
     _, port_table = _tables(2000, strings=False)
     cfg = T.StreamSession.DEFAULT_CONFIG.replace(device="cpu")
