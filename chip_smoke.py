@@ -24,7 +24,9 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
    held against its inputs;
    the grouped set operation at G = 1, 2, 65, 512 and in a two-level
    flush, timed at G = 1, 64, 512; the fused chain at K = 1, 2, 3, 5, 8,
-   9, checked and timed
+   9, checked and timed; the dictionary lookups (K4, and K6 with the
+   lockstep kernels) at U = 1, 2, 64 and 16384 (the mask past shared
+   memory) with NaN, infinities, 1e10 and 2^31 among the codes
 3. numeric tape at paper scale: a cold pass (each tape's program made and
    its CUDA graph captured) and warm passes (each query one graph replay,
    one host sync, one device program, no host fallback), the host calls
@@ -66,15 +68,16 @@ CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 
 ``python3 chip_smoke.py --compare SRC`` runs only what compares two trees
-on one card: K1's, K5's (Q = 8, 64), the fused chain's and K2's times, the
-stacked set operations as the tree's backend runs them (with the
-``torch.stack`` copies before them, where it makes them) at Q = 4, 8, 9,
-64, the numeric tape's warm breakdown (wall, plan and ``run_tape`` p50
-over the 32 paper queries), a lockstep batch (its walls, launches, a
-cProfile split of the cached batch and the device time of a batch with
-the atom cache off) and three stream drains, with digests of the bitmaps,
-with the package from ``SRC`` (a ``src`` directory of another
-checkout).
+on one card: K1's and K4's times (alone and in a graph), K5's and K6's
+(Q = 3, 8, 64), the fused chain's and K2's, the stacked set operations
+as the tree's backend runs them (with the ``torch.stack`` copies before
+them, where it makes them) at Q = 4, 8, 9, 64, the numeric tape's warm
+breakdown (wall, plan and ``run_tape`` p50 over the 32 paper queries), a
+lockstep batch (its walls, launches, a cProfile split of the cached
+batch and the device time of a batch with the atom cache off), three
+stream drains, the string tapes and a lockstep strings batch, with
+digests of the bitmaps, with the package from ``SRC`` (a ``src``
+directory of another checkout).
 """
 from __future__ import annotations
 
@@ -176,6 +179,15 @@ HEADLINE_G = 64
 #: generic path); K = 3 is the row's headline, as in earlier runs
 CHAIN_KS = (1, 2, 3, 5, 8, 9)
 TIMED_KS = CHAIN_KS
+#: mask words K4 and K6 are checked at (16384: past 48 KiB of shared
+#: memory, the mask is read from global memory), and codes at the ends of
+#: the f32 -> int32 conversion placed among their codes
+LOOKUP_US = (1, 2, 64, 16384)
+LOOKUP_EDGES = [float("nan"), -0.5, 3.75, float("inf"), float("-inf"),
+                1e10, -1e10, 2.0 ** 31]
+#: Q at which --compare times K5 and K6 (the lockstep strings path's K6
+#: median, the stream's, and 64)
+COMPARE_QS = (3, 8, 64)
 #: paths whose tapes run as CUDA-graph replays
 GRAPH_PATHS = ("numeric", "strings", "zones")
 #: backend counters the lockstep paths' launch accounting reads
@@ -359,7 +371,6 @@ def max_err(got, want) -> int:
 
 
 def phase_kernels(dev, shapes):
-    import numpy as np
     import torch
 
     from repro_torch.kernels.bitmap_ops import (bitmap_setop,
@@ -439,14 +450,8 @@ def phase_kernels(dev, shapes):
                         "device values")
         for case in grouped_cases(rng, bits, dev):
             cmp(*case)
-        for u in (1, 2, 64):
-            codes = rng.integers(-40, 32 * u + 40, size=(n, b))
-            codes = codes.astype(np.float32)
-            codes.reshape(-1)[:3] = [np.nan, -0.5, 3.75]
-            cd = torch.from_numpy(codes).to(dev)
-            mask = torch.from_numpy(rng.integers(0, 2 ** 32, size=u,
-                                                 dtype=np.uint32)
-                                    .view(np.int32)).to(dev)
+        for u in LOOKUP_US:
+            cd, mask = lookup_inputs(rng, n, b, u, dev)
             cmp("dict_lookup_scan", dict_lookup_scan(cd, bits, pops, mask),
                 dict_lookup_scan_plain(cd, bits, pops, mask),
                 f"n={n} u={u}")
@@ -459,6 +464,21 @@ def phase_kernels(dev, shapes):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return errs, cases
+
+
+def lookup_inputs(rng, n, b, u, dev):
+    """A code column (misses on both sides of [0, 32 * U), LOOKUP_EDGES at
+    the start of the first and the last block) and a random mask of U
+    words that holds code 0 (what NaN becomes)."""
+    import numpy as np
+    import torch
+    codes = rng.integers(-40, 32 * u + 40, size=(n, b)).astype(np.float32)
+    codes[0, :len(LOOKUP_EDGES)] = LOOKUP_EDGES
+    codes[-1, :len(LOOKUP_EDGES)] = LOOKUP_EDGES
+    mask = rng.integers(0, 2 ** 32, size=u, dtype=np.uint32)
+    mask[0] |= np.uint32(1)
+    return (torch.from_numpy(codes).to(dev),
+            torch.from_numpy(mask.view(np.int32)).to(dev))
 
 
 def grouped_cases(rng, bits, dev):
@@ -543,12 +563,9 @@ def stacked_inputs(rng, n, w, q, dev):
 
 
 def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
-                  values=(0.0, 1e-45, 0.25, float("nan")), us=(1, 2, 64)):
+                  values=(0.0, 1e-45, 0.25, float("nan")), us=LOOKUP_US):
     """(name, kernel output, plain output, what) for K5 and K6 at one
     shape and group size Q."""
-    import numpy as np
-    import torch
-
     from repro_torch.kernels.dict_lookup import (dict_lookup_scan_multi,
                                                  dict_lookup_scan_multi_plain)
     from repro_torch.kernels.predicate_scan import (
@@ -563,13 +580,7 @@ def stacked_cases(rng, col, n, b, q, dev, opcodes=range(6),
                    predicate_scan_multi_plain(col, bits, pops, v, op),
                    f"{what} op={op} v={v}")
     for u in us:
-        codes = rng.integers(-40, 32 * u + 40, size=(n, b))
-        codes = codes.astype(np.float32)
-        codes.reshape(-1)[:3] = [np.nan, -0.5, 3.75]
-        cd = torch.from_numpy(codes).to(dev)
-        mask = torch.from_numpy(rng.integers(0, 2 ** 32, size=u,
-                                             dtype=np.uint32)
-                                .view(np.int32)).to(dev)
+        cd, mask = lookup_inputs(rng, n, b, u, dev)
         yield ("dict_lookup_scan_multi",
                dict_lookup_scan_multi(cd, bits, pops, mask),
                dict_lookup_scan_multi_plain(cd, bits, pops, mask),
@@ -896,16 +907,15 @@ def setop_graph_us(dev):
     return {"dense": graph_us(dense), "half_dead": graph_us(half_dead)}
 
 
-def graph_timings(dev):
-    """The tape path's kernels as the tape's graph runs them, per launch
-    (us), at the main shape on dense random inputs: K2 as chains of
-    dependent set operations (:func:`setop_graph_us`); K1, K3 (K = 3) with
-    device constants and K4 GRAPH_LAUNCHES times, each launch on columns
-    of its own, so every launch reads its columns from HBM as a tape's
-    ops do (a 32 MiB column left in the 50 MB L2 would not be), while the
-    input set, as a tape's sets between its ops, stays in the L2; and an
-    empty kernel (``torch.cuda._sleep(0)``) in a graph and alone, the
-    fixed part of a launch."""
+def scan_graph_us(dev, names=("predicate_scan", "fused_chain_scan",
+                               "dict_lookup_scan")):
+    """The tape's scan kernels named in ``names`` (K1, K3 at K = 3 with
+    device constants, K4 at U = 1) as the tape's graph runs them, per
+    launch (us), at the main shape on dense random inputs:
+    GRAPH_LAUNCHES launches, each on columns of its own, so every launch
+    reads its columns from HBM as a tape's ops do (a 32 MiB column left in
+    the 50 MB L2 would not be), while the input set, as a tape's sets
+    between its ops, stays in the L2."""
     import torch
 
     from repro_torch.kernels import ref
@@ -913,9 +923,8 @@ def graph_timings(dev):
     from repro_torch.kernels.fused_chain import fused_chain_scan
     from repro_torch.kernels.predicate_scan import predicate_scan
     n, b = MAIN_SHAPE
-    w = b // 32
     gen = torch.Generator(device=dev).manual_seed(10)
-    x0 = torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
+    x0 = torch.randint(-2 ** 31, 2 ** 31, (n, b // 32), generator=gen,
                        dtype=torch.int32, device=dev)
     x0_pops = ref.popcount_ref(x0)
     mask = torch.tensor([0x5A5], dtype=torch.int32, device=dev)
@@ -936,23 +945,36 @@ def graph_timings(dev):
         cols.clear()
         torch.cuda.empty_cache()
         return us
-    k2 = setop_graph_us(dev)
-    out = {
-        "bitmap_setop": k2["dense"],
-        "bitmap_setop half_dead": k2["half_dead"],
-        "predicate_scan": per_launch(
+    runs = {
+        "predicate_scan": lambda: per_launch(
             lambda c: predicate_scan(c, x0, x0_pops, vals[0], 0),
             columns(GRAPH_LAUNCHES)),
-        "fused_chain_scan": per_launch(
+        "fused_chain_scan": lambda: per_launch(
             lambda c: fused_chain_scan(c, x0, x0_pops, vals, [0, 2, 3],
                                        True),
             [columns(3) for _ in range(GRAPH_LAUNCHES)]),
-        "dict_lookup_scan": per_launch(
+        "dict_lookup_scan": lambda: per_launch(
             lambda c: dict_lookup_scan(c, x0, x0_pops, mask),
             columns(GRAPH_LAUNCHES, codes=True)),
-        "empty kernel": graph_us(
-            lambda: [torch.cuda._sleep(0) for _ in range(GRAPH_LAUNCHES)]),
     }
+    return {name: runs[name]() for name in names}
+
+
+def graph_timings(dev):
+    """The tape path's kernels as the tape's graph runs them, per launch
+    (us), at the main shape on dense random inputs: K2 as chains of
+    dependent set operations (:func:`setop_graph_us`); K1, K3 and K4 as
+    :func:`scan_graph_us` runs them; and an empty kernel
+    (``torch.cuda._sleep(0)``) in a graph and alone, the fixed part of a
+    launch."""
+    import torch
+    k2 = setop_graph_us(dev)
+    out = {"bitmap_setop": k2["dense"],
+           "bitmap_setop half_dead": k2["half_dead"],
+           **scan_graph_us(dev),
+           "empty kernel": graph_us(
+               lambda: [torch.cuda._sleep(0)
+                        for _ in range(GRAPH_LAUNCHES)])}
     empty = {"ms": gpu_ms(lambda: torch.cuda._sleep(0)),
              "ms_clean_l2": gpu_ms(lambda: torch.cuda._sleep(0), clean=True)}
     return out, empty
@@ -2041,11 +2063,14 @@ def smi_line() -> str:
 
 
 def main_compare(src: Path) -> int:
-    """K1's time, K5's at TIMED_QS, the fused chain's at TIMED_KS and a
-    64-query lockstep batch (first and cached walls, launches and peak
-    memory, then a cProfile split of a cached batch) with the package
-    found under ``src``.  The bitmaps' digest lets two trees' runs be held
-    against each other."""
+    """K1's and K4's times (alone, both flushes, and in a graph), K5's
+    and K6's at COMPARE_QS, the fused chain's at TIMED_KS, the set
+    operations', the numeric tape's warm breakdown, a 64-query lockstep
+    batch (first and cached walls, launches and peak memory, then a
+    cProfile split of a cached batch), three stream drains and the
+    strings paths (:func:`strings_digests`) with the package found under
+    ``src``.  The bitmaps' digests let two trees' runs be held against
+    each other."""
     import hashlib
 
     import numpy as np
@@ -2058,12 +2083,17 @@ def main_compare(src: Path) -> int:
     log(f"compare: the package under {src}")
     log(smi_line())
     _build.lib()
-    k1 = kernel_timings(dev, only=("predicate_scan",))["predicate_scan"]
-    log_timing("predicate_scan", k1)
-    k5 = stacked_timings(dev, TIMED_QS,
-                         only=("predicate_scan_multi",))["predicate_scan_multi"]
-    for q, t in k5.items():
-        log_timing(f"predicate_scan_multi Q={q}", t)
+    scans = kernel_timings(dev, only=("predicate_scan", "dict_lookup_scan"))
+    for name, t in scans.items():
+        log_timing(name, t)
+    in_graph = scan_graph_us(dev, ("predicate_scan", "dict_lookup_scan"))
+    log("  in a CUDA graph, us per launch: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in in_graph.items()))
+    stacked = stacked_timings(dev, COMPARE_QS, only=(
+        "predicate_scan_multi", "dict_lookup_scan_multi"))
+    for name, by_q in stacked.items():
+        for q, t in by_q.items():
+            log_timing(f"{name} Q={q}", t)
     chain = chain_timings(dev)
     for k, t in chain.items():
         log_timing(f"fused_chain_scan K={k}", t)
@@ -2115,14 +2145,18 @@ def main_compare(src: Path) -> int:
     log(f"  lockstep batch, atom cache off, profiled: device time "
         f"{off_dev_ms:.3f} ms of {off_wall:.3f} ms wall")
     stream = stream_digest(table, trees)
-    log(json.dumps({"compare": str(src), "predicate_scan_ms": k1["ms"],
-        "predicate_scan_multi_ms": {str(q): t["ms"] for q, t in k5.items()},
-        "chain_ms": {str(k): t["ms"] for k, t in chain.items()},
-        "clean_l2_ms": {"predicate_scan": k1["ms_clean_l2"], **{
-            f"predicate_scan_multi Q={q}": t["ms_clean_l2"]
-            for q, t in k5.items()}, **{
-            f"fused_chain_scan K={k}": t["ms_clean_l2"]
-            for k, t in chain.items()}}, "runs": runs,
+    del table, paper, trees, batch, sess, res, off
+    torch.cuda.empty_cache()
+    strings = strings_digests()
+    # kernel times as [ms (L2 flushed by zeroing), ms_clean_l2]
+    log(json.dumps({"compare": str(src),
+        "scan_ms": {k: [t["ms"], t["ms_clean_l2"]] for k, t in scans.items()},
+        "scan_graph_us": in_graph,
+        "stacked_ms": {k: {str(q): [t["ms"], t["ms_clean_l2"]]
+                           for q, t in v.items()}
+                       for k, v in stacked.items()},
+        "chain_ms": {str(k): [t["ms"], t["ms_clean_l2"]]
+                     for k, t in chain.items()}, "runs": runs,
         "bitmap_setop_ms": {v: [k2[v]["ms"], k2[v]["ms_clean_l2"]]
                             for v in ("distinct", "a_is_b", "half_dead")},
         "bitmap_setop_graph_us": k2["graph_us"],
@@ -2134,8 +2168,52 @@ def main_compare(src: Path) -> int:
                              if isinstance(v, dict) else v
                              for k, v in pairs.items()},
         "cache_off_device_ms": off_dev_ms, "cache_off_wall_ms": off_wall,
-        "stream": stream}))
+        "stream": stream, "strings": strings}))
     return 0
+
+
+def strings_digests():
+    """For --compare: the strings table and trees of phase 4 (the 8 string
+    trees and the fragmented tree on 5.8 M rows), each tree once cold and
+    once warm on the tape (the K4 path; the warm result must equal the
+    cold one), and the lockstep strings batch of phase 8 (the K6 path):
+    the sha256 of each path's bitmaps and the launches of K4 and K6 on
+    it."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch import make_forest_table, random_query_suite
+    from repro_torch.columnar import ExecConfig, QuerySession
+    from repro_torch.kernels import LAUNCHES
+    table = make_forest_table(5_800_000, n_dup=1, seed=7, strings=True)
+    trees = random_query_suite(table, 8, 10, 3, seed=1)
+    trees.append(fragmented_tree(table))
+    tr = Tracker()
+    k4 = LAUNCHES["dict_lookup_scan"]
+    cold = [tr.run(tree, table) for tree in trees]
+    for i, tree in enumerate(trees):
+        check(np.array_equal(tr.run(tree, table), cold[i]),
+              f"warm string query {i} differs from its cold run")
+    k4 = LAUNCHES["dict_lookup_scan"] - k4
+    tapes = hashlib.sha256(b"".join(r.tobytes() for r in cold)).hexdigest()
+    rng = np.random.default_rng(1)
+    pick = [int(rng.integers(len(trees) - 1)) for _ in range(30)]
+    batch = [trees[i] for i in pick + [len(trees) - 1] * 2]
+    sess = QuerySession(table, config=ExecConfig(
+        planner="deepfish", engine="tape", batched=True))
+    upload_columns(sess, batch)
+    k6 = LAUNCHES["dict_lookup_scan_multi"]
+    res = sess.execute(batch)
+    k6 = LAUNCHES["dict_lookup_scan_multi"] - k6
+    lock = hashlib.sha256(b"".join(b.tobytes() for b in res.bitmaps))
+    out = {"tapes_sha256": tapes, "dict_lookup_scan_launches": k4,
+           "lockstep_sha256": lock.hexdigest(),
+           "dict_lookup_scan_multi_launches": k6}
+    log(f"  strings: {len(trees)} tapes cold and warm, {k4} K4 launches, "
+        f"bitmaps sha256 {tapes}; lockstep strings batch of {len(batch)}, "
+        f"{k6} K6 launches, bitmaps sha256 {out['lockstep_sha256']}")
+    return out
 
 
 def stream_digest(table, trees):

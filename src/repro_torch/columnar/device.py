@@ -36,9 +36,10 @@ versions eagerly over the same buffers (no graph); nothing falls back from
 the card to the CPU, and a capture or replay that fails raises.
 
 Layout: columns upload once per backend, **record-major** ``f32[N, B]``
-(row n is block n), so a warp reads 32 consecutive records and
-``__ballot_sync`` yields a packed word whose bit i is record ``w*32+i`` —
-the reference bitmap layout.  The block count is padded to a power of two
+(row n is block n), so word w's 32 records are 128 consecutive bytes,
+which the kernels' compare-and-pack step loads as 8 ``float4`` and packs
+into a word whose bit i is record ``w*32+i`` — the reference bitmap
+layout.  The block count is padded to a power of two
 as in the reference: padded blocks carry zero bitmaps (popcount 0, so the
 kernels skip them) and zero column values.
 

@@ -8,13 +8,13 @@
 //                       held as int32 bit patterns).
 //   pops    i32[N]      per-block popcount of a bitmap.
 //
-// The compare-and-pack step (pack_words32, below) is shared by K1, K3 and
-// K5: a warp owns 32 words of a row, each lane loads 4 records as one
-// float4 (a 512-byte warp load covers 4 words), and the 8 lanes of a word
-// OR their 4-bit nibbles into it by shuffles.  Word w of a block starts
-// at byte 128 * w of its row, so the column must be 16-byte aligned (the
-// wrappers check).  K4 and K6 still give a warp one word at a time (lane i
-// reads record w * 32 + i, and __ballot_sync returns the packed word).
+// The compare-and-pack step (pack_words32, below) is shared by every scan
+// kernel, K1, K3 and K5 with a comparison and K4 and K6 with a code test:
+// a warp owns 32 words of a row, each lane loads 4 records as one float4
+// (a 512-byte warp load covers 4 words), and the 8 lanes of a word OR
+// their 4-bit nibbles into it by shuffles.  Word w of a block starts at
+// byte 128 * w of its row, so the column must be 16-byte aligned (the
+// wrappers check).
 //
 // Built without --use_fast_math / -ftz: comparisons against denormals
 // keep their IEEE meaning, and NaN compares false except under NE.
@@ -122,7 +122,7 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// A live column block n (K1, K3): out row n = bits row n ∧ the hits that
+// A live column block n (K1, K3, K4): out row n = bits row n ∧ the hits that
 // ``nib`` computes (see pack_words32), and its popcount into *pop_dst.
 // Each warp reads 32 input words with one coalesced load and shuffles
 // each to the lanes that need it.  Every thread of the block must call it.

@@ -3,15 +3,22 @@ Codes < 0 or >= 32·U miss; the hits are then ∧ D.  Also returns the
 output's per-block popcount.
 
 Replaces the TPU kernel ``src/repro/kernels/dict_lookup.py``,
-``dict_lookup_scan``.  The CUDA kernel is ``csrc/dict_lookup.cu`` (bound:
-bytes, the live blocks' code-column reads); the mask sits in shared
-memory and is indexed directly instead of the reference's O(U) word loop.
-CPU tensors run :func:`dict_lookup_scan_plain`; CUDA tensors launch the
-kernel or raise.
+``dict_lookup_scan``.  The CUDA kernel is ``csrc/dict_lookup.cu``; its
+header states the bound (bytes: the live blocks' code-column reads, as
+K1's) and the design: K1's compare-and-pack step of ``csrc/common.cuh``
+(16-byte code loads, a warp load covering 4 words; dead blocks and zero
+words skip their column reads) with a code test in place of the
+comparison, the mask staged in shared memory and indexed directly
+instead of the reference's O(U) word loop.
 
 K6 ``dict_lookup_scan_multi`` is the Q-stacked form (replacing the TPU
-kernel of the same name in the same file), in the same CUDA source: one
-thread block per code block tests the codes once for all Q rows.
+kernel of the same name in the same file), in the same CUDA source: K5's
+two phases with the code test, one thread block per code block computing
+the hit words once into shared memory and ANDing them into each of the Q
+rows.  Both need the column 16-byte aligned.
+
+CPU tensors run the plain versions; CUDA tensors launch the kernel or
+raise.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ def dict_lookup_scan(col: torch.Tensor, bits: torch.Tensor,
     if u < 1:
         raise ValueError("mask_words must be a non-empty 1-D tensor")
     _build.expect(col, "col", torch.float32, (n, 32 * w), dev)
+    _build.expect_aligned16(col, "col")
     _build.expect(bits, "bits", torch.int32, (n, w), dev)
     _build.expect(pops, "pops", torch.int32, (n,), dev)
     _build.expect(mask_words, "mask_words", torch.int32, (u,), dev)
@@ -93,6 +101,7 @@ def dict_lookup_scan_multi(col: torch.Tensor, bits: torch.Tensor,
         raise ValueError("mask_words must be a non-empty 1-D tensor")
     _build.expect_shared_words(w, "dict_lookup_scan_multi")
     _build.expect(col, "col", torch.float32, (n, 32 * w), dev)
+    _build.expect_aligned16(col, "col")
     _build.expect(bits, "bits", torch.int32, (qn, w), dev)
     _build.expect(pops, "pops", torch.int32, (qn,), dev)
     _build.expect(mask_words, "mask_words", torch.int32, (u,), dev)

@@ -114,6 +114,73 @@ def test_cuda_kernels_match_plain(cuda_device, n, b):
     assert LAUNCHES["dict_lookup_scan"] == before["dict_lookup_scan"] + 3
 
 
+# codes at the ends of the f32 -> int32 conversion (NaN is code 0; the
+# rest saturate, or truncate toward zero)
+EDGE_CODES = [np.nan, -0.5, 3.75, np.inf, -np.inf, 1e10, -1e10, 2.0 ** 31,
+              31.9, -0.9]
+
+
+def _lookup(rng, n, b, u, dev):
+    """A code column with misses on both sides of [0, 32*U), EDGE_CODES at
+    the start of block 0 and of the last block, and a mask of U words
+    that holds code 0."""
+    codes = rng.integers(-40, 32 * u + 40, size=(n, b)).astype(np.float32)
+    codes[0, :len(EDGE_CODES)] = EDGE_CODES
+    codes[-1, :len(EDGE_CODES)] = EDGE_CODES
+    mask = rng.integers(0, 2 ** 32, size=u, dtype=np.uint32)
+    mask[0] |= np.uint32(1)
+    return (torch.from_numpy(codes).to(dev),
+            torch.from_numpy(mask.view(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("w", [1, 5, 8, 256])
+@pytest.mark.parametrize("u", [1, 2, 64, 16384])
+def test_cuda_dict_lookup_matches_plain(cuda_device, w, u):
+    """K4 at W = 1, 5, 8 and 256 words a block and U = 1, 2, 64 and 16384
+    mask words (16384 words are past the 48 KiB of shared memory: the
+    mask is read from global memory), on the conversion's edge cases,
+    with a dead block, a masked block (bits set, popcount 0), zero words
+    and an all-ones word; and a column of dead blocks only."""
+    dev = cuda_device
+    rng = np.random.default_rng(w * 100 + u)
+    n, b = 7, 32 * w
+    _, bits, pops = _inputs(rng, n, b, dev)
+    bits[0, 0] = -1                              # under the edge codes
+    bits[n - 1, 0] = -1
+    pops = torch.where(pops > 0, ref.popcount_ref(bits), 0)
+    codes, mask = _lookup(rng, n, b, u, dev)
+    before = LAUNCHES["dict_lookup_scan"]
+    _equal(dict_lookup_scan(codes, bits, pops, mask),
+           dict_lookup_scan_plain(codes, bits, pops, mask))
+    zero = torch.zeros_like(pops)
+    _equal(dict_lookup_scan(codes, bits, zero, mask),
+           dict_lookup_scan_plain(codes, bits, zero, mask))
+    torch.cuda.synchronize()
+    assert LAUNCHES["dict_lookup_scan"] == before + 2
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 65, 129])
+@pytest.mark.parametrize("w", [1, 5, 256])
+def test_cuda_dict_lookup_multi_matches_plain(cuda_device, q, w):
+    """K6 at Q = 1, 3, 8, 65 and 129 and W = 1, 5 and 256, U = 1, 64 and
+    16384 (past the shared memory: the mask read from global memory), on
+    the conversion's edge cases, dead and masked rows, a block dead in
+    every row, zero words; one launch per call."""
+    dev = cuda_device
+    rng = np.random.default_rng(q * 10 + w)
+    n, b = 5, 32 * w
+    bits, pops = _stacked(rng, q, n, w, dev)
+    bits[0] = -1                           # set 0, block 0: every bit
+    pops[0] = 32 * w
+    for u in (1, 64, 16384):
+        codes, mask = _lookup(rng, n, b, u, dev)
+        before = LAUNCHES["dict_lookup_scan_multi"]
+        _equal(dict_lookup_scan_multi(codes, bits, pops, mask),
+               dict_lookup_scan_multi_plain(codes, bits, pops, mask))
+        assert LAUNCHES["dict_lookup_scan_multi"] == before + 1
+    torch.cuda.synchronize()
+
+
 def _stacked(rng, q, n, w, dev):
     """Q stacked bitmaps i32[Q*N, W] with dead rows (all-zero bits), masked
     rows (bits set, popcount given as 0), zero words, one block dead in
@@ -302,6 +369,11 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         predicate_scan(flat[1:].view(2, 256), bits, pops, 0.0, 0)
     with pytest.raises(ValueError, match="aligned"):
         predicate_scan_multi(flat[1:].view(2, 256), bits, pops, 0.0, 0)
+    mask = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        dict_lookup_scan(flat[1:].view(2, 256), bits, pops, mask)
+    with pytest.raises(ValueError, match="aligned"):
+        dict_lookup_scan_multi(flat[1:].view(2, 256), bits, pops, mask)
     with pytest.raises(ValueError):
         bitmap_inter_multi(bits, pops, [(bits, pops), (bits.cpu(), pops)])
     with pytest.raises(ValueError):

@@ -281,9 +281,29 @@ def test_fused_chain_plain_matches_reference(n, b, k, conj):
 
 # -- K4 dict_lookup_scan ------------------------------------------------------
 
-@pytest.mark.parametrize("n,b,u", [(1, 256, 1), (3, 1024, 2), (4, 2048, 64),
-                                   (2, 8192, 2)])
-def test_dict_lookup_plain_matches_reference(n, b, u):
+# (n, b, u, edges): ``edges`` puts the conversion's edge cases among the
+# codes (:data:`EDGE_CODES`)
+LOOKUP_CASES = [(1, 256, 1, False), (3, 1024, 2, False),
+                (4, 2048, 64, False), (2, 8192, 2, False),
+                (1, 256, 1, True), (3, 96, 33, True), (2, 1024, 2, True),
+                (5, 288, 1, True)]
+LOOKUP_IDS = [f"{n}-{b}-{u}" + ("-edges" if e else "")
+              for n, b, u, e in LOOKUP_CASES]
+# f32 codes at the ends of the f32 -> int32 conversion: NaN (code 0),
+# saturating infinities and magnitudes, 2^31 (saturates to 2^31 - 1) and
+# truncation toward zero
+EDGE_CODES = [np.nan, np.inf, -np.inf, 1e10, -1e10, 2.0 ** 31, 31.9, -0.9]
+
+
+def _put_edges(col, mask):
+    """EDGE_CODES after the first 3 codes of block 0, and code 0 (what
+    NaN and -0.9 become) in the mask."""
+    col.reshape(-1)[3:3 + len(EDGE_CODES)] = EDGE_CODES
+    mask[0] |= np.uint32(1)
+
+
+@pytest.mark.parametrize("n,b,u,edges", LOOKUP_CASES, ids=LOOKUP_IDS)
+def test_dict_lookup_plain_matches_reference(n, b, u, edges):
     """Masks of U words, with negative codes and codes >= 32*U (misses)."""
     rng = np.random.default_rng(n * 100 + u)
     col = rng.integers(-40, 32 * u + 40, size=(n, b)).astype(np.float32)
@@ -291,6 +311,9 @@ def test_dict_lookup_plain_matches_reference(n, b, u):
     bits = _bits(rng, n, b // 32)
     mask = rng.integers(0, 2 ** 32, size=u, dtype=np.uint32)
     mask[0] |= np.uint32(1 << 31)
+    if edges:
+        _put_edges(col, mask)
+        bits[0, 0] = np.uint32(0xFFFFFFFF)          # under the edge codes
     got = _u32(tops.dict_lookup_blocks(_t(col), _t(bits), _t(mask)))
     want = np.asarray(kref.dict_lookup_ref(
         jnp.asarray(col), jnp.asarray(bits), jnp.asarray(mask)))
@@ -375,9 +398,8 @@ def test_predicate_blocks_multi_matches_reference(q, opcode):
     np.testing.assert_array_equal(got, pallas)
 
 
-@pytest.mark.parametrize("n,b,u", [(1, 256, 1), (3, 1024, 2), (4, 2048, 64),
-                                   (2, 8192, 2)])
-def test_dict_lookup_scan_multi_plain_matches_pallas_kernel(n, b, u):
+@pytest.mark.parametrize("n,b,u,edges", LOOKUP_CASES, ids=LOOKUP_IDS)
+def test_dict_lookup_scan_multi_plain_matches_pallas_kernel(n, b, u, edges):
     from repro.kernels.dict_lookup import dict_lookup_scan_multi as ref_scan
     from repro_torch.kernels.dict_lookup import dict_lookup_scan_multi
     rng = np.random.default_rng(n * 100 + u + 3)
@@ -387,6 +409,10 @@ def test_dict_lookup_scan_multi_plain_matches_pallas_kernel(n, b, u):
     bits, pops = _stacked_bits(rng, q, n, w)
     mask = rng.integers(0, 2 ** 32, size=u, dtype=np.uint32)
     mask[0] |= np.uint32(1 << 31)
+    if edges:
+        _put_edges(col, mask)
+        bits[0, 0] = np.uint32(0xFFFFFFFF)          # set 0, block 0
+        pops[0] = np.unpackbits(bits[0].view(np.uint8)).sum()
     out, out_pops = dict_lookup_scan_multi(_t(col), _t(bits), _t(pops),
                                            _t(mask))
     col_bm = col.reshape(n, w, 32).transpose(0, 2, 1)
