@@ -53,8 +53,22 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
    drain of 64 queries; one host sync per drain, uploads within the dirty
    tail blocks, cached atoms spliced, nothing degraded to the host; the
    profiled drain's kernels held against the counts as in phase 8
+10. a durable StreamSession on that table (directories under
+   ``build/smoke_durable``, deleted at the end): attach (the create
+   record's bytes and time), 3 rounds of a 2 % append and a drain beside a
+   non-durable twin (one host sync each, the commit's ms, both equal to
+   the numpy oracle), a snapshot, close; a cold and a warm restart, each a
+   fresh process (``--child restart``): recovery counters, the first
+   drain's plan and tape hits and CUDA-graph captures, the 64 queries'
+   digest equal to the one before close, no new capture after an append
+   inside the block bucket; a child SIGKILLed by a timer inside its drain
+   (``--child kill``), recovered here at or past every acknowledged
+   sequence, its appended rows intact, a drain equal to the oracle with
+   one host sync; ``/healthz`` and ``/metrics`` of the recovered session;
+   ``python -m repro_torch.launch.serve --stream --durable`` twice (the
+   second recovers and warms)
 
-Each path of phases 3-6, 8 and 9 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-10 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -77,7 +91,8 @@ lockstep batch (its walls, launches, a cProfile split of the cached
 batch and the device time of a batch with the atom cache off), three
 stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
-directory of another checkout).
+directory of another checkout).  ``--child MODE ARGS`` is phase 10's
+child process, started by the script itself.
 """
 from __future__ import annotations
 
@@ -155,6 +170,17 @@ PATH_KERNELS = {
     # bitmap_setop: extend_set's OR of the appended rows, one per cached atom
     "stream": ("predicate_scan_multi", "bitmap_setop_grouped", "bitmap_setop",
                "bitmap_union_reduce"),
+    # phase 10: the durable stream's append drains, its non-durable
+    # twin's, the restart children's per-query tapes, and the drain of the
+    # table recovered after kill -9
+    "durable": ("predicate_scan_multi", "bitmap_setop_grouped",
+                "bitmap_setop", "bitmap_union_reduce"),
+    "durable_twin": ("predicate_scan_multi", "bitmap_setop_grouped",
+                     "bitmap_setop", "bitmap_union_reduce"),
+    "cold_restart": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
+    "warm_restart": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
+    "recovered": ("predicate_scan_multi", "bitmap_setop_grouped",
+                  "bitmap_union_reduce"),
 }
 MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
 #: (blocks, block) checked besides the main shape; W = 1, 3 and 9 take
@@ -189,7 +215,7 @@ LOOKUP_EDGES = [float("nan"), -0.5, 3.75, float("inf"), float("-inf"),
 #: median, the stream's, and 64)
 COMPARE_QS = (3, 8, 64)
 #: paths whose tapes run as CUDA-graph replays
-GRAPH_PATHS = ("numeric", "strings", "zones")
+GRAPH_PATHS = ("numeric", "strings", "zones", "cold_restart", "warm_restart")
 #: backend counters the lockstep paths' launch accounting reads
 ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
 
@@ -2049,7 +2075,554 @@ def phase_stream(table, dev_name, start_path, end_path, rounds=6,
         f"share {dev_ms / pwall:.4f}); per query over the {rounds + 1} "
         f"drains: {counts['device_dispatches'] / n_queries:.2f} device "
         f"dispatches, {sum(LAUNCHES.values()) / n_queries:.2f} launches")
-    return {"rounds": per_round, "busy_ms": dev_ms, "busy_wall_ms": pwall}
+    return {"rounds": per_round, "busy_ms": dev_ms, "busy_wall_ms": pwall,
+            "queries": queries, "pool": pool}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a durable stream (write-ahead log, snapshots, recovery, warm
+# restarts) on the strings table phase 9 leaves behind
+# ---------------------------------------------------------------------------
+
+#: phase 10's durability and cache directories: under the checkout's
+#: ``build/`` (git-ignored), on the checkout's disk, deleted at the end
+DURABLE_DIR = ROOT / "build" / "smoke_durable"
+#: seconds each phase-10 child process may take
+CHILD_TIMEOUT_S = 120
+#: seeds of the rows the children append (``rows_like``): the warm
+#: restart's in-bucket append, and the kill -9 child's appends (all synced
+#: and acknowledged but the last)
+WARM_APPEND_SEED = 300
+KILL_APPEND_SEEDS = (400, 401, 402)
+#: the kill -9 child's timer, started as its drain begins
+KILL_DELAY_S = 0.1
+
+
+def fs_type(path) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", str(path)],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip() or "unknown"
+
+
+def digest(bitmaps) -> str:
+    """sha256 of a drain's result bitmaps, in query order."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for bm in bitmaps:
+        h.update(np.ascontiguousarray(bm).tobytes())
+    return h.hexdigest()
+
+
+def save_trees(path, queries, auto):
+    """The trees a child drains, as their root nodes (a PredicateTree's
+    lookup tables are keyed by object identity, which a pickle does not
+    carry across processes)."""
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump({"queries": [q.root for q in queries],
+                     "auto": [q.root for q in auto]}, f)
+
+
+def load_trees(path):
+    """:func:`save_trees`' trees, one PredicateTree per distinct root (as
+    the parent's query list repeats its templates)."""
+    from repro_torch.columnar.wal import restricted_loads
+    from repro_torch.core import PredicateTree
+    st = restricted_loads(Path(path).read_bytes())
+    trees = {}
+    return [[trees.setdefault(id(r), PredicateTree(r)) for r in st[k]]
+            for k in ("queries", "auto")]
+
+
+def stream_config(dev_name, **kw):
+    from repro_torch.columnar import StreamSession
+    return StreamSession.DEFAULT_CONFIG.replace(device=dev_name, **kw)
+
+
+def run_child(mode, args, child_cmd=None):
+    """Run a phase-10 child: a fresh interpreter (never a fork of this
+    process, which holds a CUDA context) running ``chip_smoke.py --child
+    MODE ARGS``.  Returns the process (stdout and stderr captured)."""
+    cmd = (child_cmd or [sys.executable, str(ROOT / "chip_smoke.py")]) + [
+        "--child", mode, json.dumps(args)]
+    return subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          timeout=CHILD_TIMEOUT_S)
+
+
+def child_result(proc, what):
+    check(proc.returncode == 0, f"{what}: exit code {proc.returncode}\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def child_restart(a) -> dict:
+    """Child mode ``restart``: recover the durability directory (with the
+    warm-restart caches when ``cache`` is given) into a ``batched="auto"``
+    session (per-query tapes, as the reference's recovery test drains),
+    drain the 3 ``auto`` queries first, then the 64 queries; with
+    ``append_rows``, append rows inside the block bucket and drain the 3
+    again.  Reports what the parent checks, each drain's launches and the
+    launches its tapes need among them; never closes the session (a close
+    would snapshot again)."""
+    import torch
+
+    from repro_torch.columnar import StreamSession
+    from repro_torch.columnar.device import DeviceTapeBackend
+    from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, reset_launches
+    queries, auto = load_trees(a["trees"])
+    run_tape = DeviceTapeBackend.run_tape
+
+    def counted(be, tape):                 # every tape a drain runs
+        out = run_tape(be, tape)
+        need_launches(be, tape)
+        return out
+
+    DeviceTapeBackend.run_tape = counted
+    on_card = a["device"] != "cpu"
+    t0 = time.perf_counter()
+    sess = StreamSession(None, config=stream_config(a["device"],
+                                                    batched="auto"),
+                         max_pending=len(queries) + 1, durable=a["data"],
+                         cache_dir=a["cache"])
+    out = {"open_ms": (time.perf_counter() - t0) * 1e3,
+           "recovery_info": sess.recovery_info,
+           "restore_info": sess.restore_info}
+
+    def drain(trees, label):
+        futs = [sess.submit(q) for q in trees]
+        if on_card:
+            torch.cuda.synchronize()
+        reset_launches()
+        NEEDED.clear()
+        res, wall, syncs, spans = checked_run(sess.drain, a["sync_check"])
+        if on_card:
+            torch.cuda.synchronize()
+        be = sess.session._backend
+        out[label] = {
+            "launches": dict(LAUNCHES), "needed": dict(NEEDED),
+            "by_q": {k: dict(v) for k, v in LAUNCHES_BY_Q.items()},
+            "wall_ms": wall, "syncs": len(syncs), "spans_ms": spans,
+            "host_syncs": res.stats.host_syncs,
+            "plan_cache_hits": res.stats.plan_cache_hits,
+            "plan_cache_misses": res.stats.plan_cache_misses,
+            "tape_cache_hits": res.stats.tape_cache_hits,
+            "tape_programs": be.tape_programs,
+            "graph_captures": be.graph_captures, "nblocks": be.nblocks,
+            "backend": id(be), "n_records": sess.table.n_records,
+            "digest": digest([f.result() for f in futs])}
+
+    drain(auto, "first")
+    drain(queries, "all")
+    if a["append_rows"]:
+        sess.append(rows_like(sess.table, a["append_rows"],
+                              a["append_seed"]))
+        drain(auto, "after_append")
+        out["committed_seq"] = sess.sync()
+    return out
+
+
+def child_kill(a) -> None:
+    """Child mode ``kill``: recover the directory, append and acknowledge
+    (``sync()``, then the committed sequence fsynced to the ack file) all
+    but the last of ``seeds``, append the last without a sync, submit the
+    queries and drain: a timer started with the drain SIGKILLs the
+    process.  The ack file also records the row counts and the drain's
+    start (and its end, which the timer must beat)."""
+    import os
+    import signal
+    import threading
+
+    from repro_torch.columnar import StreamSession
+    queries, _ = load_trees(a["trees"])
+    sess = StreamSession(None, config=stream_config(a["device"]),
+                         max_pending=len(queries) + 1, durable=a["data"])
+    acks = open(a["acks"], "a")
+
+    def ack(**kw):
+        acks.write(json.dumps(kw) + "\n")
+        acks.flush()
+        os.fsync(acks.fileno())
+
+    ack(n0=sess.table.n_records, seq=sess.durability.wal.committed_seq)
+    for seed in a["seeds"][:-1]:
+        sess.append(rows_like(sess.table, a["rows"], seed))
+        ack(seq=sess.sync(), n=sess.table.n_records)
+    sess.append(rows_like(sess.table, a["rows"], a["seeds"][-1]))
+    futs = [sess.submit(q) for q in queries]
+    ack(drain="started", t=time.time())
+    threading.Timer(a["delay_s"],
+                    lambda: os.kill(os.getpid(), signal.SIGKILL)).start()
+    sess.drain()
+    ack(drain="finished", t=time.time(), n_futures=len(futs))
+    time.sleep(CHILD_TIMEOUT_S)
+
+
+def read_acks(path):
+    """The ack file's records; a torn last line is dropped."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue
+    return out
+
+
+def phase_durable(table, queries, pool, dev_name, start_path, end_path,
+                  sync_check=True, rounds=3, child_cmd=None):
+    """Phase 10: phase 9's strings table and 64 queries through a durable,
+    warm-restartable StreamSession.  (1) attach and 3 rounds of a 2 %
+    append and a drain beside a non-durable twin, a snapshot, close;
+    (2) a warm and a cold restart, each a fresh process; (3) a child
+    SIGKILLed mid-drain, then recovered here; (4) the observability
+    server over the recovered session and the port's launcher twice."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.columnar import QuerySession, StreamSession, run_query
+    from repro_torch.columnar.config import ExecConfig
+    from repro_torch.columnar.wal import _table_from_state, _table_state
+    base = DURABLE_DIR
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    data, cache = base / "data", base / "cache"
+    out = {"fs": fs_type(base)}
+    log(f"  durability and cache directories under {base} "
+        f"(filesystem {out['fs']})")
+    try:
+        distinct = {id(q): q for q in list(pool) + list(queries)}
+        oracle_cfg = ExecConfig(engine="numpy", device="cpu",
+                                planner="deepfish")
+
+        def oracle_of(tab):
+            return {k: run_query(q, tab, config=oracle_cfg)[0]
+                    for k, q in distinct.items()}
+
+        def check_drain(label, futs, oracle, tab):
+            for j, (f, q) in enumerate(zip(futs, queries)):
+                check(np.array_equal(f.result(), oracle[id(q)]),
+                      f"{label}: query {j} != numpy oracle")
+                check(f.n_records == tab.n_records, f"{label}: snapshot "
+                      "rows")
+
+        # -- (1) attach, rounds beside a non-durable twin, snapshot, close
+        # the twin starts from a copy of the table's full state
+        # (dictionaries, zone maps, sketches), as a recovery rebuilds it;
+        # a copy, since appends extend the sketches' lists in place
+        twin = _table_from_state(copy.deepcopy(_table_state(table)))
+        t0 = time.perf_counter()
+        stream = StreamSession(table, config=stream_config(dev_name),
+                               max_pending=65, durable=str(data),
+                               cache_dir=str(cache))
+        create_ms = (time.perf_counter() - t0) * 1e3
+        wal = stream.durability.wal
+        out["create"] = {"bytes": wal.bytes_written, "ms": create_ms,
+                         "commit_ms": wal.commit_s * 1e3,
+                         "rows": table.n_records}
+        log(f"  attach: create record {wal.bytes_written} B for "
+            f"{table.n_records} rows in {create_ms:.1f} ms (its fsync "
+            f"{wal.commit_s * 1e3:.1f} ms)")
+        plain = StreamSession(twin, config=stream_config(dev_name),
+                              max_pending=65)
+        n_append = int(table.n_records * 0.02)
+        sessions = (("durable", stream, table), ("non-durable", plain, twin))
+        oracle = oracle_of(table)
+        out["cold_drains"] = {}
+        for label, sess, tab in sessions:     # cold drains: uploads
+            futs = [sess.submit(q) for q in queries]
+            res, wall, _, spans = checked_run(sess.drain, sync_check=False)
+            check_drain(f"{label} cold drain", futs, oracle, tab)
+            out["cold_drains"][label] = {"wall_ms": wall, "spans_ms": spans}
+            log(f"  {label} cold drain of 64 over {tab.n_records} rows: "
+                f"{wall:.1f} ms; spans ms "
+                f"{ {k: round(v, 3) for k, v in spans.items()} }")
+        paths = {"durable": "durable", "non-durable": "durable_twin"}
+        per_round = []
+        for rnd in range(1, rounds + 1):
+            rows = rows_like(table, n_append, seed=200 + rnd)
+            row = {}
+            for label, sess, tab in sessions:
+                t1 = time.perf_counter()
+                sess.append({k: v.copy() for k, v in rows.items()})
+                row[f"{label} append_ms"] = (time.perf_counter() - t1) * 1e3
+            for name in table.columns:       # statistics rebuild after an
+                table.stats(name)            # append, outside the drain
+                twin.stats(name)
+            oracle = oracle_of(table)
+            for label, sess, tab in sessions:
+                futs = [sess.submit(q) for q in queries]
+                commit0, commits0 = wal.commit_s, wal.commits
+                be = sess.session._backend
+                start_path()
+                c0 = counts_of(be)
+                res, wall, syncs, _ = checked_run(sess.drain, sync_check)
+                end_path(paths[label], {k: v - c0[k] for k, v in
+                                        counts_of(be).items()},
+                         more=rnd < rounds)
+                check_drain(f"{label} round {rnd}", futs, oracle, tab)
+                check(res.stats.host_syncs == 1, f"{label} round {rnd}: "
+                      f"host_syncs {res.stats.host_syncs} != 1")
+                if sync_check:
+                    check(len(syncs) == 1, f"{label} round {rnd}: "
+                          f"{len(syncs)} device syncs ({syncs}), expected 1")
+                row[f"{label} wall_ms"] = wall
+                if sess is stream:
+                    check(wal.commits == commits0 + 1 and
+                          wal.uncommitted == 0, f"round {rnd}: the drain "
+                          "did not group-commit its append once")
+                    row["commit_ms"] = (wal.commit_s - commit0) * 1e3
+                    row["last_results"] = [f.result() for f in futs]
+            per_round.append(row)
+            log(f"  round {rnd}: +{n_append} rows -> {table.n_records}; "
+                f"durable drain {row['durable wall_ms']:.3f} ms (commit "
+                f"{row['commit_ms']:.3f} ms, append "
+                f"{row['durable append_ms']:.1f} ms), non-durable drain "
+                f"{row['non-durable wall_ms']:.3f} ms (append "
+                f"{row['non-durable append_ms']:.1f} ms); one host sync "
+                f"each; equal to the numpy oracle")
+        for label, sess, _ in sessions:
+            ss = sess.stats
+            check(ss.degraded_batches == 0 and ss.quarantined_queries == 0
+                  and ss.retries == 0, f"{label} stream degraded: "
+                  f"{ss.degraded_batches} batches, {ss.quarantined_queries}"
+                  f" quarantined, {ss.retries} retries")
+        pre_digest = digest(per_round[-1].pop("last_results"))
+        for row in per_round[:-1]:
+            row.pop("last_results")
+        # the 8 templates once per query as the batched="auto" route runs
+        # them (per-query tapes, each one CUDA graph), sharing the
+        # stream's plan cache: their tapes go to the cache close() flushes
+        auto_sess = QuerySession(table, config=stream_config(
+            dev_name, batched="auto", plan_cache=stream.session.plan_cache))
+        res = auto_sess.execute(pool)
+        for j, q in enumerate(pool):
+            check(np.array_equal(res.bitmaps[j], oracle[id(q)]),
+                  f"auto route: template {j} != numpy oracle")
+        auto = list({id(q): q for q in queries}.values())[:3]
+        auto_digest = digest(res.bitmaps[pool.index(q)] for q in auto)
+        del auto_sess, res
+        t1 = time.perf_counter()
+        snap = stream.durability.snapshot()
+        out["snapshot"] = {
+            "ms": (time.perf_counter() - t1) * 1e3,
+            "bytes": os.path.getsize(os.path.join(snap, "state.pkl"))}
+        t1 = time.perf_counter()
+        stream.close()
+        out["close_ms"] = (time.perf_counter() - t1) * 1e3
+        plain.close()
+        n_closed, committed = table.n_records, wal.committed_seq
+        log(f"  snapshot {out['snapshot']['bytes']} B in "
+            f"{out['snapshot']['ms']:.1f} ms; close (commit, snapshot, "
+            f"cache flush) {out['close_ms']:.1f} ms; committed seq "
+            f"{committed}; last drain sha256 {pre_digest}")
+        out["rounds"] = per_round
+        del stream, plain, twin, sessions, be
+        import torch
+        if dev_name != "cpu":
+            torch.cuda.empty_cache()
+
+        # -- (2) warm and cold restarts, each a fresh process
+        trees_path = base / "trees.pkl"
+        save_trees(trees_path, queries, auto)
+        restarts = {}
+        on_card = dev_name != "cpu"
+        for label, cache_dir, append in (("cold", None, 0),
+                                         ("warm", str(cache), n_append)):
+            proc = run_child("restart", {
+                "device": dev_name, "data": str(data), "cache": cache_dir,
+                "trees": str(trees_path), "sync_check": sync_check,
+                "append_rows": append, "append_seed": WARM_APPEND_SEED},
+                child_cmd)
+            r = restarts[label] = child_result(proc, f"{label} restart")
+            ri, f, al = r["recovery_info"], r["first"], r["all"]
+            log(f"  {label} restart: recovered {ri['n_records']} rows in "
+                f"{ri['recovery_ms']:.1f} ms (snapshot seq "
+                f"{ri['snapshot_seq']}, replayed "
+                f"{ri['replayed_records']} records), open "
+                f"{r['open_ms']:.1f} ms; restore_info {r['restore_info']}")
+            for what, d in (("first drain (3 queries)", f),
+                            ("then the 64 queries", al)):
+                log(f"    {what}: {d['wall_ms']:.1f} ms, plan hits "
+                    f"{d['plan_cache_hits']} misses "
+                    f"{d['plan_cache_misses']}, tape hits "
+                    f"{d['tape_cache_hits']}, tape_programs "
+                    f"{d['tape_programs']}, graph_captures "
+                    f"{d['graph_captures']}, host syncs {d['host_syncs']}, "
+                    f"spans ms "
+                    f"{ {k: round(v, 3) for k, v in d['spans_ms'].items()} }")
+            check(ri["n_records"] == n_closed and ri["replayed_records"]
+                  == 0 and ri["snapshot_seq"] == committed,
+                  f"{label} restart recovered {ri}, expected {n_closed} "
+                  f"rows from the snapshot at seq {committed}")
+            check(al["digest"] == pre_digest, f"{label} restart: the 64 "
+                  f"queries' digest {al['digest']} != before close "
+                  f"{pre_digest}")
+            check(f["digest"] == auto_digest, f"{label} restart: the 3 "
+                  "auto queries' digest changed")
+            for d in (f, al):
+                check(not on_card or d["graph_captures"] ==
+                      d["tape_programs"], f"{label} restart: captures "
+                      f"{d['graph_captures']} != programs "
+                      f"{d['tape_programs']}: not one capture per tape key")
+            drains = [k for k in ("first", "all", "after_append") if k in r]
+            for k in drains:               # each drain's launches, held
+                end_path(f"{label}_restart", child=r[k],
+                         more=k != drains[-1])
+        warm, cold = restarts["warm"], restarts["cold"]
+        wf, aa = warm["first"], warm["after_append"]
+        check(warm["restore_info"]["plans"] > 0,
+              f"warm restart restored {warm['restore_info']}")
+        check(wf["plan_cache_misses"] == 0 and
+              wf["tape_cache_hits"] == len(auto),
+              f"warm restart's first drain: {wf}")
+        check(cold["restore_info"] is None and
+              cold["first"]["plan_cache_misses"] == len(auto),
+              f"cold restart: {cold['restore_info']}, {cold['first']}")
+        wa = warm["all"]
+        check(aa["n_records"] == n_closed + n_append and
+              aa["nblocks"] == wa["nblocks"] and
+              aa["backend"] == wa["backend"] and
+              aa["tape_programs"] == wa["tape_programs"] and
+              aa["graph_captures"] == wa["graph_captures"],
+              f"warm restart: the in-bucket append made programs or "
+              f"captures: {wa} -> {aa}")
+        log(f"  warm restart: after +{n_append} rows in the bucket "
+            f"({aa['nblocks']} blocks) the 3 queries' drain captured "
+            f"{aa['graph_captures'] - wa['graph_captures']} new graphs "
+            f"(tape_programs {aa['tape_programs']}; plan hits "
+            f"{aa['plan_cache_hits']}, tape hits {aa['tape_cache_hits']})")
+        out["restarts"] = {
+            label: {k: ({kk: vv for kk, vv in v.items()
+                         if kk not in ("spans_ms", "digest", "backend",
+                                       "by_q", "needed")}
+                        if isinstance(v, dict) and k != "restore_info"
+                        else v)
+                    for k, v in r.items()}
+            for label, r in restarts.items()}
+
+        # -- (3) kill -9 mid-drain, then recover here
+        acks_path = base / "acks.jsonl"
+        t1 = time.perf_counter()
+        proc = run_child("kill", {
+            "device": dev_name, "data": str(data), "trees": str(trees_path),
+            "acks": str(acks_path), "rows": n_append,
+            "seeds": list(KILL_APPEND_SEEDS), "delay_s": KILL_DELAY_S},
+            child_cmd)
+        check(proc.returncode == -9, f"kill child: exit code "
+              f"{proc.returncode}, expected -9 (SIGKILL)\n"
+              f"{proc.stderr[-4000:]}")
+        acks = read_acks(acks_path)
+        n0 = acks[0]["n0"]
+        acked = max(r["seq"] for r in acks if "seq" in r)
+        n_acked = max([n0] + [r["n"] for r in acks if "n" in r])
+        started = [r["t"] for r in acks if r.get("drain") == "started"]
+        check(started and not any(r.get("drain") == "finished"
+                                  for r in acks),
+              f"kill child: the timer did not land inside the drain: {acks}")
+        check(n0 == n_closed + n_append, f"kill child recovered {n0} rows, "
+              f"expected {n_closed} + the warm restart's {n_append}")
+        t2 = time.perf_counter()
+        sess = StreamSession(None, config=stream_config(dev_name),
+                             max_pending=65, durable=str(data))
+        ri = sess.recovery_info
+        rec = sess.table
+        allowed = (n_acked, n_acked + n_append)
+        log(f"  kill child: died by SIGKILL {KILL_DELAY_S} s into its "
+            f"drain ({time.perf_counter() - t1:.1f} s in all); acked seq "
+            f"{acked} at {n_acked} rows; recovered here in "
+            f"{ri['recovery_ms']:.1f} ms (open "
+            f"{(time.perf_counter() - t2) * 1e3:.1f} ms): last_seq "
+            f"{ri['last_seq']}, {rec.n_records} rows, snapshot seq "
+            f"{ri['snapshot_seq']}, replayed {ri['replayed_records']} "
+            f"records, truncated {ri['truncated_records']}")
+        check(ri["last_seq"] >= acked, f"acknowledged seq {acked} lost: "
+              f"recovery landed at {ri['last_seq']}")
+        check(rec.n_records in allowed, f"recovered {rec.n_records} rows, "
+              f"not one of the schedule's prefixes {allowed}")
+        segments = [(0, table.n_records, table.columns)]
+        at = n_closed
+        for seed in (WARM_APPEND_SEED,) + KILL_APPEND_SEEDS:
+            if at >= rec.n_records:
+                break
+            segments.append((at, n_append, rows_like(rec, n_append, seed)))
+            at += n_append
+        for start, n, cols in segments:
+            for name, col in rec.columns.items():
+                check(np.array_equal(col[start:start + n], cols[name][:n]),
+                      f"recovered column {name} rows {start}..{start + n} "
+                      f"!= the rows appended there")
+        be = upload_columns(sess.session, queries)
+        oracle = oracle_of(rec)
+        start_path()
+        c0 = counts_of(be)
+        futs = [sess.submit(q) for q in queries]
+        res, wall, syncs, _ = checked_run(sess.drain, sync_check)
+        check_drain("recovered drain", futs, oracle, rec)
+        check(res.stats.host_syncs == 1, "recovered drain: host_syncs "
+              f"{res.stats.host_syncs} != 1")
+        if sync_check:
+            check(len(syncs) == 1, f"recovered drain: {len(syncs)} device "
+                  f"syncs ({syncs}), expected 1")
+        end_path("recovered", {k: v - c0[k] for k, v in
+                               counts_of(be).items()})
+        log(f"  recovered drain of 64: {wall:.3f} ms, one host sync, equal "
+            f"to the numpy oracle")
+        out["kill"] = {"acked_seq": acked, "acked_rows": n_acked,
+                       "recovery_info": ri, "drain_ms": wall}
+
+        # -- (4) the observability server, and the launcher twice
+        from urllib.request import urlopen
+
+        from repro_torch.runtime.telemetry import parse_prometheus
+        from repro_torch.serve import ObservabilityServer
+        with ObservabilityServer(sess) as srv:
+            health = json.loads(urlopen(f"{srv.url}/healthz",
+                                        timeout=10).read())
+            metrics = urlopen(f"{srv.url}/metrics", timeout=10).read()
+        seq = sess.sync()
+        check(health["durable"] is True and health["wal"]["committed_seq"]
+              == seq and health["recovery"]["recovered"] is True,
+              f"/healthz: {health}, sync() {seq}")
+        parsed = parse_prometheus(metrics.decode())
+        check(any(k[0].startswith("repro_wal_") for k in parsed),
+              "/metrics has no repro_wal_* sample")
+        log(f"  /healthz: durable, wal {health['wal']}, recovery "
+            f"{health['recovery']}; /metrics {len(parsed)} samples")
+        sess.close()
+        del sess, rec, be
+        if dev_name != "cpu":
+            torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--stream",
+               "--durable", str(base / "launch_data"), "--cache-dir",
+               str(base / "launch_cache"), "--serve-port", "0", "--device",
+               dev_name]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for run in ("first", "second"):
+            t1 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  cwd=ROOT, env=env, timeout=CHILD_TIMEOUT_S)
+            check(proc.returncode == 0, f"launcher {run} run: exit code "
+                  f"{proc.returncode}\n{proc.stderr[-4000:]}")
+            lines = proc.stdout.strip().splitlines()
+            recovered = [x for x in lines if x.startswith("recovered ")]
+            warm_line = [x for x in lines if x.startswith("warm restore:")]
+            log(f"  launcher {run} run: exit 0 in "
+                f"{time.perf_counter() - t1:.1f} s; "
+                + " | ".join(recovered + warm_line))
+            if run == "second":
+                import ast
+                info = ast.literal_eval(warm_line[0].split(": ", 1)[1])
+                check(recovered and info["plans"] > 0, "launcher second "
+                      f"run: did not recover and warm: {lines}")
+        return out
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2339,6 +2912,19 @@ def numeric_warm(table, trees):
     return out
 
 
+def main_child(mode: str, args: dict) -> int:
+    """A phase-10 child process (``--child restart|kill ARGS``): prints
+    its result as the last line (the ``kill`` child never returns)."""
+    if mode == "restart":
+        print(json.dumps(child_restart(args), default=str))
+        return 0
+    if mode == "kill":
+        child_kill(args)
+        return 1                  # the timer kills it before this
+    print(f"unknown child mode {mode!r}", file=sys.stderr)
+    return 2
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2352,6 +2938,8 @@ def main(argv) -> int:
     src = ROOT / "src"
     if len(argv) == 2 and argv[0] == "--compare":
         src = Path(argv[1]).resolve()
+    elif len(argv) == 3 and argv[0] == "--child":
+        pass
     elif argv:
         print("usage: chip_smoke.py [--compare SRC]", file=sys.stderr)
         return 2
@@ -2360,6 +2948,8 @@ def main(argv) -> int:
               f"({src / 'repro_torch'} not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if argv and argv[0] == "--child":
+        return main_child(argv[1], json.loads(argv[2]))
     if argv:
         return main_compare(src)
     from repro_torch.kernels import (LAUNCHES, LAUNCHES_BY_Q, _build,
@@ -2392,35 +2982,52 @@ def main(argv) -> int:
     # the stacked kernels are timed in phase 7, at the Q the paths launched
 
     # each path of the main path is driven with the launch counts set to 0
-    # just before it and read just after.  A tape path's counts must be
-    # exactly the launches its tapes need; a lockstep path's must add up to
-    # its backend's device dispatches (each one launch).  Each kernel a path
-    # must run ran.
-    by_path, q_by_path = {}, {}
+    # just before it and read just after (a path run in several pieces, as
+    # phase 10's drains are, is counted piece by piece and added up).  A
+    # tape path's counts must be exactly the launches its tapes need; a
+    # lockstep path's must add up to its backend's device dispatches (each
+    # one launch).  Each kernel a path must run ran.
+    by_path, q_by_path, q_hists = {}, {}, {}
 
     def start_path():
         torch.cuda.synchronize()
         reset_launches()
         NEEDED.clear()
 
-    def end_path(path, counts=None):
-        """``counts``: the path's ACCOUNT counters of its backend (None
-        for a tape path)."""
-        torch.cuda.synchronize()
-        got = dict(LAUNCHES)
-        by_path[path] = got
+    def end_path(path, counts=None, child=None, more=False):
+        """Hold the launches since :func:`start_path` and add them to
+        ``path``'s.  ``counts``: the piece's ACCOUNT counters of its
+        backend (None for a tape path).  ``child``: a child process's
+        ``launches``, ``by_q`` and ``needed`` for a tape drain it ran,
+        held in place of this process's counts.  ``more``: more pieces of
+        the path follow; the check that each of its kernels ran waits for
+        the last."""
+        if child is None:
+            torch.cuda.synchronize()
+            got, hists, needed = dict(LAUNCHES), LAUNCHES_BY_Q, NEEDED
+        else:
+            got = {k: child["launches"].get(k, 0) for k in KERNELS}
+            hists = {k: Counter({int(q): n for q, n in v.items()})
+                     for k, v in child["by_q"].items()}
+            needed = child["needed"]
+        total = by_path.setdefault(path, dict.fromkeys(KERNELS, 0))
+        for k in KERNELS:
+            total[k] += got[k]
         log(f"  {path} path launches: {got}")
-        q_by_path[path] = {}
-        for name, hist in LAUNCHES_BY_Q.items():
+        q_by_path.setdefault(path, {})
+        for name, hist in hists.items():
             check(sum(hist.values()) == got[name], f"{path} path: {name}'s "
                   f"launches by Q {dict(hist)} do not add up to {got[name]}")
             if hist:
-                q_by_path[path][name] = {"median": median_q(hist),
-                                         "hist": dict(sorted(hist.items()))}
+                q_hists.setdefault(path, {}).setdefault(
+                    name, Counter()).update(hist)
+                h = q_hists[path][name]
+                q_by_path[path][name] = {"median": median_q(h),
+                                         "hist": dict(sorted(h.items()))}
                 log(f"  {path} path {name}: Q median {median_q(hist)}, "
                     f"launches by Q {dict(sorted(hist.items()))}")
         if counts is None:
-            need = {k: NEEDED[k] for k in KERNELS}
+            need = {k: needed.get(k, 0) for k in KERNELS}
             check(got == need, f"{path} path: launches {got} != the "
                   f"launches its tapes need {need}")
         else:
@@ -2433,9 +3040,9 @@ def main(argv) -> int:
             check(others == want, f"{path} path: {others} other launches "
                   f"!= {counts['device_dispatches']} device dispatches - "
                   f"{counts['setops_deferred']} deferred set operations")
-        for name in PATH_KERNELS[path]:
-            check(got[name] > 0, f"{name} was never launched on the {path} "
-                  "path")
+        for name in () if more else PATH_KERNELS[path]:
+            check(total[name] > 0, f"{name} was never launched on the "
+                  f"{path} path")
 
     log("phase 3: numeric tape at paper scale (5.8 M x 144)")
     t0 = time.perf_counter()
@@ -2505,8 +3112,19 @@ def main(argv) -> int:
     log("phase 9: StreamSession, 6 append rounds of 2 % on the strings "
         "table")
     t0 = time.perf_counter()
-    phase_stream(table, "cuda", start_path, end_path)
+    stream = phase_stream(table, "cuda", start_path, end_path)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("phase 10: durable StreamSession (write-ahead log, snapshots, warm "
+        "and cold restarts, kill -9 recovery, launcher) on the strings table")
+    t0 = time.perf_counter()
+    durable = phase_durable(table, stream["queries"], stream["pool"], "cuda",
+                            start_path, end_path)
+    log(f"  phase 10 summary: " + json.dumps(durable, default=str))
+    del table, stream, durable
+    torch.cuda.empty_cache()
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -5,7 +5,9 @@ predicate tree over a columnar table; the plan compiles to a tape that
 runs on an NVIDIA GPU through hand-written CUDA kernels
 (``kernels/csrc``), with one host sync per query; batches of queries run
 in lockstep through a ``QuerySession`` or a ``StreamSession``, with one
-host sync per batch.  Every entry point runs
+host sync per batch; a ``StreamSession`` can be durable (write-ahead log
+and snapshots, ``columnar.wal``) and warm-restartable (``columnar.persist``),
+and ``launch.serve`` serves it.  Every entry point runs
 on the card unless the caller asks for the CPU (``device="cpu"``), where
 the kernels' plain PyTorch versions run instead.
 

@@ -13,7 +13,10 @@ plan cache and cross-query atom sharing; with ``batched=True`` on the tape
 engine it drives every plan in lockstep over device-resident sets, one
 stacked kernel launch per shared atom and round, one host sync per batch.
 A :class:`StreamSession` admits queries between appends and drains them
-through that lockstep session.
+through that lockstep session; with ``durable=`` its table is crash-safe
+(:class:`Durability`: a checksummed write-ahead log and snapshots,
+:mod:`.wal`), and with ``cache_dir=`` its plan and tape caches survive a
+restart (:mod:`.persist`).
 """
 from .bitmap import (WORD, bitmap_and, bitmap_andnot, bitmap_empty,
                      bitmap_full, bitmap_or, extend_bitmap, pack_bits,
@@ -33,6 +36,7 @@ from .table import (DictColumn, Table, annotate_selectivities,
                     empirical_selectivity, rewrite_string_atoms)
 from .trace import (ExplainReport, OpObservation, SpanRecord, Tracer,
                     explain_analyze, tracer)
+from .wal import Durability, DurabilityError, WriteAheadLog
 
 __all__ = [
     "pack_bits", "unpack_bits", "popcount", "bitmap_and", "bitmap_or",
@@ -48,4 +52,5 @@ __all__ = [
     "BackgroundDrainer", "DrainPolicy", "LatencyWindow",
     "Tracer", "tracer", "SpanRecord", "explain_analyze", "ExplainReport",
     "OpObservation",
+    "Durability", "DurabilityError", "WriteAheadLog",
 ]

@@ -35,17 +35,31 @@ Serving hardening on top of the cooperative layer:
   only its own future (:class:`StreamQueryError`, original exception as
   ``__cause__``) while the rest of the batch resolves normally.  Drains
   never raise; failures surface through futures.
-* **Warm restarts** (``cache_dir=...``) are not yet ported: asking for
-  them raises :class:`~repro_torch.columnar.config.ConfigError`.
+* **Warm restarts** (``cache_dir=...``): plan-cache entries, compiled
+  tapes and the feedback store are loaded at construction and flushed at
+  :meth:`close` (see :mod:`~repro_torch.columnar.persist`), so a
+  restarted server's first drain rebinds cached tapes instead of
+  replanning and recompiling (on the card each rebound tape's CUDA graph
+  is captured once, at its first run).
 * **Tombstone deletes**: :meth:`delete` marks rows dead without bumping
   ``table.version`` — atom caches, device uploads, and zone maps stay
   valid; the live mask is ANDed into every result at materialize time.
   ``auto_compact=<fraction>`` compacts when the dead fraction crosses
   the threshold (the only row-moving mutation; invalidates caches
   through the normal version/delta contract).
-* **Durable ingest** (``durable=...``: the write-ahead log, snapshots
-  and crash recovery) is not yet ported either and raises
-  :class:`~repro_torch.columnar.config.ConfigError`.
+* **Durable ingest** (``durable=...``): every mutation is written to a
+  checksummed write-ahead log and periodically folded into crash-
+  consistent snapshots (see :mod:`~repro_torch.columnar.wal`).  The fsync
+  policy is *group commit per drain* by default (``wal_sync="group"``):
+  a drain fsyncs the whole buffered mutation suffix once, **before**
+  resolving its futures — results handed to callers always describe a
+  state that survives a crash — instead of paying an fsync per append
+  (``wal_sync="always"`` does, for callers whose acknowledgement
+  boundary is the ``append`` return).  Restart with ``table=None`` to
+  recover: latest valid snapshot + WAL-tail replay, bit-identical, with
+  recovery counters on the telemetry plane, ``/healthz``, and
+  :attr:`recovery_info`.  Warm-restart caches are stamped with the data
+  epoch and still hit on the recovered process.
 
 Without ``background=True`` the layer stays cooperative exactly as
 before: ``submit`` drains inline at ``max_pending`` and
@@ -55,6 +69,7 @@ single-threaded callers never deadlock.  With a drainer running,
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -65,9 +80,9 @@ import numpy as np
 
 from ..core.predicate import Node, PredicateTree
 from ..runtime import faults as _faults
-from ..runtime.telemetry import LATENCY_BUCKETS_MS
+from ..runtime.telemetry import DURABILITY_BUCKETS_MS, LATENCY_BUCKETS_MS
 from .bitmap import unpack_bits
-from .config import UNSET, ConfigError, ExecConfig, config_from_kwargs
+from .config import UNSET, ExecConfig, config_from_kwargs
 from .drainer import LANES, BackgroundDrainer, DrainPolicy, LatencyWindow
 from .multiquery import BatchResult, BatchStats, QuerySession
 from .table import Table
@@ -272,12 +287,22 @@ class StreamSession:
         otherwise (inline drains already bound cooperative sessions).
     ``max_retries`` / ``retry_backoff_s``
         transient-fault retry budget for the degradation ladder.
+    ``cache_dir``
+        warm-restart directory (see :mod:`~repro_torch.columnar.persist`);
+        loaded now, flushed at :meth:`close` / :meth:`flush_caches`.
     ``auto_compact``
         dead-row fraction above which :meth:`delete` triggers
         compaction (None = manual only).
-    ``cache_dir`` / ``durable``
-        warm restarts and data-plane durability: not yet ported; either
-        raises :class:`~repro_torch.columnar.config.ConfigError`.
+    ``durable`` / ``wal_sync`` / ``snapshot_every``
+        data-plane durability (see :mod:`~repro_torch.columnar.wal`).
+        ``durable`` is the durability directory (or ``True`` for
+        ``<cache_dir>/data``).  A fresh directory adopts ``table``; a
+        directory with prior state requires ``table=None`` and is
+        *recovered* (:attr:`recovery_info` carries the counters).
+        ``wal_sync="group"`` (default) fsyncs once per drain before
+        futures resolve; ``"always"`` fsyncs per mutation.
+        ``snapshot_every`` bounds replay length: a snapshot is cut after
+        that many logged mutations (checked at drains and mutations).
     """
 
     #: stream-flavored execution defaults (vs ExecConfig's conservative
@@ -296,6 +321,8 @@ class StreamSession:
                  cache_dir: Optional[str] = None,
                  auto_compact: Optional[float] = None,
                  durable: Union[bool, str, None] = None,
+                 wal_sync: str = "group",
+                 snapshot_every: Optional[int] = 512,
                  model=UNSET, plan_cache=UNSET, share_threshold=UNSET,
                  block=UNSET, annotate=UNSET, persist_atom_cache=UNSET,
                  rewrite_strings=UNSET, zone_prune=UNSET,
@@ -309,15 +336,27 @@ class StreamSession:
             max_queue = 8 * max_pending
         if max_queue is not None and max_queue < max_pending:
             raise ValueError("max_queue must be >= max_pending")
+        self._durability = None
+        self.recovery_info: Optional[dict] = None
         if durable:
-            raise ConfigError("durable ingest (durable=...) is not yet "
-                              "ported")
-        if cache_dir:
-            raise ConfigError("warm restarts (cache_dir=...) are not yet "
-                              "ported")
-        if table is None:
-            raise ValueError("a table is required (recovery from a "
-                             "durability directory is not yet ported)")
+            from .wal import Durability
+            if durable is True:
+                if not cache_dir:
+                    raise ValueError(
+                        "durable=True needs cache_dir (data lands in "
+                        "<cache_dir>/data), or pass durable=<directory>")
+                durable = os.path.join(cache_dir, "data")
+            if table is None:
+                self._durability, table, self.recovery_info = \
+                    Durability.recover(durable, sync=wal_sync,
+                                       snapshot_every=snapshot_every)
+            else:
+                self._durability = Durability(
+                    durable, sync=wal_sync, snapshot_every=snapshot_every)
+                self._durability.attach(table)
+        elif table is None:
+            raise ValueError("table=None is only valid with durable=... "
+                             "(recover from a durability directory)")
         self.table = table
         self.max_pending = max_pending
         self.max_queue = max_queue
@@ -325,6 +364,7 @@ class StreamSession:
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
         self.auto_compact = auto_compact
+        self.cache_dir = cache_dir
         # the QuerySession's share_margin default (break-even) applies
         # as-is: the margin is traffic-aware — the session's FeedbackStore
         # tracks cross-drain repeat rates per atom key and discounts the
@@ -348,6 +388,13 @@ class StreamSession:
         # tracer the drains publish batch state into)
         self.telemetry = self.session.telemetry
         self.tracer = self.session.tracer
+        self.restore_info: Optional[dict] = None
+        if cache_dir:
+            from . import persist as _persist
+            self.restore_info = _persist.load_session_caches(
+                self.session, cache_dir, epoch=self._data_epoch())
+        if self.recovery_info is not None:
+            self._publish_recovery(self.recovery_info)
         self.stats = StreamStats()
         self.last_result: Optional[BatchResult] = None
         # two locks, strict order drain -> admit: _drain_lock serializes
@@ -376,25 +423,65 @@ class StreamSession:
             self._drainer.start()
 
     # -- durability ------------------------------------------------------------
-    # Durable ingest and warm restarts are not yet ported (``durable=`` and
-    # ``cache_dir=`` raise ConfigError), so every session is non-durable
-    # without a ``cache_dir``, and these members give the reference's
-    # results for such a session.
     @property
     def durability(self):
-        """The durability manager, or None for a non-durable session (every
-        session, until durable ingest is ported)."""
-        return None
+        """The :class:`~repro_torch.columnar.wal.Durability` manager, or None
+        for a non-durable session."""
+        return self._durability
+
+    def _data_epoch(self) -> Optional[str]:
+        return self._durability.epoch if self._durability is not None \
+            else None
 
     def sync(self) -> Optional[int]:
-        """Force a write-ahead-log group commit and return the committed
-        sequence number: None for a non-durable session."""
-        return None
+        """Force a WAL group commit now — every mutation admitted so far
+        becomes crash-durable.  Returns the committed sequence number
+        (None for a non-durable session).  Drains do this automatically;
+        this is the explicit acknowledgement boundary for append-heavy
+        callers between drains."""
+        if self._durability is None:
+            return None
+        with self._drain_lock:
+            ms = self._durability.commit()
+            if ms is not None:
+                self._observe_commit(ms)
+            return self._durability.wal.committed_seq
 
-    def flush_caches(self) -> Optional[dict]:
-        """Write warm-restart state to ``cache_dir`` now and return persist
-        counts: None without a ``cache_dir``."""
-        return None
+    def _observe_commit(self, ms: float) -> None:
+        if self.telemetry is not None:
+            self.telemetry.histogram(
+                "repro_wal_commit_ms",
+                "WAL group-commit fsync wall time",
+                buckets=DURABILITY_BUCKETS_MS).observe(ms)
+
+    def _publish_recovery(self, info: dict) -> None:
+        """Surface recovery on the telemetry plane: ``repro_recovery_*``
+        gauges, the recovery-time histogram, and a trace event."""
+        from ..runtime.telemetry import publish_scalars
+        if self.telemetry is not None:
+            scalars = {k: v for k, v in info.items()
+                       if isinstance(v, (int, float))}
+            publish_scalars(self.telemetry, "repro_recovery", scalars,
+                            help="durable-ingest crash recovery state")
+            self.telemetry.histogram(
+                "repro_recovery_time_ms",
+                "snapshot-load + WAL-replay wall time",
+                buckets=DURABILITY_BUCKETS_MS
+            ).observe(info["recovery_ms"])
+        if self.tracer is not None:
+            self.tracer.event(
+                "recovery", snapshot_seq=info["snapshot_seq"],
+                replayed_records=info["replayed_records"],
+                truncated_records=info["truncated_records"],
+                recovery_ms=round(info["recovery_ms"], 3))
+
+    def _durable_after_mutation_locked(self) -> None:
+        """Mutation-side durability policy, caller holds ``_drain_lock``:
+        ``wal_sync="always"`` already committed inside the sink; here we
+        only fold the accumulation into a snapshot when due, so append-
+        only workloads (no drains) still bound their replay length."""
+        if self._durability is not None:
+            self._durability.maybe_snapshot()
 
     # -- introspection ---------------------------------------------------------
     @property
@@ -473,6 +560,7 @@ class StreamSession:
             with self._admit:
                 self._check_open_locked()
             start = self.table.append(rows)
+            self._durable_after_mutation_locked()
             with self._admit:
                 self.stats.appends += 1
                 self.stats.appended_rows += self.table.n_records - start
@@ -493,6 +581,7 @@ class StreamSession:
             removed = 0
             if self.auto_compact is not None:
                 removed = self.table.maybe_compact(self.auto_compact)
+            self._durable_after_mutation_locked()
             with self._admit:
                 self.stats.deletes += 1
                 self.stats.deleted_rows += new
@@ -505,6 +594,7 @@ class StreamSession:
         """Compact now (see :meth:`Table.compact`); returns rows removed."""
         with self._drain_lock:
             removed = self.table.compact()
+            self._durable_after_mutation_locked()
             with self._admit:
                 if removed:
                     self.stats.compactions += 1
@@ -554,6 +644,13 @@ class StreamSession:
             with drain_span:
                 outcomes, res = self._execute_resilient(
                     [p.query for p in batch])
+            # group commit: ONE fsync covers every mutation this batch's
+            # snapshot saw, before any future resolves — results handed
+            # to callers always describe crash-durable state
+            if self._durability is not None:
+                ms = self._durability.commit()
+                if ms is not None:
+                    self._observe_commit(ms)
             # snapshot stamped under _drain_lock: append/delete also hold
             # it, so n_records/live_words here are exactly what executed
             n = self.table.n_records
@@ -588,6 +685,8 @@ class StreamSession:
                     self.stats.max_batch = max(self.stats.max_batch,
                                                len(batch))
                 self._last_drain_at = time.monotonic()
+            if self._durability is not None:
+                self._durability.maybe_snapshot()
             if self.telemetry is not None:
                 self._publish_drain(latencies)
             return res
@@ -637,6 +736,8 @@ class StreamSession:
             reg.gauge("repro_drainer_bulk_force_drains",
                       "bulk drains forced by the starvation valve"
                       ).set(d.bulk_force_drains)
+        if self._durability is not None:
+            self._durability.publish(reg, labels)
 
     # -- observability readouts ------------------------------------------------
     def health(self) -> Dict[str, object]:
@@ -661,8 +762,28 @@ class StreamSession:
                 "retries": self.stats.retries,
                 "failed": self.stats.failed,
                 "bulk_starved_s": self.stats.bulk_starved_s,
-                "durable": False,
             }
+            dur = self._durability
+            h["durable"] = dur is not None
+            if dur is not None:
+                h["wal"] = {"last_seq": dur.wal.last_seq,
+                            "committed_seq": dur.wal.committed_seq,
+                            "uncommitted": dur.wal.uncommitted,
+                            "snapshots": dur.snapshots,
+                            "records_since_snapshot":
+                                dur.records_since_snapshot}
+                # recovered=False means a fresh attach, not a failure;
+                # the counters tell operators what the restart replayed
+                h["recovery"] = (
+                    {"recovered": True,
+                     "snapshot_seq": self.recovery_info["snapshot_seq"],
+                     "replayed_records":
+                         self.recovery_info["replayed_records"],
+                     "truncated_records":
+                         self.recovery_info["truncated_records"],
+                     "recovery_ms": self.recovery_info["recovery_ms"]}
+                    if self.recovery_info is not None
+                    else {"recovered": False})
             return h
 
     def explain(self, future_or_id) -> Optional[ExplainReport]:
@@ -793,13 +914,24 @@ class StreamSession:
             self._note_rung("quarantine", quarantined)
         return outcomes, None
 
-    # -- lifecycle -------------------------------------------------------------
+    # -- persistence / lifecycle -----------------------------------------------
+    def flush_caches(self) -> Optional[dict]:
+        """Write warm-restart state to ``cache_dir`` now (also happens at
+        :meth:`close`); returns persist counts, or None without a
+        ``cache_dir``."""
+        if not self.cache_dir:
+            return None
+        from . import persist as _persist
+        return _persist.save_session_caches(self.session, self.cache_dir,
+                                            epoch=self._data_epoch())
+
     def close(self) -> Optional[BatchResult]:
-        """Shut the session down: stop the drainer and drain whatever is
-        still in flight (resolving every admitted future).  Idempotent —
-        repeat calls return the final drain's result; submit/append/delete
-        afterwards raise :class:`StreamClosed` (so do submits blocked on
-        backpressure when close wakes them)."""
+        """Shut the session down: stop the drainer, drain whatever is
+        still in flight (resolving every admitted future), and flush
+        warm-restart caches.  Idempotent — repeat calls return the final
+        drain's result; submit/append/delete afterwards raise
+        :class:`StreamClosed` (so do submits blocked on backpressure when
+        close wakes them)."""
         with self._admit:
             if self._closed:
                 return self._final_result
@@ -808,7 +940,29 @@ class StreamSession:
         if self._drainer is not None:
             self._drainer.stop()
         self._final_result = self._drain_lanes(LANES)
+        if self._durability is not None:
+            # a clean shutdown leaves a snapshot covering the whole log:
+            # the next start replays nothing and warm caches match the
+            # exact recovered state
+            with self._drain_lock:
+                self._durability.commit()
+                self._durability.snapshot()
+                self._durability.close()
+        if self.cache_dir:
+            self.flush_caches()
+            self._flush_metrics()
         return self._final_result
+
+    def _flush_metrics(self) -> None:
+        """Final observability snapshot (``metrics.json``) next to the
+        warm-restart artifacts: stream + health state always, the full
+        registry when telemetry is on."""
+        from . import persist as _persist
+        payload = {"stream": self.stats.as_dict(),
+                   "health": self.health(),
+                   "registry": (self.telemetry.snapshot()
+                                if self.telemetry is not None else None)}
+        _persist.save_metrics(payload, self.cache_dir)
 
     def __enter__(self) -> "StreamSession":
         return self

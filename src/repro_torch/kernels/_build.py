@@ -157,12 +157,18 @@ def _run_all(cmds: List[List[str]]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
 
 
+def library_path() -> Path:
+    """Where the library of these exact sources and flags is built (it
+    may not exist yet)."""
+    return BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
+
+
 def build() -> Path:
     """Build the shared library unless a build of these exact sources and
     flags exists; returns its path.  Safe under concurrent callers."""
     out_dir = BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
-    target = out_dir / f"librepro_torch_kernels_{_digest()}.so"
+    target = library_path()
     with open(out_dir / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if target.exists():

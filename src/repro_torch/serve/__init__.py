@@ -1,0 +1,7 @@
+"""Serving substrate: predicate-based request routing (the paper's engine
+applied to request metadata) and the read-only observability HTTP
+endpoints (:mod:`.httpd`)."""
+from .engine import RequestRouter
+from .httpd import ObservabilityServer
+
+__all__ = ["RequestRouter", "ObservabilityServer"]

@@ -238,12 +238,63 @@ def test_stream_deletes_match_reference():
     assert ps.stats.degraded_batches == 0
 
 
-def test_durable_and_warm_restart_are_not_yet_ported(tmp_path):
-    _, port_table = _tables(2000, strings=False)
-    cfg = T.StreamSession.DEFAULT_CONFIG.replace(device="cpu")
-    with pytest.raises(T.ConfigError, match="not yet ported"):
-        T.StreamSession(port_table, config=cfg, durable=str(tmp_path / "d"))
-    with pytest.raises(T.ConfigError, match="not yet ported"):
-        T.StreamSession(port_table, config=cfg, cache_dir=str(tmp_path))
-    with pytest.raises(ValueError):
-        T.StreamSession(None, config=cfg)
+def _durable_streams(ref_table, port_table, tmp_path, **kw):
+    ref = R.StreamSession(ref_table, config=R.StreamSession.DEFAULT_CONFIG
+                          .replace(block=BLOCK),
+                          durable=str(tmp_path / "ref"), **kw)
+    port = T.StreamSession(port_table, config=T.StreamSession.DEFAULT_CONFIG
+                           .replace(block=BLOCK, device="cpu"),
+                           durable=str(tmp_path / "port"), **kw)
+    return ref, port
+
+
+def test_durable_sessions_match_reference(tmp_path):
+    """One schedule of appends, deletes, drains and explicit syncs through
+    a durable session of each package (the default stream engine, the
+    port on the CPU): every sync() returns the reference's committed
+    sequence, health()["wal"] and health()["recovery"] agree after each
+    step and each drain, and so do a restart's recovery counters (the
+    wall time and the data epoch aside) and its drains."""
+    ref_table, port_table = _tables(4000, strings=True)
+    rs, ps = _durable_streams(ref_table, port_table, tmp_path,
+                              snapshot_every=4)
+    rq, pq = _queries(ref_table, port_table, 8, seed=6)
+    extra = R.make_forest_table(900, n_dup=1, seed=12, strings=True)
+
+    def same_health(a, b):
+        ha, hb = a.health(), b.health()
+        assert hb["durable"] is ha["durable"] is True
+        assert hb["wal"] == ha["wal"]
+        assert hb["recovery"].keys() == ha["recovery"].keys()
+        for k, v in ha["recovery"].items():
+            if k != "recovery_ms":
+                assert hb["recovery"][k] == v, k
+
+    steps = [lambda s: s.append({k: v[:300].copy()
+                                 for k, v in extra.columns.items()}),
+             lambda s: s.sync(),
+             lambda s: s.delete(np.arange(50, 400)),
+             lambda s: s.append({k: v[300:].copy()
+                                 for k, v in extra.columns.items()}),
+             lambda s: s.sync(),
+             lambda s: s.compact()]
+    for step in steps:
+        assert step(ps) == step(rs)
+        same_health(rs, ps)
+        _drain_both(rs, ps, rq, pq)
+        same_health(rs, ps)
+    assert ps.sync() == rs.sync() == ps.durability.wal.last_seq
+    assert ps.durability.snapshots == rs.durability.snapshots > 0
+    _same_stats(rs, ps)
+    rs.close()
+    ps.close()
+
+    rs2, ps2 = _durable_streams(None, None, tmp_path)
+    for k, v in rs2.recovery_info.items():
+        if k not in ("recovery_ms", "epoch"):
+            assert ps2.recovery_info[k] == v, k
+    same_health(rs2, ps2)
+    _drain_both(rs2, ps2, rq, pq)
+    same_health(rs2, ps2)
+    rs2.close()
+    ps2.close()
