@@ -8,8 +8,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 card, then drives the port's main paths at the paper's data scale (Forest,
 5.8 M records x 144 attributes) and checks every result against the numpy
 oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
-``QuerySession(ExecConfig(engine="tape", batched=True))`` and the default
-``StreamSession``.  Phases:
+``QuerySession(ExecConfig(engine="tape", batched=True))``, the default
+``StreamSession`` and the per-step block engine (``engine="jax"``).
+Phases:
 
 1. device and kernel build
 2. kernels vs plain versions (exact, W = 1, 3, 9 among the shapes), and
@@ -67,15 +68,32 @@ oracle: ``run_query(config=ExecConfig(engine="tape"))``, the lockstep
    one host sync; ``/healthz`` and ``/metrics`` of the recovered session;
    ``python -m repro_torch.launch.serve --stream --durable`` twice (the
    second recovers and warms)
+11. the per-step block engine (``engine="jax"``; ``"pallas"`` is the same
+   path): phase 3's 32 paper trees through ``run_query``, cold and warm
+   (sync debug mode: warnings equal ``host_syncs``), each result equal to
+   the tape engine's and so the oracle's, walls, syncs, launches and
+   staged / fetched bytes per query beside the tape's warm p50; 4 trees
+   on ``"pallas"`` and 2 on ``device="cpu"`` (the plain versions at full
+   scale), counters and op logs equal; phase 8's 64 queries through
+   ``QuerySession(engine="jax", batched="auto")`` (records_evaluated
+   equal to the host lockstep session's); phase 4's string trees (``in``
+   and LIKE atoms take the host gather); a ``StreamSession`` on the
+   strings table, 2 rounds of a 2 % append and a drain of 64 queries.
+   While it runs on the card every plain function of
+   ``repro_torch.kernels.ref`` raises, and the bucket N of every K1 / K5
+   launch is logged
 
-Each path of phases 3-6 and 8-10 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-11 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
 operation's launches must equal its backend's ``setop_launches`` and all
 other launches its device dispatches less the set operations it deferred
-(each other dispatch is one launch); and each kernel the path runs must
-have launched.  Each path logs the Q of its stacked launches (histogram
+(each other dispatch is one launch); on a per-step path (phase 11) the K1
+and K5 launches must equal its backends' ``kernel_invocations``, the K2
+launches (one live-block scan per step) ``host_syncs`` less
+``kernel_invocations``, and nothing else may launch; and each kernel the
+path runs must have launched.  Each path logs the Q of its stacked launches (histogram
 and median).  Any mismatch raises and the script exits non-zero.  The
 last line of its output is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -181,7 +199,15 @@ PATH_KERNELS = {
     "warm_restart": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
     "recovered": ("predicate_scan_multi", "bitmap_setop_grouped",
                   "bitmap_union_reduce"),
+    # phase 11: the per-step block engine, K2's live-block scan then K1
+    # (one set) or K5 (Q stacked sets) per atom application
+    "block": ("bitmap_setop", "predicate_scan"),
+    "block_lockstep": ("bitmap_setop", "predicate_scan_multi"),
+    "block_strings": ("bitmap_setop", "predicate_scan"),
+    "block_stream": ("bitmap_setop", "predicate_scan_multi"),
 }
+#: the kernels a per-step path may launch
+STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
 MAIN_SHAPE = (1024, 8192)                      # (blocks, block) at 5.8 M rows
 #: (blocks, block) checked besides the main shape; W = 1, 3 and 9 take
 #: the 4-byte row loads of the stacked kernels (W % 4 != 0)
@@ -1946,8 +1972,9 @@ def phase_lockstep(table, templates, results, dev_name, sync_check):
     want = [results[i] for i in pick]
     log(f"  batch: 64 queries from {len(templates)} templates, "
         f"{len(set(pick))} distinct")
-    return lockstep_batches(table, batch, want, dev_name, "lockstep",
-                            sync_check, split=True)
+    return dict(lockstep_batches(table, batch, want, dev_name, "lockstep",
+                                 sync_check, split=True),
+                batch=batch, want=want)
 
 
 def phase_lockstep_strings(table, trees, results, dev_name, sync_check):
@@ -2627,6 +2654,369 @@ def phase_durable(table, queries, pool, dev_name, start_path, end_path,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: the per-step block engine (engine="jax" / "pallas"): one device
+# step per atom application (K2's live-block scan, then K1 or K5), held
+# against the oracle, the tape engine, the "pallas" name and the CPU
+# ---------------------------------------------------------------------------
+
+#: the block engine's counters (port-only staged / fetched bytes included)
+#: and stats, held equal between its names and devices
+BLOCK_COUNTERS = ("blocks_touched", "records_touched", "blocks_pruned",
+                  "kernel_invocations", "host_syncs", "uploaded_bytes",
+                  "staged_bytes", "fetched_bytes")
+BLOCK_STATS = ("atom_applications", "records_evaluated", "setops")
+
+
+def block_snap(be):
+    """A block backend's lifetime counters and stats (zeros for None)."""
+    if be is None:
+        return dict.fromkeys(BLOCK_COUNTERS + BLOCK_STATS, 0)
+    out = {k: getattr(be, k) for k in BLOCK_COUNTERS}
+    out.update({k: getattr(be.stats, k) for k in BLOCK_STATS})
+    return out
+
+
+def block_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+class StepLog:
+    """A per-step path's K1 / K5 launches and fetches, added up over the
+    backends it ran (:meth:`add` a backend's counter delta), and the
+    bucket N of every K1 / K5 launch on the card, recorded by wrapping the
+    two entry points the engine calls while the log is active."""
+
+    def __init__(self):
+        self.counts = Counter()
+        self.buckets = Counter()
+
+    def add(self, delta):
+        self.counts.update({k: delta[k] for k in ("kernel_invocations",
+                                                  "host_syncs")})
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = {n: getattr(ops, n) for n in
+                       ("predicate_blocks", "predicate_blocks_multi")}
+
+        def wrap(name, fn):
+            def call(col, bits, *args, **kw):
+                if bits.device.type == "cuda":
+                    self.buckets[(name, int(bits.shape[-2]))] += 1
+                return fn(col, bits, *args, **kw)
+            return call
+        for name, fn in self._saved.items():
+            setattr(ops, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+
+    def hist(self):
+        out = {}
+        for (name, n), c in sorted(self.buckets.items()):
+            out.setdefault(name, {})[n] = c
+        return out
+
+
+class NoPlain:
+    """While active, every plain function of ``repro_torch.kernels.ref``
+    raises: nothing plain may run on the card path.  ``f32`` (the float32
+    rounding of a comparison constant, which the wrappers apply before a
+    launch) is not a plain version of a kernel and stays."""
+
+    KEEP = ("f32",)
+
+    def __enter__(self):
+        import inspect
+
+        from repro_torch.kernels import ref
+        self._saved = {k: v for k, v in vars(ref).items()
+                       if inspect.isfunction(v)
+                       and v.__module__ == ref.__name__
+                       and k not in self.KEEP}
+
+        def forbid(name):
+            def call(*args, **kw):
+                raise AssertionError(f"kernels.ref.{name} ran on the card "
+                                     "path")
+            return call
+        for name in self._saved:
+            setattr(ref, name, forbid(name))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        for name, fn in self._saved.items():
+            setattr(ref, name, fn)
+
+
+def block_pass(trees, table, want, label, sync_check=False, be=None,
+               **cfg):
+    """Each tree once through ``run_query`` on one reused block backend,
+    every result equal to ``want``.  Returns the backend and, per query,
+    the wall (ms), the sync-debug warnings (when ``sync_check``, held
+    equal to ``host_syncs``), the counter deltas and the drained op log."""
+    import numpy as np
+    import torch
+
+    from repro_torch.columnar import ExecConfig, run_query
+    cfg = dict(dict(engine="jax", planner="deepfish"), **cfg)
+    walls, warned, deltas, logs = [], [], [], []
+    sites = Counter()
+    if sync_check:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i, tree in enumerate(trees):
+            before = block_snap(be)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res, _, be = run_query(tree, table, backend=be,
+                                       config=ExecConfig(**cfg))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                     if SYNC_WARNING in str(w.message)]
+            warned.append(len(where))
+            sites.update(where)
+            deltas.append(block_delta(before, block_snap(be)))
+            logs.append(be.drain_op_log())
+            check(np.array_equal(res, want[i]),
+                  f"{label} query {i}: result != the oracle's")
+    finally:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode(0)
+    if sync_check:
+        syncs = [d["host_syncs"] for d in deltas]
+        check(warned == syncs, f"{label}: sync-debug warnings per query "
+              f"{warned} != host_syncs {syncs} (at {dict(sites)})")
+    return be, {"walls_ms": walls, "warned": warned, "deltas": deltas,
+                "logs": logs, "sites": dict(sites)}
+
+
+def block_text(run):
+    """The p50 per query of the wall and of each counter delta."""
+    import numpy as np
+    deltas, walls = run["deltas"], run["walls_ms"]
+    p50 = {k: float(np.median([d[k] for d in deltas]))
+           for k in ("host_syncs", "kernel_invocations", "staged_bytes",
+                     "fetched_bytes", "uploaded_bytes",
+                     "atom_applications")}
+    p50["wall_ms"] = float(np.median(walls))
+    return p50, (f"wall ms p50={p50['wall_ms']:.3f} (min={min(walls):.3f} "
+                 f"max={max(walls):.3f}); per query p50: atom applications "
+                 f"{p50['atom_applications']:.0f}, host syncs "
+                 f"{p50['host_syncs']:.0f}, K1/K5 launches "
+                 f"{p50['kernel_invocations']:.0f}, staged "
+                 f"{p50['staged_bytes']:.0f} B, fetched "
+                 f"{p50['fetched_bytes']:.0f} B, columns uploaded "
+                 f"{p50['uploaded_bytes']:.0f} B")
+
+
+def same_runs(a, b, n, what):
+    """The first ``n`` queries of two passes: equal counters and op logs."""
+    check(a["deltas"][:n] == b["deltas"][:n],
+          f"{what}: counters {b['deltas'][:n]} != {a['deltas'][:n]}")
+    check(a["logs"][:n] == b["logs"][:n], f"{what}: op logs differ")
+
+
+def phase_block_numeric(table, trees, results, tape_p50, steps,
+                        dev_name="cuda"):
+    """Phase 11, numeric: phase 3's 32 paper trees through ``run_query(
+    config=ExecConfig(engine="jax"))``, a cold pass and a warm pass under
+    sync debug mode, each result equal to the tape engine's (which phase 3
+    held equal to the numpy oracle); then 4 trees on ``engine="pallas"``,
+    whose results, counters and op logs equal ``"jax"``'s."""
+    import numpy as np
+    t0 = time.perf_counter()
+    be, cold = block_pass(trees, table, results, "block cold",
+                          device=dev_name)
+    steps.add(block_delta(block_snap(None), block_snap(be)))
+    _, text = block_text(cold)
+    log(f"  cold pass of {len(trees)} ({time.perf_counter() - t0:.1f} s): "
+        f"{text}; {be.nblocks} blocks of {be.block}")
+    before = block_snap(be)
+    be, warm = block_pass(trees, table, results, "block warm",
+                          sync_check=dev_name != "cpu", be=be,
+                          device=dev_name)
+    steps.add(block_delta(before, block_snap(be)))
+    for i, (c, w) in enumerate(zip(cold["deltas"], warm["deltas"])):
+        check(w == dict(c, uploaded_bytes=0), f"block warm query {i}: "
+              f"counters {w} != the cold pass's {c} less its uploads")
+    check(warm["logs"] == cold["logs"], "block warm pass: op logs differ")
+    p50, text = block_text(warm)
+    apps = sum(d["atom_applications"] for d in warm["deltas"])
+    log(f"  warm pass: {text}; sync-debug warnings = host_syncs on every "
+        f"query ({sum(warm['warned'])} in all, "
+        f"{sum(warm['warned']) / apps:.3f} per atom application, at "
+        f"{warm['sites']}); the tape engine's warm p50 on these trees in "
+        f"this run {tape_p50:.3f} ms, the block engine "
+        f"{p50['wall_ms'] / tape_p50:.1f}x it")
+    pb, pal = block_pass(trees[:4], table, results, "pallas",
+                         engine="pallas", device=dev_name)
+    steps.add(block_delta(block_snap(None), block_snap(pb)))
+    same_runs(cold, pal, 4, "engine='pallas'")
+    log(f"  engine='pallas' on 4 trees: results, counters and op logs equal "
+        f"to 'jax' (wall ms p50 {np.median(pal['walls_ms']):.3f})")
+    return {"cold": cold, "p50": p50, "tape_p50_ms": tape_p50,
+            "backend": be}
+
+
+def block_cpu(table, trees, results, cold):
+    """Phase 11, the plain versions at full scale: 2 trees on
+    ``device="cpu"``, whose results, counters (staged and fetched bytes
+    included) and op logs equal the card's cold pass."""
+    import numpy as np
+    t0 = time.perf_counter()
+    _, cpu = block_pass(trees[:2], table, results, "block cpu",
+                        device="cpu")
+    same_runs(cold, cpu, 2, "device='cpu'")
+    log(f"  device='cpu' (plain versions) on 2 trees: results, counters and "
+        f"op logs equal to the card's (wall ms p50 "
+        f"{np.median(cpu['walls_ms']):.3f}, {time.perf_counter() - t0:.1f} "
+        "s)")
+
+
+def phase_block_lockstep(table, batch, want, host_records, steps,
+                         dev_name="cuda"):
+    """Phase 11, lockstep: phase 8's 64 queries through ``QuerySession(
+    engine="jax", batched="auto")``: every bitmap equal to the oracle's,
+    ``records_evaluated`` equal to the host lockstep session's on the
+    same batch (phase 8's), sync-debug warnings equal to its host syncs."""
+    import numpy as np
+
+    from repro_torch.columnar import ExecConfig, QuerySession
+    sess = QuerySession(table, config=ExecConfig(
+        planner="deepfish", engine="jax", batched="auto", device=dev_name))
+    sync_check = dev_name != "cpu"
+    res, wall, syncs, spans = checked_run(lambda: sess.execute(batch),
+                                          sync_check)
+    be = res.backend
+    steps.add(block_delta(block_snap(None), block_snap(be)))
+    for j, bm in enumerate(res.bitmaps):
+        check(np.array_equal(bm, want[j]),
+              f"block lockstep: query {j} != the oracle's")
+    st = res.stats
+    check(st.lockstep_rounds > 0 and st.kernel_batches > 0,
+          f"block lockstep: not lockstep ({st.lockstep_rounds} rounds)")
+    check(st.records_evaluated == host_records, f"block lockstep: "
+          f"records_evaluated {st.records_evaluated} != the host lockstep "
+          f"session's {host_records}")
+    check(st.host_syncs == be.host_syncs and (
+        len(syncs) == st.host_syncs or not sync_check),
+          f"block lockstep: {len(syncs)} sync-debug warnings, host_syncs "
+          f"{st.host_syncs}")
+    log(f"  lockstep batch of {len(batch)}: wall {wall:.3f} ms, "
+        f"{st.lockstep_rounds} rounds, {st.kernel_batches} kernel batches, "
+        f"{st.physical_atoms} atom applications, host syncs {st.host_syncs}"
+        f" (= sync-debug warnings), K1/K5 launches {be.kernel_invocations},"
+        f" staged {be.staged_bytes} B, fetched {be.fetched_bytes} B, "
+        f"columns uploaded {be.uploaded_bytes} B, records_evaluated "
+        f"{st.records_evaluated:.0f} (= host lockstep); spans ms "
+        f"{ {k: round(v, 3) for k, v in spans.items()} }")
+    return {"wall_ms": wall, "host_syncs": st.host_syncs,
+            "kernel_invocations": be.kernel_invocations,
+            "rounds": st.lockstep_rounds}
+
+
+def phase_block_strings(table, trees, results, steps, dev_name="cuda"):
+    """Phase 11, strings: phase 4's 8 string trees and the fragmented
+    tree on ``engine="jax"``: code-space comparisons run K1, ``in`` and
+    LIKE atoms the host gather; results equal the oracle's."""
+    be, run = block_pass(trees, table, results, "block strings",
+                         sync_check=dev_name != "cpu", device=dev_name)
+    steps.add(block_delta(block_snap(None), block_snap(be)))
+    apps = be.stats.atom_applications
+    scans = be.host_syncs - be.kernel_invocations
+    check(apps > scans > 0, f"block strings: {apps} atom applications, "
+          f"{scans} on the kernels: no host gather ran")
+    _, text = block_text(run)
+    log(f"  {len(trees)} string trees (the last fragmented): {text}; "
+        f"{apps - scans} of {apps} atom applications took the host gather "
+        "(in / LIKE)")
+    return {"p50": block_text(run)[0], "gathered": apps - scans,
+            "applications": apps}
+
+
+def phase_block_stream(table, queries, steps, rounds=2, dev_name="cuda"):
+    """Phase 11, stream: ``StreamSession(config=DEFAULT_CONFIG.replace(
+    engine="jax"))`` on the strings table, a cold drain and ``rounds``
+    rounds of a 2 % append and a drain of the 64 queries: every result
+    equal to the oracle's, uploads within the dirty tail blocks, nothing
+    degraded, sync-debug warnings equal to each drain's host syncs.  It
+    streams a copy of ``table``: phase 10's durable session attached the
+    table itself to a write-ahead log whose directory is gone."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.columnar import ExecConfig, StreamSession, run_query
+    from repro_torch.columnar.wal import _table_from_state, _table_state
+    table = _table_from_state(copy.deepcopy(_table_state(table)))
+    distinct = {id(q): q for q in queries}
+    stream = StreamSession(table, config=StreamSession.DEFAULT_CONFIG
+                           .replace(engine="jax", device=dev_name),
+                           max_pending=65)
+    sync_check = dev_name != "cpu"
+    n_append = int(table.n_records * 0.02)
+
+    def drain(rnd):
+        futs = [stream.submit(q) for q in queries]
+        res, wall, syncs, spans = checked_run(stream.drain, sync_check)
+        oracle = {k: run_query(q, table, config=ExecConfig(
+            engine="numpy", device="cpu", planner="deepfish"))[0]
+                  for k, q in distinct.items()}
+        for j, (f, q) in enumerate(zip(futs, queries)):
+            check(np.array_equal(f.result(), oracle[id(q)]),
+                  f"block stream round {rnd}: query {j} != the oracle's")
+        check(len(syncs) == res.stats.host_syncs or not sync_check,
+              f"block stream round "
+              f"{rnd}: {len(syncs)} sync-debug warnings != host_syncs "
+              f"{res.stats.host_syncs}")
+        return res, wall, spans
+
+    res, wall, _ = drain(0)
+    be = res.backend
+    c0 = block_snap(be)
+    steps.add(block_delta(block_snap(None), c0))
+    log(f"  cold drain of 64 over {table.n_records} rows: {wall:.1f} ms, "
+        f"host syncs {res.stats.host_syncs}, uploaded "
+        f"{res.stats.upload_bytes:.0f} B")
+    out = []
+    for rnd in range(1, rounds + 1):
+        dirty = table.n_records // be.block
+        stream.append(rows_like(table, n_append, seed=500 + rnd))
+        for name in table.columns:
+            table.stats(name)
+        res, wall, spans = drain(rnd)
+        st = res.stats
+        check(res.backend is be, "block stream backend was rebuilt")
+        tail = (be.nblocks - dirty) * be.block * 4
+        check(st.upload_bytes <= len(be._cols) * tail, f"block stream round "
+              f"{rnd}: uploaded {st.upload_bytes} B > the dirty tails "
+              f"{len(be._cols)} x {tail} B")
+        out.append({"wall_ms": wall, "host_syncs": st.host_syncs,
+                    "upload_bytes": st.upload_bytes})
+        log(f"  round {rnd}: +{n_append} rows -> {table.n_records}; drain "
+            f"{wall:.3f} ms, host syncs {st.host_syncs} (= sync-debug "
+            f"warnings), upload {st.upload_bytes:.0f} B (dirty tails "
+            f"{len(be._cols)} x {tail} B), atoms_delta_extended "
+            f"{st.atoms_delta_extended}; spans ms "
+            f"{ {k: round(v, 3) for k, v in spans.items()} }")
+    steps.add(block_delta(c0, block_snap(be)))
+    ss = stream.stats
+    check(ss.degraded_batches == 0 and ss.quarantined_queries == 0
+          and ss.retries == 0 and ss.failed == 0,
+          f"block stream degraded: {ss.as_dict()}")
+    stream.close()
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2948,6 +3338,7 @@ def main(argv) -> int:
               f"({src / 'repro_torch'} not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    import numpy as np
     if argv and argv[0] == "--child":
         return main_child(argv[1], json.loads(argv[2]))
     if argv:
@@ -2994,10 +3385,15 @@ def main(argv) -> int:
         reset_launches()
         NEEDED.clear()
 
-    def end_path(path, counts=None, child=None, more=False):
+    def end_path(path, counts=None, child=None, more=False, step=None):
         """Hold the launches since :func:`start_path` and add them to
         ``path``'s.  ``counts``: the piece's ACCOUNT counters of its
-        backend (None for a tape path).  ``child``: a child process's
+        backend (None for a tape path).  ``step``: a per-step path's
+        ``kernel_invocations`` and ``host_syncs``, added up over its block
+        backends: K1 + K5 launches must equal the first, K2 launches (one
+        live-block scan per fetch that is not a K1 / K5 result) the second
+        less the first, and nothing else may launch.  ``child``: a child
+        process's
         ``launches``, ``by_q`` and ``needed`` for a tape drain it ran,
         held in place of this process's counts.  ``more``: more pieces of
         the path follow; the check that each of its kernels ran waits for
@@ -3026,7 +3422,18 @@ def main(argv) -> int:
                                          "hist": dict(sorted(h.items()))}
                 log(f"  {path} path {name}: Q median {median_q(hist)}, "
                     f"launches by Q {dict(sorted(hist.items()))}")
-        if counts is None:
+        if step is not None:
+            k, syncs = step["kernel_invocations"], step["host_syncs"]
+            scans = got["predicate_scan"] + got["predicate_scan_multi"]
+            check(scans == k, f"{path} path: {scans} K1 + K5 launches != "
+                  f"kernel_invocations {k}")
+            check(got["bitmap_setop"] == syncs - k, f"{path} path: "
+                  f"{got['bitmap_setop']} K2 launches != host_syncs {syncs} "
+                  f"- kernel_invocations {k}")
+            other = {n: v for n, v in got.items()
+                     if v and n not in STEP_KERNELS}
+            check(not other, f"{path} path launched {other}")
+        elif counts is None:
             need = {k: needed.get(k, 0) for k in KERNELS}
             check(got == need, f"{path} path: launches {got} != the "
                   f"launches its tapes need {need}")
@@ -3068,6 +3475,7 @@ def main(argv) -> int:
     log("phase 8: lockstep QuerySession batch (5.8 M x 144, 64 queries)")
     t0 = time.perf_counter()
     table, trees, results = info["table"], info["trees"], info["results"]
+    tape_p50 = float(np.median(info["walls_ms"]))
     del info
     torch.cuda.empty_cache()
     start_path()
@@ -3077,9 +3485,39 @@ def main(argv) -> int:
     n_q = 64 * lock["batches"]
     log(f"  launches per query {sum(by_path['lockstep'].values()) / n_q:.2f}"
         f" over the {lock['batches']} batches")
-    del table, trees, results, lock
+    del lock["backend"]
     torch.cuda.empty_cache()
     log(f"  phase 8 (numeric) took {time.perf_counter() - t0:.1f} s")
+
+    # phase 11 runs with every plain function of kernels.ref raising
+    # (NoPlain) and the bucket N of each K1 / K5 launch logged (StepLog)
+    log("phase 11: per-step block engine (engine='jax'), numeric, 5.8 M x "
+        "144")
+    t0 = time.perf_counter()
+    start_path()
+    with StepLog() as steps, NoPlain():
+        block = phase_block_numeric(table, trees, results, tape_p50, steps)
+    end_path("block", step=steps.counts)
+    log(f"  block path: bucket N of the K1 / K5 launches {steps.hist()}")
+    block_cpu(table, trees, results, block.pop("cold"))
+    del block["backend"]
+    torch.cuda.empty_cache()
+    log(f"  phase 11 (numeric) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 11: per-step block engine, lockstep QuerySession batch (64 "
+        "queries)")
+    t0 = time.perf_counter()
+    start_path()
+    with StepLog() as steps, NoPlain():
+        block["lockstep"] = phase_block_lockstep(
+            table, lock["batch"], lock["want"],
+            lock["runs"][0]["records_evaluated"], steps)
+    end_path("block_lockstep", step=steps.counts)
+    log(f"  block_lockstep path: bucket N of the K1 / K5 launches "
+        f"{steps.hist()}")
+    del table, trees, results, lock
+    torch.cuda.empty_cache()
+    log(f"  phase 11 (lockstep) took {time.perf_counter() - t0:.1f} s")
 
 
     log("phase 4: strings and fragmented strings")
@@ -3097,9 +3535,21 @@ def main(argv) -> int:
     lock_s = phase_lockstep_strings(table, trees, results, "cuda",
                                     sync_check=True)
     end_path("lockstep_strings", counts_of(lock_s["backend"]))
-    del lock_s, trees, results
+    del lock_s
     torch.cuda.empty_cache()
     log(f"  phase 8 (strings) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 11: per-step block engine, strings and fragmented strings")
+    t0 = time.perf_counter()
+    start_path()
+    with StepLog() as steps, NoPlain():
+        block["strings"] = phase_block_strings(table, trees, results, steps)
+    end_path("block_strings", step=steps.counts)
+    log(f"  block_strings path: bucket N of the K1 / K5 launches "
+        f"{steps.hist()}")
+    del trees, results
+    torch.cuda.empty_cache()
+    log(f"  phase 11 (strings) took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: zone-pruned tapes")
     t0 = time.perf_counter()
@@ -3122,9 +3572,24 @@ def main(argv) -> int:
     durable = phase_durable(table, stream["queries"], stream["pool"], "cuda",
                             start_path, end_path)
     log(f"  phase 10 summary: " + json.dumps(durable, default=str))
-    del table, stream, durable
+    del durable
     torch.cuda.empty_cache()
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 11: per-step block engine, StreamSession, 2 append rounds "
+        "of 2 % on the strings table")
+    t0 = time.perf_counter()
+    start_path()
+    with StepLog() as steps, NoPlain():
+        block["stream"] = phase_block_stream(table, stream["queries"],
+                                             steps)
+    end_path("block_stream", step=steps.counts)
+    log(f"  block_stream path: bucket N of the K1 / K5 launches "
+        f"{steps.hist()}")
+    log(f"  phase 11 summary: " + json.dumps(block, default=str))
+    del table, stream, block
+    torch.cuda.empty_cache()
+    log(f"  phase 11 (stream) took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

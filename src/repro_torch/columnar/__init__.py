@@ -1,12 +1,15 @@
 """Column-store substrate of the port: packed bitmaps, columnar tables,
 synthetic data, selectivity stats, and the plan executors (numpy oracle,
-compiled-tape engine on the CUDA kernels).
+compiled-tape engine and per-step block engine on the CUDA kernels).
 
 Single-query path: ``run_query(tree, table, config=ExecConfig(engine=
 "tape"))`` rewrites dictionary-encodable string atoms, plans with one of
 the paper's planners, compiles the plan to a tape and runs it through
 :class:`DeviceTapeBackend` with one host sync.  ``ExecConfig(engine="numpy",
-device="cpu")`` runs the :class:`BitmapBackend` oracle on the host instead.
+device="cpu")`` runs the :class:`BitmapBackend` oracle on the host instead;
+``engine="jax"`` (or ``"pallas"``, the same path) the per-step
+:class:`BlockBackend`, one device step and two host syncs per atom
+application.
 
 Multi-query path: a :class:`QuerySession` executes a batch of trees with a
 plan cache and cross-query atom sharing; with ``batched=True`` on the tape
@@ -24,7 +27,8 @@ from .bitmap import (WORD, bitmap_and, bitmap_andnot, bitmap_empty,
 from .config import ConfigError, ExecConfig
 from .device import DeviceTapeBackend
 from .drainer import BackgroundDrainer, DrainPolicy, LatencyWindow
-from .executor import BitmapBackend, resolve_backend, run_query
+from .executor import (BitmapBackend, BlockBackend, resolve_backend,
+                       run_query)
 from .forest import make_forest_table
 from .ingest import ZoneMap
 from .multiquery import (BatchResult, BatchStats, LRUPlanCache, PlanCacheStats,
@@ -43,7 +47,8 @@ __all__ = [
     "bitmap_andnot", "bitmap_full", "bitmap_empty", "extend_bitmap", "WORD",
     "Table", "DictColumn", "annotate_selectivities", "empirical_selectivity",
     "rewrite_string_atoms", "make_forest_table",
-    "BitmapBackend", "DeviceTapeBackend", "run_query", "resolve_backend",
+    "BitmapBackend", "BlockBackend", "DeviceTapeBackend", "run_query",
+    "resolve_backend",
     "ExecConfig", "ConfigError",
     "ZoneMap", "random_tree", "random_query_suite",
     "QuerySession", "LRUPlanCache", "BatchResult", "BatchStats",

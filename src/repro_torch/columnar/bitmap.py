@@ -37,6 +37,18 @@ def popcount(words: np.ndarray) -> int:
     return int(np.unpackbits(words.view(np.uint8), bitorder="little").sum())
 
 
+#: popcount of every 16-bit value
+_POP16 = np.unpackbits(np.arange(1 << 16, dtype=np.uint16).view(np.uint8)
+                       .reshape(-1, 2), axis=1).sum(axis=1, dtype=np.int32)
+
+
+def row_popcounts(words: np.ndarray) -> np.ndarray:
+    """``uint32[..., W]`` -> ``int32[...]``: the popcount of each row (the
+    per-block counts the kernels' dead-block skip reads)."""
+    return (_POP16[words & 0xFFFF] + _POP16[words >> 16]).sum(
+        axis=-1, dtype=np.int32)
+
+
 def bitmap_full(n_records: int) -> np.ndarray:
     w = n_words(n_records)
     out = np.full(w, 0xFFFFFFFF, dtype=np.uint32)

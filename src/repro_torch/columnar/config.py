@@ -84,12 +84,15 @@ class ExecConfig:
         :func:`~repro_torch.columnar.executor.resolve_backend` raises
         :class:`ConfigError` for ``shards > 1``.
     placement
-        ``device`` — where the engines' tensors live: ``"cuda"`` (the
-        default: the hand-written CUDA kernels) or ``"cpu"`` (their plain
-        PyTorch versions, used by the tests).  ``"cuda"`` without a GPU
-        raises; nothing falls back to the CPU.  The default engine is
-        ``"tape"``, so ``ExecConfig()`` runs on the card; the host oracle
-        ``engine="numpy"`` must be asked for by name, with ``device="cpu"``.
+        ``device`` — where the device engines' tensors live (the tape
+        engines ``"tape"`` / ``"tape-pallas"`` and the per-step block
+        engines ``"jax"`` / ``"pallas"``; each pair is two names for one
+        path in the port): ``"cuda"`` (the default: the hand-written CUDA
+        kernels) or ``"cpu"`` (their plain PyTorch versions, used by the
+        tests).  ``"cuda"`` without a GPU raises; nothing falls back to the
+        CPU.  The default engine is ``"tape"``, so ``ExecConfig()`` runs on
+        the card; the host oracle ``engine="numpy"`` must be asked for by
+        name, with ``device="cpu"``.
 
     Mutable collaborators (``model``, ``plan_cache``, ``mesh``, a
     ``FeedbackStore`` passed as ``feedback``) are typed ``Any`` and

@@ -114,7 +114,8 @@ from ..kernels.fused_chain import (MAX_STATIC_K, fused_chain_scan,
 from ..kernels.predicate_scan import predicate_scan, predicate_scan_multi
 from ..runtime import faults as _faults
 from .bitmap import (WORD, bitmap_full, extend_bitmap, live_block_count,
-                     n_words, next_pow2, pack_bits, popcount, unpack_bits)
+                     n_words, next_pow2, pack_bits, popcount, row_popcounts,
+                     unpack_bits)
 from .executor import _ZonePruner
 from .ingest import dirty_tail
 from .table import Table
@@ -142,12 +143,6 @@ def torch_device(name: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r}")
     return dev
-
-
-def _block_pops(words2d: np.ndarray) -> np.ndarray:
-    """Host ``u32[N, W]`` -> ``i32[N]`` per-block popcounts."""
-    return np.unpackbits(words2d.view(np.uint8), axis=1).sum(
-        axis=1, dtype=np.int32)
 
 
 def _costed_eval(kind: str, opcodes, cols, values, lmask, conj: bool,
@@ -612,7 +607,7 @@ class DeviceTapeBackend(SetBackend):
         words = words.reshape(-1, self.wpb)
         # the delta's popcounts are counted on the host, as _from_flat's
         dpops = np.zeros(self.nblocks, dtype=np.int32)
-        dpops[b0:] = _block_pops(words)
+        dpops[b0:] = row_popcounts(words)
         delta = torch.zeros((self.nblocks, self.wpb), dtype=torch.int32,
                             device=self.device)
         delta[b0:] = self._place(words.view(np.int32))
@@ -634,7 +629,7 @@ class DeviceTapeBackend(SetBackend):
         padded = np.zeros((self.nblocks, self.wpb), dtype=np.uint32)
         padded.reshape(-1)[: n_words(self.n)] = words
         return _DevSet(self._place(padded.view(np.int32)),
-                       self._place(_block_pops(padded)))
+                       self._place(row_popcounts(padded)))
 
     def _pull_flat(self, d: _DevSet) -> np.ndarray:
         """One host sync: fetch a device set as host flat packed words."""

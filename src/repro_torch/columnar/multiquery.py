@@ -25,10 +25,10 @@ lockstep batching
                  :class:`~repro_torch.core.bestd.BestDMachine` (correct for any
                  ordering, Thm 4); requests for the same atom arriving in
                  the same round stack their per-query live-block bitmaps
-                 into ONE fused kernel launch (on the tape engine the CUDA
-                 kernels ``predicate_scan_multi`` / ``dict_lookup_scan_multi``,
-                 through :class:`~repro_torch.columnar.device.
-                 DeviceTapeBackend`).
+                 into ONE fused kernel launch: ``predicate_scan_multi``
+                 (K5) on the block engines, K5 or ``dict_lookup_scan_multi``
+                 (K6) on the tape engine's :class:`~repro_torch.columnar.
+                 device.DeviceTapeBackend`.
 
 Correctness is engine-independent: an atom's record set does not depend on
 the set it is applied to (``apply_atom(a, d) == apply_atom(a, full) & d``),
@@ -499,10 +499,11 @@ class QuerySession:
     table:            the columnar table every query in a batch targets
     planner:          shallowfish | deepfish | optimal | nooropt | auto
                       (auto = shallowfish for depth <= 2, else deepfish)
-    engine:           numpy | tape | tape-pallas (the per-step block
-                      engines jax / pallas keep their names here but are
-                      not yet ported: building their backend raises
-                      ConfigError).  The numpy oracle needs
+    engine:           numpy | jax | pallas | tape | tape-pallas.  The block
+                      engines (jax/pallas, two names for one path in the
+                      port: :class:`~repro_torch.columnar.executor.
+                      BlockBackend`) run one fused kernel per step with
+                      host-resident bitmaps.  The numpy oracle needs
                       ``device="cpu"``.  The tape engines keep every bitmap
                       device-resident
                       (:class:`~repro_torch.columnar.device.DeviceTapeBackend`):

@@ -53,7 +53,14 @@ def bitmap_setop_plain(a: torch.Tensor, b: torch.Tensor, opcode: int):
 def bitmap_setop(a: torch.Tensor, b: torch.Tensor, opcode: int,
                  a_pops: torch.Tensor, b_pops: torch.Tensor):
     """a, b: i32[N, W]; a_pops, b_pops: i32[N], their exact per-row
-    popcounts -> (i32[N, W] result, i32[N] per-row popcounts)."""
+    popcounts -> (i32[N, W] result, i32[N] per-row popcounts).
+
+    The kernel reads only whether a row's input popcount is 0
+    (``csrc/bitmap_setop.cu``: such a row reads no word), so a nonzero
+    count for a row whose words are all zero is allowed as well: the row
+    is read and its output popcount is exact.  The block engine's
+    live-block scan passes ones for every row, as it does not know the
+    popcounts it asks the kernel for."""
     if a.device.type == "cpu":
         return bitmap_setop_plain(a, b, opcode)
     if a.device.type != "cuda":

@@ -14,8 +14,11 @@ launches.  ``--serve-port`` exposes ``/metrics``, ``/healthz`` and
 ``/explain?id=`` while the demo runs.  Then a :class:`RequestRouter`
 routes one request batch twice (the second from a warm plan cache).
 
-Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions).  The reference launcher's LM half (``--arch``,
+``--engine`` takes the reference's five engines (``jax`` and
+``pallas`` are one path in the port, the per-step block engine, as
+``tape`` and ``tape-pallas`` are); the stream demo runs ``numpy`` as
+``tape``, as the reference's does.  Everything runs on ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).  The reference launcher's LM half (``--arch``,
 batched generation with ``ServeEngine``) is not part of this package yet.
 """
 import argparse
@@ -25,12 +28,16 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", default="tape", choices=["numpy", "tape"],
+    ap.add_argument("--engine", default="tape",
+                    choices=["numpy", "jax", "pallas", "tape", "tape-pallas"],
                     help="predicate-router engine (tape = device-resident; "
-                         "numpy = the host oracle, on the CPU)")
+                         "jax / pallas = the per-step block engine; each "
+                         "pair one path; numpy = the host oracle, on the "
+                         "CPU); the --stream demo runs it too, numpy "
+                         "there meaning tape")
     ap.add_argument("--device", default="cuda",
-                    help="where the stream and the tape router run "
-                         "(cuda | cpu)")
+                    help="where the stream and the router's device engine "
+                         "run (cuda | cpu)")
     ap.add_argument("--stream", action="store_true",
                     help="demo the streaming admission layer: interleaved "
                          "metadata appends + async rule queries drained "
@@ -78,7 +85,8 @@ def main(argv=None):
         # that survive the process for warm restarts
         from ..columnar import (DrainPolicy, DurabilityError, StreamSession,
                                 Table)
-        scfg = StreamSession.DEFAULT_CONFIG.replace(engine="tape",
+        engine = args.engine if args.engine != "numpy" else "tape"
+        scfg = StreamSession.DEFAULT_CONFIG.replace(engine=engine,
                                                     device=args.device)
         skw = dict(config=scfg, max_pending=8 * len(rules),
                    background=True,

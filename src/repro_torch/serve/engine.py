@@ -43,8 +43,10 @@ class RequestRouter:
         ``"tape"`` (the default) the rule set runs device-resident on
         ``device`` — the power-of-two shape bucketing in the device backend
         means routers seeing drifting batch sizes reuse device programs
-        across calls.  The numpy oracle (the reference's default engine)
-        runs on the host: ``engine="numpy", device="cpu"``.
+        across calls.  ``"jax"`` / ``"pallas"`` (one path in the port)
+        run the rules in lockstep on the per-step block engine, its
+        kernels on ``device``.  The numpy oracle (the reference's default
+        engine) runs on the host: ``engine="numpy", device="cpu"``.
 
         ``persistent=True`` turns the router into a *streaming* router: the
         request metadata accumulates in one append-only table (every

@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (exact), and the tape engine on the card against the same engine
-on the CPU.  Marked ``cuda``; every test skips without a GPU.  This file
+version (exact), and the tape and per-step block engines on the card
+against the same engines on the CPU.  Marked ``cuda``; every test skips without a GPU.  This file
 imports neither JAX nor the reference package, so it runs on a machine
 that has only PyTorch:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports the reference package.)
 """
 from collections import Counter
 
@@ -18,7 +21,7 @@ from repro_torch import ExecConfig, make_forest_table, random_query_suite, run_q
 import repro_torch.columnar.device as port_device
 from repro_torch.columnar.device import DeviceTapeBackend
 from repro_torch.core import And, Atom, Or, normalize
-from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, ref
+from repro_torch.kernels import LAUNCHES, LAUNCHES_BY_Q, ref, reset_launches
 from repro_torch.kernels.bitmap_ops import (SetOp, bitmap_inter_multi,
                                             bitmap_inter_multi_plain,
                                             bitmap_setop,
@@ -548,3 +551,101 @@ def test_graphs_across_refresh_on_the_card(cuda_device):
         check_run()
         assert be.tape_programs == be.graph_captures == programs
     assert be.nblocks == 64 and len(be._programs) == 1
+
+
+# -- the per-step block engine ---------------------------------------------------
+
+BLOCK_COUNTERS = ("blocks_touched", "records_touched", "blocks_pruned",
+                  "kernel_invocations", "host_syncs", "uploaded_bytes",
+                  "staged_bytes", "fetched_bytes")
+
+
+@pytest.mark.parametrize("engine", ["jax", "pallas"])
+def test_block_engine_on_the_card_matches_the_cpu(cuda_device, engine):
+    """Numeric and string trees (code comparisons on K1, ``in`` / LIKE on
+    the host gather), then an append: every result, counter and op log of
+    the card equals the CPU's, K1 + K5 launches equal
+    ``kernel_invocations`` and K2 launches ``host_syncs`` less them."""
+    table = make_forest_table(20_000, n_dup=2, seed=7, strings=True)
+    trees = random_query_suite(table, 3, 8, 3, seed=2)
+    cfg = ExecConfig(engine=engine, planner="deepfish", block=1024)
+    cb = gb = None
+    reset_launches()
+    for rnd in range(2):
+        if rnd:
+            extra = make_forest_table(1500, n_dup=2, seed=9, strings=True)
+            table.append({k: extra.columns[k] for k in table.columns})
+            assert gb.refresh() == cb.refresh() > 0
+        for tree in trees:
+            want, _, cb = run_query(tree, table, backend=cb,
+                                    config=cfg.replace(device="cpu"))
+            got, _, gb = run_query(tree, table, backend=gb, config=cfg)
+            np.testing.assert_array_equal(got, want)
+    assert gb.device.type == "cuda" and gb.engine == engine
+    for k in BLOCK_COUNTERS:
+        assert getattr(gb, k) == getattr(cb, k), k
+    assert gb.drain_op_log() == cb.drain_op_log()
+    assert gb.kernel_invocations > 0
+    assert LAUNCHES["predicate_scan"] + LAUNCHES["predicate_scan_multi"] \
+        == gb.kernel_invocations
+    assert LAUNCHES["bitmap_setop"] == gb.host_syncs - gb.kernel_invocations
+
+
+def test_block_lockstep_on_the_card_warns_once_per_host_sync(cuda_device):
+    """A lockstep batch on the card: the CPU's bitmaps and counters, K5
+    launched, and as many synchronizing CUDA calls (sync debug mode) as
+    the backend's ``host_syncs``."""
+    import warnings
+
+    from repro_torch import QuerySession
+    table = make_forest_table(20_000, n_dup=2, seed=7)
+    trees = random_query_suite(table, 3, 8, 3, seed=4) * 3
+    cfg = ExecConfig(engine="jax", planner="deepfish", block=1024,
+                     batched="auto")
+    host = QuerySession(table, config=cfg.replace(device="cpu"))
+    sess = QuerySession(table, config=cfg)
+    for s in (host, sess):
+        s.execute(trees)                # uploads, fills the atom caches
+    want = host.execute(trees)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = sess.execute(trees)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    for g, w in zip(got.bitmaps, want.bitmaps):
+        np.testing.assert_array_equal(g, w)
+    assert got.stats.records_evaluated == want.stats.records_evaluated
+    assert len(syncs) == got.stats.host_syncs > 0
+    assert LAUNCHES["predicate_scan_multi"] > 0
+
+
+def test_ops_popcount_arguments_on_the_card(cuda_device):
+    """The entry points' popcount arguments reach the kernels: the given
+    counts equal the plain popcount's results, and K2 with every row
+    marked live (ones) still returns the exact output popcounts."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(1)
+    col = torch.from_numpy(rng.normal(size=(4, 8192)).astype(np.float32))
+    bits = rng.integers(0, 2 ** 32, size=(3, 4, 256), dtype=np.uint32)
+    bits[:, 1] = 0                                       # a dead block
+    bits = torch.from_numpy(bits.view(np.int32))
+    pops = ref.popcount_ref(bits)
+    dev = cuda_device
+    for op in range(6):
+        got = ops.predicate_blocks(col.to(dev), bits[0].to(dev), 0.1, op,
+                                   pops=pops[0].to(dev))
+        assert torch.equal(got.cpu(), ops.predicate_blocks(col, bits[0],
+                                                           0.1, op))
+        got = ops.predicate_blocks_multi(col.to(dev), bits.to(dev), 0.1, op,
+                                         pops=pops.to(dev))
+        assert torch.equal(got.cpu(), ops.predicate_blocks_multi(
+            col, bits, 0.1, op))
+    ones = torch.ones(4, dtype=torch.int32, device=dev)
+    out, got = ops.bitmap_op(bits[0].to(dev), bits[0].to(dev), 0, ones, ones)
+    assert torch.equal(out.cpu(), bits[0]) and torch.equal(got.cpu(),
+                                                           pops[0])

@@ -39,7 +39,7 @@ def _rules(atom):
 
 
 @pytest.mark.parametrize("persistent", [False, True])
-@pytest.mark.parametrize("engine", ["numpy", "tape"])
+@pytest.mark.parametrize("engine", ["numpy", "tape", "jax"])
 def test_router_route_matrices_match_reference(engine, persistent):
     ref = RefRouter(_rules(RefAtom), engine=engine, persistent=persistent)
     port = RequestRouter(_rules(Atom), engine=engine, device="cpu",
@@ -57,6 +57,10 @@ def test_router_route_matrices_match_reference(engine, persistent):
         assert ps.logical_atoms == rs.logical_atoms
         assert ps.physical_atoms == rs.physical_atoms
         assert ps.plan_hit_rate == rs.plan_hit_rate
+        if engine == "jax":
+            assert ps.host_syncs == rs.host_syncs
+            assert ps.records_evaluated == rs.records_evaluated
+            assert ps.lockstep_rounds == rs.lockstep_rounds > 0
 
 
 def test_router_defaults_to_the_card():
@@ -174,3 +178,17 @@ def test_launcher_durable_restart_recovers_and_warms(tmp_path):
                    for line in out)
         assert any(line.startswith("durable: committed seq") for line in out)
         assert "second batch: plan-cache hit rate 100%" in out
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_launcher_runs_the_block_engine(stream):
+    """``--engine jax`` reaches the router, and with ``--stream`` the
+    stream demo too (the reference passes the engine through)."""
+    out = _launch(*(("--stream",) if stream else ()), "--engine", "jax",
+                  "--device", "cpu")
+    assert "second batch: plan-cache hit rate 100%" in out
+    assert any(line.startswith("router batch: atom dedupe") for line in out)
+    if stream:
+        assert any(line.startswith("stream drain 1:") for line in out)
+        st = [line for line in out if line.startswith("stream: ")]
+        assert st and "degraded 0" in st[0]

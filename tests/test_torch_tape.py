@@ -282,12 +282,15 @@ def test_backend_reuse_keeps_columns_and_counts(forest):
     assert p_be.stats.records_evaluated == r_be.stats.records_evaluated
 
 
-def test_unported_engines_and_sharding_raise(forest):
+def test_block_engines_build_and_sharding_raises(forest):
     port_table = table_from_arrays(forest.columns)
     tree = T.random_query_suite(port_table, 1, 4, 2, seed=1)[0]
-    for cfg in (T.ExecConfig(engine="jax"), T.ExecConfig(engine="pallas"),
-                T.ExecConfig(engine="tape", shards=2, device="cpu")):
-        with pytest.raises(T.ConfigError, match="not yet ported"):
-            T.run_query(tree, port_table, config=cfg)
+    for eng in ("jax", "pallas"):
+        _, _, be = T.run_query(tree, port_table, config=T.ExecConfig(
+            engine=eng, device="cpu"))
+        assert isinstance(be, T.BlockBackend) and be.engine == eng
+    with pytest.raises(T.ConfigError, match="not yet ported"):
+        T.run_query(tree, port_table, config=T.ExecConfig(
+            engine="tape", shards=2, device="cpu"))
     with pytest.raises(T.ConfigError):
         T.ExecConfig(device="tpu")
