@@ -82,14 +82,29 @@ Phases:
    While it runs on the card every plain function of
    ``repro_torch.kernels.ref`` raises, and the bucket N of every K1 / K5
    launch is logged
+12. block-sharded execution (``ShardedTapeBackend``) at S = 1
+   (``make_shard_mesh(1)``), 2 and 4 (an explicit ``ShardMesh`` naming
+   cuda:0 S times, and the first S cards where the machine has them),
+   beside the unsharded tape engine in the same run: phase 3's 32 trees
+   and phase 4's string trees cold and warm (each result the oracle's,
+   counters and op logs the unsharded engine's, every warm query one
+   sync-debug warning, S graph replays and S times the unsharded
+   launches; warm wall and ``run_tape`` p50, bytes held per shard), phase
+   8's lockstep batches (one sync, ``records_evaluated`` the host lockstep
+   session's), and a sharded ``StreamSession`` with 2 rounds of a 2 %
+   append (the real dirty tail uploaded, ``delta_upload_shards``, no
+   program made inside the bucket); ``make_shard_mesh`` past the visible
+   cards raises.  Every plain function of ``kernels.ref`` raises meanwhile
 
-Each path of phases 3-6 and 8-11 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-12 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
 operation's launches must equal its backend's ``setop_launches`` and all
 other launches its device dispatches less the set operations it deferred
-(each other dispatch is one launch); on a per-step path (phase 11) the K1
+(each other dispatch is one launch, on each shard of a sharded backend,
+phase 12, as is each op of a sharded tape); on a per-step path (phase 11)
+the K1
 and K5 launches must equal its backends' ``kernel_invocations``, the K2
 launches (one live-block scan per step) ``host_syncs`` less
 ``kernel_invocations``, and nothing else may launch; and each kernel the
@@ -205,6 +220,17 @@ PATH_KERNELS = {
     "block_lockstep": ("bitmap_setop", "predicate_scan_multi"),
     "block_strings": ("bitmap_setop", "predicate_scan"),
     "block_stream": ("bitmap_setop", "predicate_scan_multi"),
+    # phase 12: block-sharded execution, every kernel once per shard
+    "sharded": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
+    "sharded_lockstep": ("predicate_scan_multi", "bitmap_setop_grouped",
+                         "bitmap_inter_multi", "bitmap_union_reduce"),
+    "sharded_strings": ("predicate_scan", "bitmap_setop", "fused_chain_scan",
+                        "dict_lookup_scan"),
+    "sharded_lockstep_strings": ("dict_lookup_scan_multi",
+                                 "bitmap_setop_grouped",
+                                 "bitmap_union_reduce"),
+    "sharded_stream": ("predicate_scan_multi", "bitmap_setop_grouped",
+                       "bitmap_setop", "bitmap_union_reduce"),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -241,7 +267,8 @@ LOOKUP_EDGES = [float("nan"), -0.5, 3.75, float("inf"), float("-inf"),
 #: median, the stream's, and 64)
 COMPARE_QS = (3, 8, 64)
 #: paths whose tapes run as CUDA-graph replays
-GRAPH_PATHS = ("numeric", "strings", "zones", "cold_restart", "warm_restart")
+GRAPH_PATHS = ("numeric", "strings", "zones", "cold_restart", "warm_restart",
+               "sharded", "sharded_strings")
 #: backend counters the lockstep paths' launch accounting reads
 ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
 
@@ -311,16 +338,18 @@ NEEDED: Counter = Counter()
 def need_launches(be, tape) -> None:
     """Add the launches ``tape`` needs on ``be`` to :data:`NEEDED`: one per
     SETOP and one per ATOM / CHAIN op that runs on the device (a host
-    fallback op launches nothing)."""
+    fallback op launches nothing), on each of a sharded backend's
+    shards."""
     from repro_torch.core.tape import ATOM, CHAIN, IN_OPCODE, SETOP
+    shards = getattr(be, "shards", 1)
     _, _, _, meta, device_ok = be._tape_bindings(tape)
     for op, (_, _, opcodes), ok in zip(tape.ops, meta, device_ok):
         if op.kind == SETOP:
-            NEEDED["bitmap_setop"] += 1
+            NEEDED["bitmap_setop"] += shards
         elif op.kind in (ATOM, CHAIN) and ok:
             NEEDED["dict_lookup_scan" if opcodes[0] == IN_OPCODE else
                    "predicate_scan" if op.kind == ATOM else
-                   "fused_chain_scan"] += 1
+                   "fused_chain_scan"] += shards
 
 
 class Tracker:
@@ -1988,8 +2017,9 @@ def phase_lockstep_strings(table, trees, results, dev_name, sync_check):
     pick += [frag, frag]
     batch = [trees[i] for i in pick]
     want = [results[i] for i in pick]
-    return lockstep_batches(table, batch, want, dev_name,
-                            "lockstep_strings", sync_check)
+    return dict(lockstep_batches(table, batch, want, dev_name,
+                                 "lockstep_strings", sync_check),
+                batch=batch, want=want)
 
 
 def rows_like(table, n, seed):
@@ -3017,6 +3047,415 @@ def phase_block_stream(table, queries, steps, rounds=2, dev_name="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: block-sharded execution (ShardedTapeBackend): S = 1, 2 and 4
+# shards of the card (S = 2 and 4 on cuda:0 named S times, and on S cards
+# where the machine has them), held against the unsharded tape engine, the
+# lockstep session and the numpy oracle in the same run
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)
+#: per-query counters a sharded tape shares with the unsharded one
+SHARD_SAME = ("host_syncs", "device_dispatches", "host_fallbacks",
+              "blocks_touched", "blocks_pruned", "records_evaluated")
+
+
+def shard_meshes():
+    """(label, mesh) for each shard count: S = 1 through ``make_shard_mesh``,
+    S = 2 and 4 on cuda:0 named S times (an explicit ``ShardMesh``), and
+    on the first S cards where the machine has them."""
+    import torch
+
+    from repro_torch.launch.mesh import ShardMesh, make_shard_mesh
+    out = [("S=1", make_shard_mesh(1))]
+    for s in SHARD_COUNTS[1:]:
+        out.append((f"S={s} on one card", ShardMesh(["cuda:0"] * s)))
+        if torch.cuda.device_count() >= s:
+            out.append((f"S={s} on {s} cards", make_shard_mesh(s)))
+    return out
+
+
+def shard_pass(tr, trees, table, want, label, sync_check=False, **cfg):
+    """Each tree once through ``run_query`` on the Tracker's backend
+    (``cfg``: the ExecConfig's mesh, or nothing for the unsharded engine),
+    each result equal to ``want`` (the numpy oracle's).  Returns, per
+    query, the wall (ms), the counter deltas, the op log, the sync-debug
+    warnings (when ``sync_check``) and the launches counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    out = {"walls_ms": [], "deltas": [], "logs": [], "warned": [],
+           "launches": []}
+    sites = Counter()
+    if sync_check:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i, tree in enumerate(trees):
+            before = dict(LAUNCHES)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = tr.run(tree, table, **cfg)
+                out["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+            where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                     if SYNC_WARNING in str(w.message)]
+            out["warned"].append(len(where))
+            sites.update(where)
+            out["launches"].append({k: LAUNCHES[k] - before[k]
+                                    for k in LAUNCHES})
+            out["deltas"].append(dict(tr.last))
+            out["logs"].append(tr.be.drain_op_log())
+            check(np.array_equal(res, want[i]),
+                  f"{label} query {i}: result != the numpy oracle's")
+    finally:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode(0)
+    out["sites"] = dict(sites)
+    return out
+
+
+def same_as_unsharded(run, base, shards, label, warm):
+    """A sharded pass against the unsharded one over the same trees: equal
+    counters and op logs, and per query S times the programs, captures,
+    replays and (warm) launches."""
+    for i, (d, b) in enumerate(zip(run["deltas"], base["deltas"])):
+        got = {k: d[k] for k in SHARD_SAME}
+        ref = {k: b[k] for k in SHARD_SAME}
+        check(got == ref, f"{label} query {i}: counters {got} != the "
+              f"unsharded engine's {ref}")
+        for k in PROGRAM_FIELDS:
+            check(d[k] == shards * b[k], f"{label} query {i}: {k} {d[k]} "
+                  f"!= {shards} x {b[k]}")
+        if warm:
+            need = {k: shards * v for k, v in base["launches"][i].items()}
+            check(run["launches"][i] == need, f"{label} query {i}: "
+                  f"launches {run['launches'][i]} != {shards} x the "
+                  f"unsharded engine's")
+    check(run["logs"] == base["logs"], f"{label}: op logs differ from the "
+          "unsharded engine's")
+
+
+def shard_bytes(be):
+    """Bytes each shard holds: its column blocks and its part of the full
+    set."""
+    held = [0] * be.shards
+    sets = [c for c in be._cols.values() if c is not False]
+    full = be._full or ()
+    for s in range(be.shards):
+        held[s] = sum(c[s].numel() * c[s].element_size() for c in sets)
+        if full:
+            held[s] += sum(t.numel() * t.element_size() for t in full[s])
+    return held
+
+
+def device_bytes(devices):
+    import torch
+    return {str(d): torch.cuda.memory_allocated(d)
+            for d in sorted(set(devices), key=str)}
+
+
+def phase_shard_tapes(table, trees, results, label, paths, start_path,
+                      end_path):
+    """Phase 12, tapes: ``trees`` (held equal to the numpy oracle by an
+    earlier phase, ``results``) through ``run_query(config=ExecConfig(
+    engine="tape", mesh=...))`` for each shard mesh, cold and warm, beside
+    the unsharded tape engine on the same table: every result the oracle's,
+    counters and op logs the unsharded engine's, S programs and captures
+    per cold query, one sync-debug warning, S graph replays and S times the
+    unsharded launches per warm query.  Then every backend's warm pass and
+    breakdown (the ``run_tape`` p50) again, in the reverse order (walls of
+    one backend against another within one call move with the host), and
+    the bytes each shard holds.  Each pass is a piece of its path:
+    ``paths`` = (the unsharded engine's, the sharded engines')."""
+    import numpy as np
+    import torch
+    runs = [("unsharded", None)] + shard_meshes()
+    trs, base_cold, base, out = {}, None, None, {}
+    for mlabel, mesh in runs:
+        cfg = {} if mesh is None else {"mesh": mesh}
+        s = 1 if mesh is None else mesh.size
+        devs = [torch.device("cuda", 0)] if mesh is None else mesh.devices
+        tr = trs[mlabel] = Tracker()
+        m0 = device_bytes(devs)
+        start_path()
+        cold = shard_pass(tr, trees, table, results,
+                          f"{label} {mlabel} cold", **cfg)
+        warm = shard_pass(tr, trees, table, results,
+                          f"{label} {mlabel} warm", sync_check=True, **cfg)
+        check(set(warm["warned"]) == {1}, f"{label} {mlabel}: sync-debug "
+              f"warnings per warm query {warm['warned']} at "
+              f"{warm['sites']}")
+        end_path(paths[mesh is not None], more=True)
+        if mesh is None:
+            base_cold, base = cold, warm
+        else:
+            same_as_unsharded(cold, base_cold, s, f"{label} {mlabel} cold",
+                              warm=False)
+            same_as_unsharded(warm, base, s, f"{label} {mlabel} warm",
+                              warm=True)
+        m1 = device_bytes(devs)
+        out[mlabel] = {
+            "shards": s, "devices": [str(d) for d in devs],
+            "walls_ms": list(warm["walls_ms"]), "run_tape_ms": [],
+            "launches_per_query": sum(sum(q.values())
+                                      for q in warm["launches"]) / len(trees),
+            "bytes_per_shard": (shard_bytes(tr.be) if mesh is not None
+                                else None),
+            "device_bytes_held": {d: m1[d] - m0[d] for d in m1}}
+        log(f"  {label} {mlabel} ({', '.join(out[mlabel]['devices'])}): "
+            f"{len(trees)} queries equal to the numpy oracle cold and warm"
+            + ("" if mesh is None else ", counters and op logs equal to the "
+               "unsharded engine's") + f"; {program_text(tr.be)}; every "
+            f"warm query 1 sync-debug warning (at {warm['sites']}), {s} "
+            f"graph replay(s) and {s} x the unsharded launches")
+    # the timings again, in the reverse order
+    for mlabel, mesh in runs[::-1]:
+        cfg = {} if mesh is None else {"mesh": mesh}
+        start_path()
+        warm = shard_pass(trs[mlabel], trees, table, results,
+                          f"{label} {mlabel} warm again", **cfg)
+        end_path(paths[mesh is not None], more=True)
+        out[mlabel]["walls_ms"] += warm["walls_ms"]
+    for order in (runs, runs[::-1]):
+        for mlabel, mesh in order:
+            start_path()
+            bd = warm_breakdown(trs[mlabel], table, trees)
+            end_path(paths[mesh is not None], more=True)
+            out[mlabel]["run_tape_ms"].append(bd["run_tape_ms_p50"])
+    u = out["unsharded"]
+    u_wall = float(np.median(u["walls_ms"]))
+    u_tape = float(np.mean(u["run_tape_ms"]))
+    for mlabel, mesh in runs:
+        row = out[mlabel]
+        row["wall_ms_p50"] = float(np.median(row.pop("walls_ms")))
+        row["run_tape_ms_p50"] = float(np.mean(row["run_tape_ms"]))
+        log(f"  {label} {mlabel}: warm wall ms p50 {row['wall_ms_p50']:.3f}"
+            f" (unsharded {u_wall:.3f}), run_tape ms p50 (mean of the two "
+            f"orders {row['run_tape_ms']}) {row['run_tape_ms_p50']:.3f} "
+            f"(unsharded {u_tape:.3f}), launches per warm query "
+            f"{row['launches_per_query']:.2f}; bytes held per shard "
+            f"(columns and full set) {row['bytes_per_shard']}, device "
+            f"memory held {row['device_bytes_held']} B")
+    del trs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard_lockstep(table, batch, want, host_records, label, base_path,
+                         start_path, end_path):
+    """Phase 12, lockstep: phase 8's batch through an unsharded
+    ``QuerySession(ExecConfig(engine="tape", batched=True))`` and one with
+    ``mesh=...`` for each shard mesh: a first batch each, a cached batch
+    each, and a cached batch again in the reverse order, every bitmap the
+    oracle's, one host sync (one sync-debug warning) per batch,
+    ``records_evaluated`` the host lockstep session's (phase 8's
+    ``host_records``, first and cached, where given; else, and for the
+    third batches, that of the first session to run the batch).  Each batch is a piece of its
+    path: ``label`` for the sharded sessions, ``base_path`` for the
+    unsharded one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.columnar import ExecConfig, QuerySession
+    runs = [("unsharded", None)] + shard_meshes()
+    sessions = {}
+    for mlabel, mesh in runs:
+        sess = QuerySession(table, config=ExecConfig(
+            planner="deepfish", engine="tape", batched=True,
+            **({} if mesh is None else {"mesh": mesh})))
+        sessions[mlabel] = (sess, upload_columns(sess, batch))
+    out = {m: {"walls_ms": []} for m, _ in runs}
+    order = ([(m, mesh, 0) for m, mesh in runs]
+             + [(m, mesh, 1) for m, mesh in runs]
+             + [(m, mesh, 2) for m, mesh in runs[::-1]])
+    last = max(k for k, (_, mesh, _) in enumerate(order) if mesh is not None)
+    records = dict(enumerate(host_records))
+    for k, (mlabel, mesh, batch_no) in enumerate(order):
+        sess, be = sessions[mlabel]
+        start_path()
+        c0 = counts_of(be)
+        res, wall, syncs, _ = checked_run(lambda: sess.execute(batch), True)
+        for j, bm in enumerate(res.bitmaps):
+            check(np.array_equal(bm, want[j]), f"{label} {mlabel} batch "
+                  f"{k}: query {j} != numpy oracle")
+        st = res.stats
+        check(st.host_syncs == 1 and len(syncs) == 1, f"{label} {mlabel}: "
+              f"host_syncs {st.host_syncs}, sync-debug warnings {syncs}")
+        check(st.host_fallbacks == 0, f"{label} {mlabel}: fallbacks")
+        want_rec = records.setdefault(batch_no, st.records_evaluated)
+        check(st.records_evaluated == want_rec, f"{label} {mlabel} batch "
+              f"{batch_no}: records_evaluated {st.records_evaluated} != "
+              f"{want_rec}")
+        counts = {c: v - c0[c] for c, v in counts_of(be).items()}
+        if mesh is None:
+            end_path(base_path, counts, more=True)
+        else:
+            end_path(label, counts, shards=mesh.size, more=k < last)
+        out[mlabel]["walls_ms"].append(wall)
+        whose = ("the host lockstep session" if batch_no < len(host_records)
+                 else "the first session to run it")
+        log(f"  {label} {mlabel} batch {batch_no} of {len(batch)} queries "
+            f"({'cached' if batch_no else 'first'}): wall {wall:.3f} ms, 1 "
+            f"host sync (sync debug: {syncs}), records_evaluated "
+            f"{st.records_evaluated:.0f} (= {whose}'s), dispatches "
+            f"{st.device_dispatches}, atom_cache_hits {st.atom_cache_hits}")
+    u = out["unsharded"]["walls_ms"]
+    for mlabel, _ in runs:
+        w = out[mlabel]["walls_ms"]
+        out[mlabel] = {"first_ms": w[0], "cached_ms": w[1:],
+                       "cached_mean_ms": float(np.mean(w[1:]))}
+        log(f"  {label} {mlabel}: first batch {w[0]:.3f} ms (unsharded "
+            f"{u[0]:.3f}), cached {w[1]:.3f} and {w[2]:.3f} ms, mean "
+            f"{np.mean(w[1:]):.3f} (unsharded {np.mean(u[1:]):.3f})")
+    del sessions
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard_stream(table, queries, start_path, end_path, rounds=2):
+    """Phase 12, stream: for each shard mesh a ``StreamSession(config=
+    DEFAULT_CONFIG.replace(mesh=...))`` on a copy of the strings table, a
+    cold drain and ``rounds`` rounds of a 2 % append and a drain of the 64
+    queries: every result the numpy oracle's (computed once per round:
+    each mesh's copy takes the same rows), one host sync (one sync-debug
+    warning) per drain, uploads the real dirty tail only, on
+    ``delta_upload_shards`` shards; two tapes run on the stream's backend
+    after each drain make no new program while the append stays inside the
+    block bucket."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.columnar import ExecConfig, StreamSession, run_query
+    from repro_torch.columnar.wal import _table_from_state, _table_state
+    distinct = {id(q): q for q in queries}
+    tapes = list(distinct.values())[:2]
+    state = _table_state(table)
+    oracles = {}
+    out = {}
+    meshes = shard_meshes()
+    for k, (mlabel, mesh) in enumerate(meshes):
+        t = _table_from_state(copy.deepcopy(state))
+        stream = StreamSession(t, config=StreamSession.DEFAULT_CONFIG
+                               .replace(mesh=mesh), max_pending=65)
+        n_append = int(t.n_records * 0.02)
+        tr = Tracker()
+        rows_out = []
+        for rnd in range(rounds + 1):
+            if rnd:
+                old_n, old_nb = t.n_records, be.nblocks
+                dirty = old_n // be.block
+                d0, u0 = be.delta_upload_shards, be.uploaded_bytes
+                stream.append(rows_like(t, n_append, seed=600 + rnd))
+                for name in t.columns:
+                    t.stats(name)
+            futs = [stream.submit(q) for q in queries]
+            start_path()
+            c0 = counts_of(be) if rnd else None
+            # the cold drain uploads the columns from pageable memory,
+            # which synchronizes (set-up); each later drain syncs once
+            res, wall, syncs, _ = checked_run(stream.drain, rnd > 0)
+            be = res.backend
+            if rnd:
+                counts = {c: v - c0[c] for c, v in counts_of(be).items()}
+                end_path("sharded_stream", counts, shards=mesh.size,
+                         more=rnd < rounds or k < len(meshes) - 1)
+            else:
+                end_path("sharded_stream", counts_of(be), shards=mesh.size,
+                         more=True)
+            if rnd not in oracles:
+                oracles[rnd] = (t.n_records, {i: run_query(
+                    q, t, config=ExecConfig(engine="numpy", device="cpu",
+                                            planner="deepfish"))[0]
+                    for i, q in distinct.items()})
+            n_rec, want = oracles[rnd]
+            check(t.n_records == n_rec, f"{mlabel} stream round {rnd}: "
+                  f"{t.n_records} rows, the oracle's table {n_rec}")
+            for j, (f, q) in enumerate(zip(futs, queries)):
+                check(np.array_equal(f.result(), want[id(q)]),
+                      f"{mlabel} stream round {rnd}: query {j} != oracle")
+            st = res.stats
+            check(st.host_syncs == 1 and len(syncs) == (rnd > 0),
+                  f"{mlabel} stream round {rnd}: host_syncs {st.host_syncs},"
+                  f" sync-debug warnings {syncs}")
+            check(getattr(be, "shards", 0) == mesh.size,
+                  f"{mlabel}: the stream's backend is not sharded")
+            # two tapes on the stream's backend: programs kept in the bucket
+            p0 = be.tape_programs
+            tr.be = be
+            start_path()
+            for q in tapes:
+                got = tr.run(q, t, mesh=mesh)
+                check(np.array_equal(got, want[id(q)]), f"{mlabel} stream "
+                      f"round {rnd}: tape != oracle")
+            be.drain_op_log()
+            end_path("sharded", more=True)
+            made = be.tape_programs - p0
+            row = {"wall_ms": wall, "upload_bytes": st.upload_bytes,
+                   "programs_made": made}
+            if rnd:
+                grew = be.nblocks != old_nb
+                real = t.n_blocks(be.block)
+                n_cols = sum(1 for c in be._cols.values() if c is not False)
+                tail = n_cols * (real - dirty) * be.block * 4
+                row.update(delta_upload_shards=be.delta_upload_shards - d0,
+                           uploaded_bytes=be.uploaded_bytes - u0,
+                           dirty_tail_bytes=tail, bucket_grew=grew)
+                check(row["uploaded_bytes"] == tail, f"{mlabel} stream "
+                      f"round {rnd}: uploaded {row['uploaded_bytes']} B, "
+                      f"the real dirty tail is {tail} B")
+                check(1 <= row["delta_upload_shards"] <= mesh.size,
+                      f"{mlabel} stream round {rnd}: delta_upload_shards "
+                      f"{row['delta_upload_shards']}")
+                check(grew or made == 0, f"{mlabel} stream round {rnd}: "
+                      f"{made} programs made inside the block bucket")
+            rows_out.append(row)
+            log(f"  {mlabel} stream round {rnd}: {t.n_records} rows in "
+                f"{be.nblocks} blocks; drain {wall:.3f} ms, 1 host sync "
+                f"(sync debug: {syncs if rnd else 'off'}), upload "
+                f"{st.upload_bytes:.0f} B"
+                + (f" (the real dirty tail {row['dirty_tail_bytes']} B, on "
+                   f"{row['delta_upload_shards']} of {mesh.size} shards; "
+                   f"bucket grew: {row['bucket_grew']})" if rnd else "")
+                + f"; 2 tapes on its backend: {made} programs made")
+        ss = stream.stats
+        check(ss.degraded_batches == 0 and ss.quarantined_queries == 0
+              and ss.retries == 0 and ss.failed == 0,
+              f"{mlabel} stream degraded: {ss.as_dict()}")
+        check(any(r.get("bucket_grew") is False for r in rows_out),
+              f"{mlabel} stream: no append stayed inside the block bucket")
+        stream.close()
+        out[mlabel] = rows_out
+        del stream, t, tr, be
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_mesh_errors():
+    """``make_shard_mesh`` past the visible cards raises ConfigError."""
+    import torch
+
+    from repro_torch.columnar import ConfigError
+    from repro_torch.launch.mesh import make_shard_mesh
+    n = torch.cuda.device_count()
+    try:
+        make_shard_mesh(n + 1)
+    except ConfigError as e:
+        log(f"  make_shard_mesh({n + 1}) with {n} card(s) visible raises "
+            f"ConfigError: {e}")
+    else:
+        raise AssertionError(f"make_shard_mesh({n + 1}) did not raise")
+    meshes = [label for label, _ in shard_meshes()]
+    log(f"  meshes run: {meshes}")
+    if n < 2:
+        log("  one card: S = 2 and 4 run on cuda:0 named S times; the "
+            "cross-card copy of the gather is not measured")
+
+
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3385,10 +3824,12 @@ def main(argv) -> int:
         reset_launches()
         NEEDED.clear()
 
-    def end_path(path, counts=None, child=None, more=False, step=None):
+    def end_path(path, counts=None, child=None, more=False, step=None,
+                 shards=1):
         """Hold the launches since :func:`start_path` and add them to
         ``path``'s.  ``counts``: the piece's ACCOUNT counters of its
-        backend (None for a tape path).  ``step``: a per-step path's
+        backend (None for a tape path), whose dispatches each launch once
+        on each of its ``shards``.  ``step``: a per-step path's
         ``kernel_invocations`` and ``host_syncs``, added up over its block
         backends: K1 + K5 launches must equal the first, K2 launches (one
         live-block scan per fetch that is not a K1 / K5 result) the second
@@ -3440,13 +3881,15 @@ def main(argv) -> int:
         else:
             grouped = got["bitmap_setop_grouped"]
             others = sum(got.values()) - grouped
-            want = counts["device_dispatches"] - counts["setops_deferred"]
+            want = shards * (counts["device_dispatches"]
+                             - counts["setops_deferred"])
             check(grouped == counts["setop_launches"], f"{path} path: "
                   f"{grouped} grouped launches != the backend's "
                   f"setop_launches {counts['setop_launches']}")
             check(others == want, f"{path} path: {others} other launches "
-                  f"!= {counts['device_dispatches']} device dispatches - "
-                  f"{counts['setops_deferred']} deferred set operations")
+                  f"!= {shards} x ({counts['device_dispatches']} device "
+                  f"dispatches - {counts['setops_deferred']} deferred set "
+                  "operations)")
         for name in () if more else PATH_KERNELS[path]:
             check(total[name] > 0, f"{name} was never launched on the "
                   f"{path} path")
@@ -3515,6 +3958,9 @@ def main(argv) -> int:
     end_path("block_lockstep", step=steps.counts)
     log(f"  block_lockstep path: bucket N of the K1 / K5 launches "
         f"{steps.hist()}")
+    # phase 12 (after phase 11's stream) takes these tables again
+    numeric = {"table": table, "trees": trees, "results": results,
+               "lock": lock}
     del table, trees, results, lock
     torch.cuda.empty_cache()
     log(f"  phase 11 (lockstep) took {time.perf_counter() - t0:.1f} s")
@@ -3535,7 +3981,7 @@ def main(argv) -> int:
     lock_s = phase_lockstep_strings(table, trees, results, "cuda",
                                     sync_check=True)
     end_path("lockstep_strings", counts_of(lock_s["backend"]))
-    del lock_s
+    del lock_s["backend"]
     torch.cuda.empty_cache()
     log(f"  phase 8 (strings) took {time.perf_counter() - t0:.1f} s")
 
@@ -3547,7 +3993,8 @@ def main(argv) -> int:
     end_path("block_strings", step=steps.counts)
     log(f"  block_strings path: bucket N of the K1 / K5 launches "
         f"{steps.hist()}")
-    del trees, results
+    strings = {"trees": trees, "results": results, "lock": lock_s}
+    del trees, results, lock_s
     torch.cuda.empty_cache()
     log(f"  phase 11 (strings) took {time.perf_counter() - t0:.1f} s")
 
@@ -3587,9 +4034,68 @@ def main(argv) -> int:
     log(f"  block_stream path: bucket N of the K1 / K5 launches "
         f"{steps.hist()}")
     log(f"  phase 11 summary: " + json.dumps(block, default=str))
-    del table, stream, block
     torch.cuda.empty_cache()
     log(f"  phase 11 (stream) took {time.perf_counter() - t0:.1f} s")
+
+    # phase 12 runs last of the main paths (no profiled window follows it)
+    # and with every plain function of kernels.ref raising
+    log("phase 12: block-sharded execution (ShardedTapeBackend), numeric "
+        "tapes, S = 1, 2, 4; " + smi)
+    t0 = time.perf_counter()
+    shard_mesh_errors()
+    with NoPlain():
+        sharded = {"numeric": phase_shard_tapes(
+            numeric["table"], numeric["trees"], numeric["results"],
+            "numeric", ("numeric", "sharded"), start_path, end_path)}
+    start_path()                 # adds nothing: each kernel of the path ran
+    end_path("sharded")
+    log(f"  phase 12 (numeric) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 12: block-sharded lockstep QuerySession batch (64 queries)")
+    t0 = time.perf_counter()
+    lock = numeric["lock"]
+    with NoPlain():
+        sharded["lockstep"] = phase_shard_lockstep(
+            numeric["table"], lock["batch"], lock["want"],
+            [r["records_evaluated"] for r in lock["runs"][:2]],
+            "sharded_lockstep", "lockstep", start_path, end_path)
+    del numeric, lock
+    torch.cuda.empty_cache()
+    log(f"  phase 12 (lockstep) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 12: block-sharded strings and fragmented strings, and the "
+        "lockstep strings batch")
+    t0 = time.perf_counter()
+    # phases 9-10 appended to the strings table since phase 4: the oracle
+    # again, and the unsharded session's records_evaluated as the baseline
+    results = {id(q): oracle(q, table) for q in strings["trees"]}
+    with NoPlain():
+        sharded["strings"] = phase_shard_tapes(
+            table, strings["trees"],
+            [results[id(q)] for q in strings["trees"]], "strings",
+            ("strings", "sharded_strings"), start_path, end_path)
+    start_path()
+    end_path("sharded_strings")
+    batch = strings["lock"]["batch"]
+    with NoPlain():
+        sharded["lockstep_strings"] = phase_shard_lockstep(
+            table, batch, [results[id(q)] for q in batch], [],
+            "sharded_lockstep_strings", "lockstep_strings", start_path,
+            end_path)
+    del strings, results, batch
+    torch.cuda.empty_cache()
+    log(f"  phase 12 (strings) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 12: block-sharded StreamSession, 2 append rounds of 2 % on "
+        "the strings table")
+    t0 = time.perf_counter()
+    with NoPlain():
+        sharded["stream"] = phase_shard_stream(table, stream["queries"],
+                                               start_path, end_path)
+    log(f"  phase 12 summary ({smi}): " + json.dumps(sharded, default=str))
+    del table, stream, block, sharded
+    torch.cuda.empty_cache()
+    log(f"  phase 12 (stream) took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -5,8 +5,10 @@ compiled-tape engine and per-step block engine on the CUDA kernels).
 Single-query path: ``run_query(tree, table, config=ExecConfig(engine=
 "tape"))`` rewrites dictionary-encodable string atoms, plans with one of
 the paper's planners, compiles the plan to a tape and runs it through
-:class:`DeviceTapeBackend` with one host sync.  ``ExecConfig(engine="numpy",
-device="cpu")`` runs the :class:`BitmapBackend` oracle on the host instead;
+:class:`DeviceTapeBackend` with one host sync (block-sharded over a mesh
+of devices by :class:`ShardedTapeBackend` under ``ExecConfig(shards=S)``).
+``ExecConfig(engine="numpy", device="cpu")`` runs the
+:class:`BitmapBackend` oracle on the host instead;
 ``engine="jax"`` (or ``"pallas"``, the same path) the per-step
 :class:`BlockBackend`, one device step and two host syncs per atom
 application.
@@ -34,6 +36,7 @@ from .ingest import ZoneMap
 from .multiquery import (BatchResult, BatchStats, LRUPlanCache, PlanCacheStats,
                          QuerySession)
 from .queries import random_query_suite, random_tree
+from .shard import ShardedTapeBackend
 from .stream import (StreamBackpressure, StreamClosed, StreamFuture,
                      StreamQueryError, StreamSession, StreamStats)
 from .table import (DictColumn, Table, annotate_selectivities,
@@ -47,8 +50,8 @@ __all__ = [
     "bitmap_andnot", "bitmap_full", "bitmap_empty", "extend_bitmap", "WORD",
     "Table", "DictColumn", "annotate_selectivities", "empirical_selectivity",
     "rewrite_string_atoms", "make_forest_table",
-    "BitmapBackend", "BlockBackend", "DeviceTapeBackend", "run_query",
-    "resolve_backend",
+    "BitmapBackend", "BlockBackend", "DeviceTapeBackend",
+    "ShardedTapeBackend", "run_query", "resolve_backend",
     "ExecConfig", "ConfigError",
     "ZoneMap", "random_tree", "random_query_suite",
     "QuerySession", "LRUPlanCache", "BatchResult", "BatchStats",

@@ -79,10 +79,14 @@ class ExecConfig:
     feedback
         ``feedback`` / ``feedback_absorb``
     sharding
-        ``shards`` / ``mesh`` — validated exactly as in the reference
-        package, but sharded execution is not yet ported:
-        :func:`~repro_torch.columnar.executor.resolve_backend` raises
-        :class:`ConfigError` for ``shards > 1``.
+        ``shards`` / ``mesh`` — ``shards > 1`` (or a ``mesh``, a
+        :class:`~repro_torch.launch.mesh.ShardMesh`) runs the compiled
+        tape block-sharded over a 1-D mesh of devices
+        (:class:`~repro_torch.columnar.shard.ShardedTapeBackend`); only
+        ``engine="tape"`` shards, as in the reference.  ``device`` says
+        which devices: ``"cpu"`` host shards, or the first ``shards``
+        CUDA devices; a mesh whose devices disagree with it is a
+        :class:`ConfigError`.
     placement
         ``device`` — where the device engines' tensors live (the tape
         engines ``"tape"`` / ``"tape-pallas"`` and the per-step block
@@ -115,7 +119,7 @@ class ExecConfig:
     model: Any = None                 # CostModel | None
     plan_cache: Any = None            # LRUPlanCache | None
     shards: int = 1
-    mesh: Any = None                  # device mesh | None (not ported)
+    mesh: Any = None                  # ShardMesh | None
     # observability: both accept bool or a caller-owned object.
     # telemetry=True publishes per-batch deltas + snapshots into the
     # process-global MetricsRegistry; trace=True emits host wall-clock

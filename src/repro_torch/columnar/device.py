@@ -51,6 +51,11 @@ stays the pre-prune paper metric; live non-MAYBE blocks land in
 ``blocks_pruned``.  Per-query inputs (zone rows, lookup masks, constants)
 upload from pinned memory without a host sync.
 
+Every tensor operation runs part by part over the blocks' parts (see
+"placement" in the class): one part here, one per shard on the sharded
+backend (:mod:`repro_torch.columnar.shard`), which overrides only where
+the parts lie, ``refresh`` and the growth of a cached set.
+
 Tapes with ops no kernel runs (UDF atoms, unrewritten non-numeric
 columns) go op by op and make no program: each such op pulls its source
 set to the host (one sync), gathers and evaluates there, and pushes the
@@ -266,25 +271,28 @@ class _TapeProgram:
     table), since a CUDA graph keeps none alive.  :meth:`stage` packs a
     run's inputs into one pinned host buffer and copies it in with one
     non-blocking copy; :meth:`run` replays the graph (captured once, when
-    the backend makes the program, on a side stream into the backend's
-    memory pool) or, on the CPU, runs :func:`_tape_forward` eagerly over
-    the same buffers.  The
+    the backend makes the program, on a side stream into the memory pool
+    of its part) or, on the CPU, runs :func:`_tape_forward` eagerly over
+    the same buffers.  On a sharded backend a program runs one shard's
+    block rows: its ``full`` set gives their device and count.  The
     kernels' launch counts of the capture are taken back out and added at
     each replay.  A capture or replay that fails raises.
     """
 
     def __init__(self, be: "DeviceTapeBackend", tape: PlanTape, meta, cols,
                  n_values: int, lmask_shape: Tuple[int, int],
-                 blend: Sequence[bool], full: "_DevSet"):
-        self.backend = be
+                 blend: Sequence[bool], full: "_DevSet", part: int = 0):
+        self.backend, self.part = be, part
         self.ops, self.meta = tape.ops, meta
         self.result, self.n_slots = tape.result, tape.n_slots
         self.cols, self.full, self.blend = list(cols), full, tuple(blend)
         n_l, u = lmask_shape
-        m, nblocks = len(blend), be.nblocks
+        # the blocks this program runs over (a shard's, on a sharded
+        # backend) and their device: those of the full set it reads
+        m, nblocks = len(blend), full.bits.shape[0]
         zr = m * nblocks if any(blend) else 0
         self.sizes = (n_values, n_l * u, zr)
-        dev = be.device
+        dev = full.bits.device
         self.inputs = torch.zeros(max(sum(self.sizes), 1), dtype=torch.int32,
                                   device=dev)
         v, lw = n_values, n_l * u
@@ -312,15 +320,15 @@ class _TapeProgram:
         """Capture the op loop into a CUDA graph on the backend's side
         stream (no host sync), keeping its output buffer."""
         be = self.backend
-        dev = be.device
+        dev = self.inputs.device
         _kbuild.lib()               # built and its kernels loaded before
-        side = be._capture_stream()
+        side = be._capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
         before = dict(_kbuild.LAUNCHES)
         try:
             with torch.cuda.device(dev), torch.cuda.stream(side):
-                graph.capture_begin(pool=be._graph_pool())
+                graph.capture_begin(pool=be._graph_pool(self.part))
                 try:
                     out = self._forward()
                 finally:
@@ -349,20 +357,54 @@ class _TapeProgram:
             h[v + lw:] = zrows.reshape(-1)
         self.inputs[:total].copy_(host, non_blocking=cuda)
 
-    def run(self, n: int) -> np.ndarray:
+    def replay(self) -> torch.Tensor:
         """One run over the staged inputs (on the card, a replay of the
-        graph :meth:`capture` made), and the first ``n`` int32 words of its
-        output fetched to the host (the run's one host sync).  The fetch
-        comes before any other replay: the backend's graphs share one
-        memory pool, so a later replay of another program may overwrite
-        this one's output buffer."""
+        graph :meth:`capture` made, on its device's current stream, with no
+        host sync); returns the output buffer.  The buffer is reused by the
+        next replay of this program, and the backend's other programs of
+        the same part (which share its memory pool) may reuse it, so it is
+        read before either runs."""
         if self.inputs.device.type != "cuda":
-            return self._forward()[:n].numpy()
+            return self._forward()
         with torch.cuda.device(self.inputs.device):
             self.graph.replay()
         _kbuild.add_launches(self.launches)
         self.backend.graph_replays += 1
-        return self.out[:n].cpu().numpy()
+        return self.out
+
+    def run(self, n: int) -> np.ndarray:
+        """:meth:`replay`, then the first ``n`` int32 words of its output
+        fetched to the host: the run's one host sync."""
+        return self.replay()[:n].cpu().numpy()
+
+
+class _PartsProgram:
+    """A tape's program on a backend whose blocks lie in several parts (a
+    sharded backend's shards): one :class:`_TapeProgram` per part, each
+    over its own block rows on its own device.  :meth:`stage` gives each
+    part its columns of the zone rows; :meth:`run` replays every part with
+    no fetch between, then gathers on the backend's lead device (the
+    parts' ``4 * M`` counter prefixes summed, their result words joined in
+    block order) and fetches once.  Each part's graphs have a memory pool
+    of their own, so no part's replay can reuse another's output buffer
+    before the gather has read it."""
+
+    def __init__(self, be: "DeviceTapeBackend", progs: List[_TapeProgram]):
+        self.backend, self.progs = be, progs
+
+    def stage(self, values: np.ndarray, lmasks: np.ndarray,
+              zrows: Optional[np.ndarray]) -> None:
+        for (lo, hi, _), p in zip(self.backend._spans(), self.progs):
+            p.stage(values, lmasks, None if zrows is None else
+                    zrows[:, lo:hi])
+
+    def run(self, n: int) -> np.ndarray:
+        be = self.backend
+        outs = [p.replay() for p in self.progs]
+        m4 = 4 * len(self.progs[0].blend)
+        cnt = be._sum_to_lead([o[:m4] for o in outs]).to(torch.int32)
+        words = be._to_lead([o[m4:] for o in outs])
+        return torch.cat([cnt, words])[:n].cpu().numpy()
 
 
 #: programs a backend keeps (least recently used dropped first), as the
@@ -422,8 +464,8 @@ class DeviceTapeBackend(SetBackend):
         self.graph_captures = 0
         self.graph_replays = 0
         self._programs: "OrderedDict[tuple, _TapeProgram]" = OrderedDict()
-        self._side_stream = None
-        self._pool = None
+        self._side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+        self._pools: Dict[int, tuple] = {}
         self.last_tape: Optional[PlanTape] = None
         self._cols: Dict[str, object] = {}
         self._full: Optional[_DevSet] = None
@@ -447,16 +489,73 @@ class DeviceTapeBackend(SetBackend):
         self._fb_src: List[torch.Tensor] = []
         self._fb_out: List[torch.Tensor] = []
 
-    # -- conversions -----------------------------------------------------------
-    def _place(self, arr: np.ndarray) -> torch.Tensor:
-        """Small host array -> device tensor without a host sync: pinned
-        staging and a non-blocking copy on CUDA (the copy stays ordered
-        before every later kernel on the stream).  uint32 words are passed
-        as their int32 view."""
+    # -- placement: the parts the blocks lie in ---------------------------------
+    # This backend holds every block on one device, as one part.
+    # ShardedTapeBackend (columnar.shard) holds block rows [s*B, (s+1)*B) on
+    # shard s's device: it overrides _spans / _parts / _join, and every
+    # method below runs its tensor work part by part, so sets, columns and
+    # zone rows are one tensor here and a tuple of parts there.
+
+    def _spans(self) -> List[Tuple[int, int, torch.device]]:
+        """(first block, end block, device) of each part, in block order."""
+        return [(0, self.nblocks, self.device)]
+
+    def _parts(self, x) -> Sequence:
+        """The per-part pieces of a set, a column or a zone row."""
+        return (x,)
+
+    def _join(self, parts: Sequence):
+        """A set, column or zone row from its per-part pieces."""
+        return parts[0]
+
+    def _key(self, d) -> int:
+        """A set's identity in the deferred set operations' queue: that of
+        its first part's words, which the queue holds while it is
+        pending."""
+        return id(self._parts(d)[0].bits)
+
+    def _to_lead(self, ts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The parts' 1-D pieces joined in order on the lead device
+        (:attr:`device`).  A copy from another card is ordered after the
+        work queued on its stream and before later work on the lead's
+        stream by CUDA events, with no host sync."""
+        ts = [t.to(self.device) for t in ts]
+        return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+    def _sum_to_lead(self, ts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The parts' equal-shaped pieces summed on the lead device."""
+        if len(ts) == 1:
+            return ts[0]
+        return torch.stack([t.to(self.device) for t in ts]).sum(dim=0)
+
+    def _place(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Small host array -> device tensor (on ``device``, else the
+        lead's) without a host sync: pinned staging and a non-blocking
+        copy on CUDA (the copy stays ordered before every later kernel on
+        the stream).  uint32 words are passed as their int32 view."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
+
+    def _rows(self, arr: np.ndarray):
+        """A host array whose leading axis is the block axis, placed part
+        by part."""
+        return self._join([self._place(arr[lo:hi], dev)
+                           for lo, hi, dev in self._spans()])
+
+    def _replicated(self, arr: np.ndarray):
+        """A host array every part reads whole (a lookup mask), placed once
+        per device."""
+        placed: Dict[torch.device, torch.Tensor] = {}
+        for _, _, dev in self._spans():
+            if dev not in placed:
+                placed[dev] = self._place(arr, dev)
+        return self._join([placed[dev] for _, _, dev in self._spans()])
+
+    def _zero(self, device) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.int64, device=device)
 
     def _col_recmajor(self, name: str) -> Optional[torch.Tensor]:
         """Column as record-major ``f32[N, B]`` device blocks (None if the
@@ -473,8 +572,9 @@ class DeviceTapeBackend(SetBackend):
             arr = np.zeros(self._padded, dtype=np.float32)
             arr[: self.n] = raw.astype(np.float32)
             self.uploaded_bytes += arr.nbytes
-            col = torch.from_numpy(arr.reshape(self.nblocks, self.block))
-            col = col.to(self.device)
+            arr = arr.reshape(self.nblocks, self.block)
+            col = self._join([torch.from_numpy(arr[lo:hi]).to(dev)
+                              for lo, hi, dev in self._spans()])
             self._cols[name] = col
         elif col is False:
             return None
@@ -595,7 +695,7 @@ class DeviceTapeBackend(SetBackend):
         """Splice the appended rows' hit mask into a cached device set (the
         streaming delta path): the old bitmap's blocks stay on device and
         only the words of the blocks the delta touches upload — one OR
-        launch, no host sync."""
+        launch per part, no host sync."""
         self._ready(s)
         delta_hits = np.asarray(delta_hits, dtype=bool)
         flat = extend_bitmap(np.zeros(n_words(old_n), dtype=np.uint32),
@@ -606,11 +706,26 @@ class DeviceTapeBackend(SetBackend):
         words[: len(tail)] = tail
         words = words.reshape(-1, self.wpb)
         # the delta's popcounts are counted on the host, as _from_flat's
-        dpops = np.zeros(self.nblocks, dtype=np.int32)
-        dpops[b0:] = row_popcounts(words)
-        delta = torch.zeros((self.nblocks, self.wpb), dtype=torch.int32,
-                            device=self.device)
-        delta[b0:] = self._place(words.view(np.int32))
+        tpops = row_popcounts(words)
+        outs = []
+        for (lo, hi, dev), p in zip(self._spans(),
+                                    self._parts(self._regrow(s))):
+            r0 = max(lo, b0)
+            dpops = np.zeros(hi - lo, dtype=np.int32)
+            delta = torch.zeros((hi - lo, self.wpb), dtype=torch.int32,
+                                device=dev)
+            if r0 < hi:               # the part holds appended rows
+                dpops[r0 - lo:] = tpops[r0 - b0: hi - b0]
+                delta[r0 - lo:] = self._place(
+                    words[r0 - b0: hi - b0].view(np.int32), dev)
+            outs.append(_DevSet(*bitmap_setop(p.bits, delta, OP_OR, p.pops,
+                                              self._place(dpops, dev))))
+        self.device_dispatches += 1
+        return self._join(outs)
+
+    def _regrow(self, s: _DevSet) -> _DevSet:
+        """A set made before :meth:`refresh` grew the block bucket, padded
+        with empty blocks to the new bucket."""
         bits, pops = s.bits, s.pops
         if bits.shape[0] < self.nblocks:
             grow = self.nblocks - bits.shape[0]
@@ -618,24 +733,24 @@ class DeviceTapeBackend(SetBackend):
                 (grow, self.wpb), dtype=torch.int32, device=self.device)])
             pops = torch.cat([pops, torch.zeros(
                 grow, dtype=torch.int32, device=self.device)])
-        self.device_dispatches += 1
-        out, pops = bitmap_setop(bits, delta, OP_OR, pops,
-                                 self._place(dpops))
-        return _DevSet(out, pops)
+        return _DevSet(bits, pops)
 
     def _from_flat(self, words: np.ndarray) -> _DevSet:
         """Host flat packed words -> device blocked set (popcounts counted
         on the host, so no kernel runs)."""
         padded = np.zeros((self.nblocks, self.wpb), dtype=np.uint32)
         padded.reshape(-1)[: n_words(self.n)] = words
-        return _DevSet(self._place(padded.view(np.int32)),
-                       self._place(row_popcounts(padded)))
+        bits = self._rows(padded.view(np.int32))
+        pops = self._rows(row_popcounts(padded))
+        return self._join([_DevSet(b, p) for b, p in
+                           zip(self._parts(bits), self._parts(pops))])
 
     def _pull_flat(self, d: _DevSet) -> np.ndarray:
         """One host sync: fetch a device set as host flat packed words."""
         self._ready(d)
         self.host_syncs += 1
-        flat = d.bits.reshape(-1)[: n_words(self.n)].cpu().numpy()
+        words = self._to_lead([p.bits.reshape(-1) for p in self._parts(d)])
+        flat = words[: n_words(self.n)].cpu().numpy()
         return flat.view(np.uint32).copy()
 
     # -- SetBackend ------------------------------------------------------------
@@ -646,47 +761,57 @@ class DeviceTapeBackend(SetBackend):
 
     def empty(self) -> _DevSet:
         if self._empty is None:
-            self._empty = _DevSet(
-                torch.zeros((self.nblocks, self.wpb), dtype=torch.int32,
-                            device=self.device),
-                torch.zeros((self.nblocks,), dtype=torch.int32,
-                            device=self.device))
+            self._empty = self._join([_DevSet(
+                torch.zeros((hi - lo, self.wpb), dtype=torch.int32,
+                            device=dev),
+                torch.zeros((hi - lo,), dtype=torch.int32, device=dev))
+                for lo, hi, dev in self._spans()])
         return self._empty
 
     def _setop(self, a: _DevSet, b: _DevSet, code: int) -> _DevSet:
         """Queue ``a OP b`` (see "Deferred set operations" in the module
-        doc); the output set is returned at once and computed at the next
-        flush."""
+        doc), one :class:`SetOp` per part; the output set is returned at
+        once and computed at the next flush."""
         self.stats.setops += 1
         self.device_dispatches += 1
         self.setops_deferred += 1
-        out = _DevSet(torch.empty_like(a.bits), torch.empty_like(a.pops))
-        level = 1 + max(self._pending.get(id(a.bits), 0),
-                        self._pending.get(id(b.bits), 0))
-        self._setop_queue.append((level, SetOp(a.bits, a.pops, b.bits, b.pops,
-                                               out.bits, out.pops, code)))
-        self._pending[id(out.bits)] = level
+        outs, ops = [], []
+        for x, y in zip(self._parts(a), self._parts(b)):
+            o = _DevSet(torch.empty_like(x.bits), torch.empty_like(x.pops))
+            outs.append(o)
+            ops.append(SetOp(x.bits, x.pops, y.bits, y.pops, o.bits, o.pops,
+                             code))
+        out = self._join(outs)
+        level = 1 + max(self._pending.get(self._key(a), 0),
+                        self._pending.get(self._key(b), 0))
+        self._setop_queue.append((level, ops))
+        self._pending[self._key(out)] = level
         return out
 
     def _flush(self) -> None:
         """Launch every queued set operation: one grouped launch per
-        dependency level, in level order, with no host sync."""
+        dependency level and part, in level order, with no host sync."""
         if not self._setop_queue:
             return
         queue, self._setop_queue, self._pending = self._setop_queue, [], {}
         depth = max(level for level, _ in queue)
-        levels: List[List[SetOp]] = [[] for _ in range(depth)]
-        for level, op in queue:
-            levels[level - 1].append(op)
+        n_parts = len(queue[0][1])
+        levels: List[List[List[SetOp]]] = [[[] for _ in range(depth)]
+                                           for _ in range(n_parts)]
+        for level, ops in queue:
+            for j, op in enumerate(ops):
+                levels[j][level - 1].append(op)
         self.setop_flushes += 1
-        self.setop_launches += len(levels)
+        self.setop_launches += depth * n_parts
         self.setop_level_max = max(self.setop_level_max,
-                                   max(len(lv) for lv in levels))
-        bitmap_setop_grouped(levels)
+                                   max(len(lv) for lv in levels[0]))
+        for part in levels:
+            bitmap_setop_grouped(part)
 
     def _ready(self, *sets: _DevSet) -> None:
         """Flush the queue if one of ``sets`` is still pending."""
-        if self._pending and any(id(d.bits) in self._pending for d in sets):
+        if self._pending and any(self._key(d) in self._pending
+                                 for d in sets):
             self._flush()
 
     def inter(self, a, b):
@@ -701,29 +826,32 @@ class DeviceTapeBackend(SetBackend):
     def count(self, d: _DevSet) -> float:
         self._ready(d)
         self.host_syncs += 1
-        return float(d.pops.sum().item())
+        return float(self._sum_to_lead([p.pops.sum() for p in
+                                        self._parts(d)]).item())
 
     def inter_multi(self, a: _DevSet, ds: Sequence[_DevSet]
                     ) -> List[_DevSet]:
-        """Q cached-atom intersections in one stacked launch (the lockstep
-        executor's atom-cache hit path: per-query setops would otherwise
-        cost a launch each)."""
+        """Q cached-atom intersections in one stacked launch per part (the
+        lockstep executor's atom-cache hit path: per-query setops would
+        otherwise cost a launch each)."""
         if len(ds) == 1:
             return [self.inter(a, ds[0])]
         self._ready(a, *ds)
         self.stats.setops += len(ds)
         self.device_dispatches += 1
-        out, pops = bitmap_inter_multi(a.bits, a.pops, ds)
-        return [_DevSet(out[j], pops[j]) for j in range(len(ds))]
+        per_part = [bitmap_inter_multi(x.bits, x.pops, ys) for x, ys in
+                    zip(self._parts(a),
+                        zip(*[self._parts(d) for d in ds]))]
+        return [self._join([_DevSet(out[j], pops[j])
+                            for out, pops in per_part])
+                for j in range(len(ds))]
 
-    def _zero(self) -> torch.Tensor:
-        return torch.zeros((), dtype=torch.int64, device=self.device)
-
-    def _account(self, atoms: Sequence[Atom], pops: torch.Tensor,
-                 device: bool = True, zone: Optional[torch.Tensor] = None):
+    def _account(self, atoms: Sequence[Atom], d: _DevSet,
+                 device: bool = True, zone=None):
         """Queue device-side cost counters for one costed application of
-        ``atoms`` (K > 1 for a fused chain: every chain atom evaluates on
-        all of src's live blocks, so counts scale by K).
+        ``atoms`` to set ``d`` (K > 1 for a fused chain: every chain atom
+        evaluates on all of d's live blocks, so counts scale by K), one
+        scalar per part; :meth:`materialize` sums the parts.
 
         ``device=False`` (host fallback) still counts records_evaluated —
         count(D) is engine-independent — but leaves blocks/records_touched
@@ -733,20 +861,27 @@ class DeviceTapeBackend(SetBackend):
         map alone); ``records_evaluated`` stays the *pre-prune* count.
         """
         self.stats.atom_applications += len(atoms)
-        self._pend_records.append(pops.sum())
+        parts = self._parts(d)
+        self._pend_records.append([p.pops.sum() for p in parts])
         self._pend_k.append(len(atoms))
         self._pend_weights.append(sum(a.cost_factor for a in atoms))
         if not device:
-            self._pend_blocks.append(self._zero())
-            self._pend_pruned.append(self._zero())
+            zeros = [self._zero(p.pops.device) for p in parts]
+            self._pend_blocks.append(zeros)
+            self._pend_pruned.append(zeros)
         elif zone is None:
-            self._pend_blocks.append((pops > 0).sum())
-            self._pend_pruned.append(self._zero())
+            self._pend_blocks.append([(p.pops > 0).sum() for p in parts])
+            self._pend_pruned.append([self._zero(p.pops.device)
+                                      for p in parts])
         else:
-            maybe = zone == ZONE_MAYBE
-            live = pops > 0
-            self._pend_blocks.append((live & maybe).sum())
-            self._pend_pruned.append((live & ~maybe).sum())
+            blk, prn = [], []
+            for p, z in zip(parts, self._parts(zone)):
+                maybe = z == ZONE_MAYBE
+                live = p.pops > 0
+                blk.append((live & maybe).sum())
+                prn.append((live & ~maybe).sum())
+            self._pend_blocks.append(blk)
+            self._pend_pruned.append(prn)
 
     # -- realized-selectivity feedback (rides the existing syncs) --------------
     def _log_op(self, keys: Tuple, est: float, src: int, out: int) -> None:
@@ -757,11 +892,12 @@ class DeviceTapeBackend(SetBackend):
         if len(self.op_log) > _OP_LOG_CAP:
             del self.op_log[: len(self.op_log) - _OP_LOG_CAP]
 
-    def _fb_queue(self, atoms: Sequence[Atom], conj: bool, src, out) -> None:
+    def _fb_queue(self, atoms: Sequence[Atom], conj: bool, src: List,
+                  out: List) -> None:
         """Queue one observation whose src/out popcounts are still device
-        scalars (or stacked ``[Q]`` vectors, one per lockstep query); they
-        ride the bundled transfer :meth:`materialize` makes — no extra
-        sync."""
+        scalars (or stacked ``[Q]`` vectors, one per lockstep query), one
+        per part; they ride the bundled transfer :meth:`materialize` makes
+        (which sums the parts) — no extra sync."""
         est = group_selectivity([a.selectivity for a in atoms], conj)
         self._fb_meta.append((tuple(atom_key(a) for a in atoms), est))
         self._fb_src.append(src)
@@ -840,69 +976,90 @@ class DeviceTapeBackend(SetBackend):
             return self._col_recmajor(atom.column), None
         return None, None
 
-    def _bind_zone(self, atom: Atom, col) -> Optional[torch.Tensor]:
-        """The atom's device zone verdicts, or None (nothing prunes, or
-        the atom runs on the host)."""
+    def _bind_zone(self, atom: Atom, col):
+        """The atom's device zone verdicts (per part), or None (nothing
+        prunes, or the atom runs on the host)."""
         zone = self._zone_mask([atom]) if col is not None else None
-        return None if zone is None else self._place(zone)
+        return None if zone is None else self._rows(zone)
+
+    def _zone_parts(self, zone) -> Sequence:
+        return ([None] * len(self._spans()) if zone is None
+                else self._parts(zone))
 
     def apply_atom(self, atom: Atom, d: _DevSet) -> _DevSet:
         self._ready(d)
         col, lmask = self._bind_atom(atom)
         zone = self._bind_zone(atom, col)
-        self._account([atom], d.pops, device=col is not None, zone=zone)
+        self._account([atom], d, device=col is not None, zone=zone)
         if col is None:
             return self._apply_host(atom, [d], d)[0]
         self.device_dispatches += 1
-        if lmask is not None:
-            lm = self._place(lmask.view(np.int32))
-            out, pops = _zone_blend(
-                lambda ep: dict_lookup_scan(col, d.bits, ep, lm),
-                d.bits, d.pops, zone)
-        else:
-            value, opcode = float(atom.value), CMP_OPCODE[atom.op]
-            out, pops = _zone_blend(
-                lambda ep: predicate_scan(col, d.bits, ep, value, opcode),
-                d.bits, d.pops, zone)
-        self._fb_queue([atom], True, d.pops.sum(), pops.sum())
-        return _DevSet(out, pops)
+        lms = (self._parts(self._replicated(lmask.view(np.int32)))
+               if lmask is not None else None)
+        value, opcode = ((None, None) if lms is not None else
+                         (float(atom.value), CMP_OPCODE[atom.op]))
+        parts = self._parts(d)
+        outs = []
+        for j, (p, c, z) in enumerate(zip(parts, self._parts(col),
+                                          self._zone_parts(zone))):
+            if lms is not None:
+                evaluate = (lambda ep, c=c, p=p, lm=lms[j]:
+                            dict_lookup_scan(c, p.bits, ep, lm))
+            else:
+                evaluate = (lambda ep, c=c, p=p:
+                            predicate_scan(c, p.bits, ep, value, opcode))
+            outs.append(_DevSet(*_zone_blend(evaluate, p.bits, p.pops, z)))
+        self._fb_queue([atom], True, [p.pops.sum() for p in parts],
+                       [o.pops.sum() for o in outs])
+        return self._join(outs)
 
     def apply_atom_multi(self, atom: Atom, ds: Sequence[_DevSet]
                          ) -> List[_DevSet]:
         """Q device record sets against one atom in one stacked kernel
-        launch (K5, or K6 for a lookup atom)."""
+        launch per part (K5, or K6 for a lookup atom)."""
         if len(ds) == 1:
             return [self.apply_atom(atom, ds[0])]
         self._ready(*ds)
-        # one reduce launch (not Q-1 setops): the union only feeds the
-        # fallback path and cost accounting; the same launch writes the
-        # stacked copy of the sets that the stacked scan and the zone
-        # blend read
+        # one reduce launch per part (not Q-1 setops): the union only
+        # feeds the fallback path and cost accounting; the same launch
+        # writes the stacked copy of the sets that the stacked scan and the
+        # zone blend read
         self.device_dispatches += 1
-        ubits, upops, bits, pops = bitmap_union_reduce(ds)
-        union = _DevSet(ubits, upops)
-        q, n, w = bits.shape
+        reduced = [bitmap_union_reduce(rows)
+                   for rows in zip(*[self._parts(d) for d in ds])]
+        union = self._join([_DevSet(ub, up) for ub, up, _, _ in reduced])
         col, lmask = self._bind_atom(atom)
         zone = self._bind_zone(atom, col)
-        self._account([atom], union.pops, device=col is not None, zone=zone)
+        self._account([atom], union, device=col is not None, zone=zone)
         if col is None:
             return self._apply_host(atom, ds, union)
         self.device_dispatches += 1
-        flat = bits.reshape(q * n, w)
-        lm = None if lmask is None else self._place(lmask.view(np.int32))
+        lms = (self._parts(self._replicated(lmask.view(np.int32)))
+               if lmask is not None else None)
+        value, opcode = ((None, None) if lms is not None else
+                         (float(atom.value), CMP_OPCODE[atom.op]))
+        outs, srcs, dsts = [], [], []
+        for j, ((_, _, bits, pops), c, z) in enumerate(zip(
+                reduced, self._parts(col), self._zone_parts(zone))):
+            q, n, w = bits.shape
+            flat = bits.reshape(q * n, w)
 
-        def evaluate(ep):
-            if lm is not None:
-                o, p = dict_lookup_scan_multi(col, flat, ep.reshape(-1), lm)
-            else:
-                o, p = predicate_scan_multi(col, flat, ep.reshape(-1),
-                                            float(atom.value),
-                                            CMP_OPCODE[atom.op])
-            return o.reshape(q, n, w), p.reshape(q, n)
+            def evaluate(ep, c=c, flat=flat, q=q, n=n, w=w, j=j):
+                if lms is not None:
+                    o, p = dict_lookup_scan_multi(c, flat, ep.reshape(-1),
+                                                  lms[j])
+                else:
+                    o, p = predicate_scan_multi(c, flat, ep.reshape(-1),
+                                                value, opcode)
+                return o.reshape(q, n, w), p.reshape(q, n)
 
-        out, opops = _zone_blend(evaluate, bits, pops, zone)
-        self._fb_queue([atom], True, pops.sum(dim=-1), opops.sum(dim=-1))
-        return [_DevSet(out[j], opops[j]) for j in range(q)]
+            out, opops = _zone_blend(evaluate, bits, pops, z)
+            outs.append((out, opops))
+            srcs.append(pops.sum(dim=-1))
+            dsts.append(opops.sum(dim=-1))
+        self._fb_queue([atom], True, srcs, dsts)
+        return [self._join([_DevSet(out[j], opops[j]) for out, opops in outs])
+                for j in range(len(ds))]
 
     # -- the single end-of-query (or end-of-batch) host sync -------------------
     def materialize(self, sets: Sequence[_DevSet]) -> List[np.ndarray]:
@@ -915,15 +1072,27 @@ class DeviceTapeBackend(SetBackend):
         self._flush()
         nw = n_words(self.n)
         m = len(self._pend_records)
-        fb_lens = [t.numel() for t in self._fb_src]
+        fb_lens = [t[0].numel() for t in self._fb_src]
         f = sum(fb_lens)
-        parts = [d.bits.reshape(-1)[:nw] for d in sets]
-        if m:
-            parts.append(torch.stack(self._pend_records + self._pend_blocks
-                                     + self._pend_pruned).to(torch.int32))
-        if f:
-            parts.append(torch.cat([t.reshape(-1) for t in
+        parts = [self._to_lead([p.bits.reshape(-1) for p in
+                                self._parts(d)])[:nw] for d in sets]
+        # per part: its counters and observations, summed across the parts
+        counters = []
+        for j in range(len(self._spans())):
+            v = []
+            if m:
+                v.append(torch.stack([e[j] for e in self._pend_records
+                                      + self._pend_blocks
+                                      + self._pend_pruned]).to(torch.int32))
+            if f:
+                v.append(torch.cat([t[j].reshape(-1) for t in
                                     self._fb_src + self._fb_out])
+                         .to(torch.int32))
+            counters.append(v)
+        if len(counters) == 1:
+            parts += counters[0]
+        elif m or f:
+            parts.append(self._sum_to_lead([torch.cat(v) for v in counters])
                          .to(torch.int32))
         self.host_syncs += 1
         host = (torch.cat(parts).cpu().numpy() if parts
@@ -958,7 +1127,7 @@ class DeviceTapeBackend(SetBackend):
         atoms = self.last_tape.tree.atoms
         grp = [atoms[a] for a in op.aids]
         self.host_fallbacks += 1
-        self._account(grp, src.pops, device=False)
+        self._account(grp, src, device=False)
         sw = self._pull_flat(src)
         words, src_count, out_count = self._host_gather(grp, op.conj, sw)
         est = group_selectivity([a.selectivity for a in grp], op.conj)
@@ -1061,51 +1230,61 @@ class DeviceTapeBackend(SetBackend):
             return None, blend
         return np.stack(rows).astype(np.int32), blend
 
-    def _capture_stream(self) -> "torch.cuda.Stream":
-        """The side stream this backend captures its graphs on."""
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(self.device)
-        return self._side_stream
+    def _capture_stream(self, device: torch.device) -> "torch.cuda.Stream":
+        """The side stream this backend captures its graphs on ``device``
+        on."""
+        if device not in self._side_streams:
+            self._side_streams[device] = torch.cuda.Stream(device)
+        return self._side_streams[device]
 
-    def _graph_pool(self):
-        """The memory pool this backend's graphs share.  Sharing is safe
-        because replays are serialized on one stream and each replay's
-        output is fetched before the next replay starts.  A pool lives only
-        while one of its graphs does, so a backend that holds no program
-        (none made yet, all dropped, or the only capture failed) takes a
-        fresh pool."""
-        if self._pool is None or not self._programs:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
+    def _graph_pool(self, part: int = 0):
+        """The memory pool the graphs of one part share.  Sharing is safe
+        because a part's replays are serialized on one stream and each
+        replay's output is read (fetched, or gathered with the other parts')
+        before the part's next replay; the parts' pools are apart, since a
+        run replays every part before the gather reads any output.  A pool
+        lives only while one of its graphs does, so a backend that holds no
+        program (none made yet, all dropped, or the only capture failed)
+        takes fresh pools."""
+        if not self._programs:
+            self._pools.clear()
+        if part not in self._pools:
+            self._pools[part] = torch.cuda.graph_pool_handle()
+        return self._pools[part]
 
     def _program(self, tape: PlanTape, meta, cols, n_values: int,
-                 lmask_shape: Tuple[int, int], blend: Sequence[bool]
-                 ) -> "_TapeProgram":
+                 lmask_shape: Tuple[int, int], blend: Sequence[bool]):
         """The tape's program, made (and on the card captured) at its first
-        run.  Keyed as the reference keys its jitted programs — the tape's
-        structural key, its pruning shape (which ops blend) and the runtime
-        inputs' shapes (U, the block count) — plus the identity of every
-        tensor a captured graph reads by address (the bound columns and
+        run: one :class:`_TapeProgram` per part (a :class:`_PartsProgram`
+        over them when there are several).  Keyed as the reference keys
+        its jitted programs — the tape's structural key, its pruning shape
+        (which ops blend) and the runtime inputs' shapes (U, the block
+        count) — plus the part's index and the identity of every tensor a
+        captured graph reads by address (the part's bound columns and
         ``full``), which the program holds: key-equal tapes with other
         constants, lookup masks or zone rows share one program.  Least
         recently used programs past :data:`_TAPE_PROGRAM_CAP` are dropped;
         :meth:`refresh` drops them all when the columns move."""
         full = self.full()
-        key = (tape.key, tuple(blend), tuple(lmask_shape), self.nblocks,
-               tuple(id(c) for c in cols), id(full.bits), id(full.pops))
-        prog = self._programs.get(key)
-        if prog is not None:
-            self._programs.move_to_end(key)
-            return prog
-        prog = _TapeProgram(self, tape, meta, cols, n_values, lmask_shape,
-                            blend, full)
-        if self.device.type == "cuda":
-            prog.capture()
-        self._programs[key] = prog
-        self.tape_programs += 1
-        if len(self._programs) > _TAPE_PROGRAM_CAP:
-            self._programs.popitem(last=False)
-        return prog
+        progs = []
+        for j, f in enumerate(self._parts(full)):
+            pcols = [self._parts(c)[j] for c in cols]
+            key = (tape.key, tuple(blend), tuple(lmask_shape), self.nblocks,
+                   j, tuple(id(c) for c in pcols), id(f.bits), id(f.pops))
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+            else:
+                prog = _TapeProgram(self, tape, meta, pcols, n_values,
+                                    lmask_shape, blend, f, part=j)
+                if f.bits.device.type == "cuda":
+                    prog.capture()
+                self._programs[key] = prog
+                self.tape_programs += 1
+                if len(self._programs) > _TAPE_PROGRAM_CAP:
+                    self._programs.popitem(last=False)
+            progs.append(prog)
+        return progs[0] if len(progs) == 1 else _PartsProgram(self, progs)
 
     def run_tape(self, tape: PlanTape) -> np.ndarray:
         """Execute a compiled tape; returns the host packed result bitmap.
@@ -1179,9 +1358,9 @@ class DeviceTapeBackend(SetBackend):
                 # by one, as on the all-device tape path
                 self.stats.setops += 1
                 self.device_dispatches += 1
-                a, b = slots[op.a], slots[op.b]
-                s = _DevSet(*bitmap_setop(a.bits, b.bits, op.setop, a.pops,
-                                          b.pops))
+                s = self._join([_DevSet(*bitmap_setop(
+                    a.bits, b.bits, op.setop, a.pops, b.pops)) for a, b in
+                    zip(self._parts(slots[op.a]), self._parts(slots[op.b]))])
             else:
                 src = slots[op.a]
                 cixs, vixs, opcodes = meta[oi]
@@ -1190,21 +1369,30 @@ class DeviceTapeBackend(SetBackend):
                 else:
                     grp = [atoms[a] for a in op.aids]
                     zone = self._zone_mask(grp, conj=op.conj)
-                    zj = None if zone is None else self._place(zone)
-                    self._account(grp, src.pops, zone=zj)
-                    cols = [self._col_recmajor(a.column) for a in grp]
+                    zj = None if zone is None else self._rows(zone)
+                    self._account(grp, src, zone=zj)
+                    cols = [self._parts(self._col_recmajor(a.column))
+                            for a in grp]
                     if opcodes[0] == IN_OPCODE:
                         vals = ()
-                        lm = self._place(lmasks[vixs[0]].view(np.int32))
+                        lms = self._parts(self._replicated(
+                            lmasks[vixs[0]].view(np.int32)))
                     else:
                         vals = [np.float32(values[v]) for v in vixs]
-                        lm = None
+                        lms = [None] * len(cols[0])
                     self.device_dispatches += 1
-                    out, pops = _zone_blend(
-                        lambda ep: _costed_eval(op.kind, opcodes, cols, vals,
-                                                lm, op.conj, src.bits, ep),
-                        src.bits, src.pops, zj)
-                    self._fb_queue(grp, op.conj, src.pops.sum(), pops.sum())
-                    s = _DevSet(out, pops)
+                    outs = []
+                    for j, (p, z) in enumerate(zip(self._parts(src),
+                                                   self._zone_parts(zj))):
+                        pc = [c[j] for c in cols]
+                        outs.append(_DevSet(*_zone_blend(
+                            lambda ep, pc=pc, p=p, lm=lms[j]: _costed_eval(
+                                op.kind, opcodes, pc, vals, lm, op.conj,
+                                p.bits, ep),
+                            p.bits, p.pops, z)))
+                    self._fb_queue(grp, op.conj,
+                                   [p.pops.sum() for p in self._parts(src)],
+                                   [o.pops.sum() for o in outs])
+                    s = self._join(outs)
             slots[op.dst] = s
         return self.materialize([slots[tape.result]])[0]

@@ -589,13 +589,15 @@ class BlockBackend(_HostOpLog, SetBackend):
 def resolve_backend(table: Table, config: ExecConfig, reuse=None):
     """The single backend factory every entry point funnels through.
 
-    Maps ``config.engine`` to its backend class, validates ``reuse``
-    against the config (table identity, backend class, per-step engine
-    name, device), and constructs a fresh backend from the config's
-    block / zone_prune / device knobs when ``reuse`` is None.  Every
-    mismatch, and sharded execution (not yet ported), is a
-    :class:`ConfigError`.  ``"jax"`` and ``"pallas"`` both build a
-    :class:`BlockBackend`, which keeps the name it was asked for.
+    Maps ``config.engine`` (plus the shard axis) to its backend class,
+    validates ``reuse`` against the config (table identity, backend class,
+    per-step engine name, device), and constructs a fresh backend from the
+    config's block / zone_prune / shards / mesh / device knobs when
+    ``reuse`` is None.  Every mismatch is a :class:`ConfigError`.
+    ``"jax"`` and ``"pallas"`` both build a :class:`BlockBackend`, which
+    keeps the name it was asked for; a sharded config (``shards > 1`` or a
+    ``mesh``, engine ``"tape"`` only) builds a
+    :class:`~repro_torch.columnar.shard.ShardedTapeBackend`.
     """
     from .device import DeviceTapeBackend, torch_device
     eng = config.engine
@@ -608,9 +610,16 @@ def resolve_backend(table: Table, config: ExecConfig, reuse=None):
             return reuse
         return BitmapBackend(table)
     if config.sharded:
-        raise ConfigError(
-            f"sharded execution (shards={config.shards}) is not yet "
-            "ported")
+        from .shard import ShardedTapeBackend
+        if reuse is None:
+            return ShardedTapeBackend(table, block=config.block,
+                                      zone_prune=config.zone_prune,
+                                      shards=config.shards, mesh=config.mesh,
+                                      device=config.device)
+        if not isinstance(reuse, ShardedTapeBackend):
+            raise ConfigError(
+                f"sharded engine {eng!r} (shards={config.shards}) needs a "
+                "ShardedTapeBackend")
     tape = eng in ("tape", "tape-pallas")
     if reuse is not None:
         if tape and not isinstance(reuse, DeviceTapeBackend):

@@ -493,8 +493,10 @@ class QuerySession:
     ExecConfig`.  Every kwarg below keeps working as a legacy spelling
     through the deprecation shim (one warning per kwarg name per process);
     mixing ``config=`` with legacy kwargs raises
-    :class:`~repro_torch.columnar.config.ConfigError`.  Sharded execution
-    (``shards > 1``) is not yet ported and raises ConfigError.
+    :class:`~repro_torch.columnar.config.ConfigError`.  ``shards > 1``
+    runs the tape engine block-sharded
+    (:class:`~repro_torch.columnar.shard.ShardedTapeBackend`), per query
+    and in lockstep, with the same one host sync per batch.
 
     table:            the columnar table every query in a batch targets
     planner:          shallowfish | deepfish | optimal | nooropt | auto

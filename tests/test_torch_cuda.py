@@ -649,3 +649,134 @@ def test_ops_popcount_arguments_on_the_card(cuda_device):
     out, got = ops.bitmap_op(bits[0].to(dev), bits[0].to(dev), 0, ones, ones)
     assert torch.equal(out.cpu(), bits[0]) and torch.equal(got.cpu(),
                                                            pops[0])
+
+
+# -- block-sharded execution -----------------------------------------------------
+
+def _shard_mesh(shards, distinct):
+    """``shards`` shards on the first cards (``distinct``), or all on
+    cuda:0, which an explicit mesh may name more than once."""
+    from repro_torch.launch.mesh import ShardMesh, make_shard_mesh
+    if distinct:
+        if torch.cuda.device_count() < shards:
+            pytest.skip(f"needs {shards} GPUs")
+        return make_shard_mesh(shards)
+    return ShardMesh(["cuda:0"] * shards)
+
+
+def _sync_warnings(fn):
+    """``fn()`` and the synchronizing CUDA calls it made (sync debug
+    mode)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+@pytest.mark.parametrize("shards,distinct", [(1, False), (2, False),
+                                             (2, True), (4, True)])
+def test_sharded_tape_on_the_card_matches_the_cpu(cuda_device, shards,
+                                                   distinct):
+    """Paper, string and wide-chain trees on S shards of the card, cold and
+    warm: each result, counter and op log equal to the same sharded engine
+    on host shards; each warm query one sync-debug warning, S graph
+    replays and S times the unsharded card engine's launches."""
+    from repro_torch import ShardedTapeBackend
+    mesh = _shard_mesh(shards, distinct)
+    table = make_forest_table(50_000, n_dup=2, seed=7, strings=True)
+    trees = _graph_trees(table)
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=2048)
+    be = ShardedTapeBackend(table, block=2048, mesh=mesh)
+    cpu = ShardedTapeBackend(table, block=2048, shards=shards, device="cpu")
+    one = DeviceTapeBackend(table, block=2048)
+    for tree in trees:
+        got, _, be = run_query(tree, table, backend=be, config=cfg.replace(
+            mesh=mesh))
+        want, _, cpu = run_query(tree, table, backend=cpu,
+                                 config=cfg.replace(shards=shards,
+                                                    device="cpu"))
+        run_query(tree, table, backend=one, config=cfg)
+        np.testing.assert_array_equal(got, want)
+    for k in ("host_syncs", "device_dispatches", "blocks_touched",
+              "blocks_pruned", "host_fallbacks"):
+        assert getattr(be, k) == getattr(cpu, k), k
+    assert be.stats.records_evaluated == cpu.stats.records_evaluated
+    assert be.drain_op_log() == cpu.drain_op_log()
+    assert be.graph_captures == be.tape_programs == shards * len(trees)
+    assert len(be._pools) == shards
+    for tree in trees:
+        run_query(tree, table, backend=one, config=cfg)
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        run_query(tree, table, backend=one, config=cfg)
+        torch.cuda.synchronize()
+        need = {k: shards * (LAUNCHES[k] - before[k]) for k in LAUNCHES}
+        r0 = be.graph_replays
+        before = dict(LAUNCHES)
+        (got, _, _), warned = _sync_warnings(lambda: run_query(
+            tree, table, backend=be, config=cfg.replace(mesh=mesh)))
+        torch.cuda.synchronize()
+        want, _, _ = run_query(tree, table, backend=cpu, config=cfg.replace(
+            shards=shards, device="cpu"))
+        np.testing.assert_array_equal(got, want)
+        assert warned == 1 and be.graph_replays - r0 == shards
+        assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == need
+
+
+@pytest.mark.parametrize("shards,distinct", [(2, False), (2, True),
+                                             (4, True)])
+def test_sharded_lockstep_on_the_card_warns_once(cuda_device, shards,
+                                                 distinct):
+    """A lockstep batch on S shards of the card: the host shards'
+    bitmaps and counters, one sync-debug warning for the batch."""
+    from repro_torch import QuerySession
+    mesh = _shard_mesh(shards, distinct)
+    table = make_forest_table(20_000, n_dup=2, seed=7, strings=True)
+    trees = random_query_suite(table, 3, 8, 3, seed=4) * 3
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=1024,
+                     batched=True)
+    host = QuerySession(table, config=cfg.replace(shards=shards,
+                                                  device="cpu"))
+    sess = QuerySession(table, config=cfg.replace(mesh=mesh))
+    for s in (host, sess):
+        s.execute(trees)                # uploads, fills the atom caches
+    want = host.execute(trees)
+    got, warned = _sync_warnings(lambda: sess.execute(trees))
+    for g, w in zip(got.bitmaps, want.bitmaps):
+        np.testing.assert_array_equal(g, w)
+    for k in ("records_evaluated", "blocks_touched", "device_dispatches",
+              "atom_cache_hits"):
+        assert getattr(got.stats, k) == getattr(want.stats, k), k
+    assert got.stats.op_observations == want.stats.op_observations
+    assert warned == got.stats.host_syncs == 1
+    assert got.backend.shards == shards
+
+
+def test_sharded_graph_pools_keep_each_shards_output(cuda_device):
+    """Two key-distinct tapes replayed in turn on two shards of one card:
+    every shard's replay comes before the gather reads any output, so a
+    pool shared between the shards would hand one shard's output buffer
+    to the other's graph.  Each result must stay the oracle's."""
+    from repro_torch import ShardedTapeBackend
+    mesh = _shard_mesh(2, False)
+    table = make_forest_table(50_000, n_dup=2, seed=7)
+    a, b = random_query_suite(table, 2, 12, 3, seed=5)
+    cfg = ExecConfig(engine="tape", planner="deepfish", block=2048,
+                     mesh=mesh)
+    be = ShardedTapeBackend(table, block=2048, mesh=mesh)
+    want = [run_query(t, table, config=ExecConfig(
+        engine="numpy", planner="deepfish", device="cpu"))[0] for t in (a, b)]
+    keys = set()
+    for _ in range(3):
+        for tree, w in zip((a, b), want):
+            got, _, _ = run_query(tree, table, backend=be, config=cfg)
+            np.testing.assert_array_equal(got, w)
+            keys.add(be.last_tape.key)
+    assert len(keys) == 2 and be.graph_captures == 4
+    assert be.graph_replays == 12 and len(be._pools) == 2

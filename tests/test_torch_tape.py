@@ -283,14 +283,19 @@ def test_backend_reuse_keeps_columns_and_counts(forest):
 
 
 def test_block_engines_build_and_sharding_raises(forest):
+    """The per-step block engines build under both names; sharding builds
+    a ShardedTapeBackend on the tape engine and still raises on the block
+    engine, as in the reference; an unknown device raises."""
     port_table = table_from_arrays(forest.columns)
     tree = T.random_query_suite(port_table, 1, 4, 2, seed=1)[0]
     for eng in ("jax", "pallas"):
         _, _, be = T.run_query(tree, port_table, config=T.ExecConfig(
             engine=eng, device="cpu"))
         assert isinstance(be, T.BlockBackend) and be.engine == eng
-    with pytest.raises(T.ConfigError, match="not yet ported"):
-        T.run_query(tree, port_table, config=T.ExecConfig(
-            engine="tape", shards=2, device="cpu"))
+    _, _, be = T.run_query(tree, port_table, config=T.ExecConfig(
+        engine="tape", shards=2, device="cpu"))
+    assert isinstance(be, T.ShardedTapeBackend) and be.shards == 2
+    with pytest.raises(T.ConfigError, match="requires engine='tape'"):
+        T.ExecConfig(engine="jax", shards=2, device="cpu")
     with pytest.raises(T.ConfigError):
         T.ExecConfig(device="tpu")
