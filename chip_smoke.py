@@ -92,11 +92,27 @@ Phases:
    launches; warm wall and ``run_tape`` p50, bytes held per shard), phase
    8's lockstep batches (one sync, ``records_evaluated`` the host lockstep
    session's), and a sharded ``StreamSession`` with 2 rounds of a 2 %
-   append (the real dirty tail uploaded, ``delta_upload_shards``, no
-   program made inside the bucket); ``make_shard_mesh`` past the visible
-   cards raises.  Every plain function of ``kernels.ref`` raises meanwhile
+   append (the real dirty tail moved, ``transferred_bytes``, on
+   ``delta_upload_shards`` shards, and the reference's bucket tail counted
+   in ``uploaded_bytes``; no program made inside the bucket);
+   ``make_shard_mesh`` past the visible cards raises.  Every plain
+   function of ``kernels.ref`` raises meanwhile
+13. LM serving, after phase 12's tables are freed:
+   ``python -m repro_torch.launch.serve --arch granite-3-8b --batch 4
+   --prompt-len 32 --gen 16`` through its ``main``: the router's three
+   rules on the tape engine (launches equal to what its tapes need), then
+   granite-3-8b FULL (40 layers, d_model 4096, 8.37 B parameters) through
+   ``ServeEngine`` with a 32,768-position cache: the tokens' shape and
+   range; init, prefill and decode times (p50, min, max of 15 steps),
+   tokens/s, peak memory and the decode bound, each beside the card's
+   name and power limit; a warm prefill and decode step under the
+   profiler; the engine against a manual ``api.decode`` loop and decode
+   against ``lm.forward`` (``LM_*`` tolerances; host syncs per decode
+   step in sync debug mode) and the decode-vs-forward difference by
+   depth; the model cut to 2 layers held the same way and against the
+   port on the CPU; the ten architectures at SMOKE
 
-Each path of phases 3-6 and 8-12 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-13 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -144,6 +160,8 @@ ROOT = Path(__file__).resolve().parent
 #: tensor cores — the rates the kernels' lower bounds are taken against
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: bf16 dense tensor-core operations/s (phase 13's prefill bound)
+BF16_OPS_PER_S = 989e12
 
 #: where each kernel came from: its source, the reference's Pallas call
 #: (file:line) and the CUDA kernel functions its wrapper launches (the
@@ -231,6 +249,8 @@ PATH_KERNELS = {
                                  "bitmap_union_reduce"),
     "sharded_stream": ("predicate_scan_multi", "bitmap_setop_grouped",
                        "bitmap_setop", "bitmap_union_reduce"),
+    # phase 13: the launcher's router, one tape per rule, twice
+    "lm_serve": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -268,7 +288,7 @@ LOOKUP_EDGES = [float("nan"), -0.5, 3.75, float("inf"), float("-inf"),
 COMPARE_QS = (3, 8, 64)
 #: paths whose tapes run as CUDA-graph replays
 GRAPH_PATHS = ("numeric", "strings", "zones", "cold_restart", "warm_restart",
-               "sharded", "sharded_strings")
+               "sharded", "sharded_strings", "lm_serve")
 #: backend counters the lockstep paths' launch accounting reads
 ACCOUNT = ("device_dispatches", "setops_deferred", "setop_launches")
 
@@ -3321,8 +3341,9 @@ def phase_shard_stream(table, queries, start_path, end_path, rounds=2):
     cold drain and ``rounds`` rounds of a 2 % append and a drain of the 64
     queries: every result the numpy oracle's (computed once per round:
     each mesh's copy takes the same rows), one host sync (one sync-debug
-    warning) per drain, uploads the real dirty tail only, on
-    ``delta_upload_shards`` shards; two tapes run on the stream's backend
+    warning) per drain, moves the real dirty tail only
+    (``transferred_bytes``), on ``delta_upload_shards`` shards, and counts
+    the reference's bucket tail in ``uploaded_bytes``; two tapes run on the stream's backend
     after each drain make no new program while the append stays inside the
     block bucket."""
     import copy
@@ -3349,7 +3370,8 @@ def phase_shard_stream(table, queries, start_path, end_path, rounds=2):
             if rnd:
                 old_n, old_nb = t.n_records, be.nblocks
                 dirty = old_n // be.block
-                d0, u0 = be.delta_upload_shards, be.uploaded_bytes
+                d0, u0, m0 = (be.delta_upload_shards, be.uploaded_bytes,
+                              be.transferred_bytes)
                 stream.append(rows_like(t, n_append, seed=600 + rnd))
                 for name in t.columns:
                     t.stats(name)
@@ -3402,12 +3424,19 @@ def phase_shard_stream(table, queries, start_path, end_path, rounds=2):
                 real = t.n_blocks(be.block)
                 n_cols = sum(1 for c in be._cols.values() if c is not False)
                 tail = n_cols * (real - dirty) * be.block * 4
+                bucket_tail = n_cols * (be.nblocks - dirty) * be.block * 4
                 row.update(delta_upload_shards=be.delta_upload_shards - d0,
                            uploaded_bytes=be.uploaded_bytes - u0,
+                           transferred_bytes=be.transferred_bytes - m0,
                            dirty_tail_bytes=tail, bucket_grew=grew)
-                check(row["uploaded_bytes"] == tail, f"{mlabel} stream "
-                      f"round {rnd}: uploaded {row['uploaded_bytes']} B, "
-                      f"the real dirty tail is {tail} B")
+                check(row["transferred_bytes"] == tail, f"{mlabel} stream "
+                      f"round {rnd}: transferred "
+                      f"{row['transferred_bytes']} B, the real dirty tail "
+                      f"is {tail} B")
+                check(row["uploaded_bytes"] == bucket_tail, f"{mlabel} "
+                      f"stream round {rnd}: uploaded_bytes "
+                      f"{row['uploaded_bytes']} B, the reference's bucket "
+                      f"tail is {bucket_tail} B")
                 check(1 <= row["delta_upload_shards"] <= mesh.size,
                       f"{mlabel} stream round {rnd}: delta_upload_shards "
                       f"{row['delta_upload_shards']}")
@@ -3418,7 +3447,9 @@ def phase_shard_stream(table, queries, start_path, end_path, rounds=2):
                 f"{be.nblocks} blocks; drain {wall:.3f} ms, 1 host sync "
                 f"(sync debug: {syncs if rnd else 'off'}), upload "
                 f"{st.upload_bytes:.0f} B"
-                + (f" (the real dirty tail {row['dirty_tail_bytes']} B, on "
+                + (f" (uploaded_bytes {row['uploaded_bytes']} B, the "
+                   f"reference's bucket tail; transferred_bytes "
+                   f"{row['transferred_bytes']} B, the real dirty tail, on "
                    f"{row['delta_upload_shards']} of {mesh.size} shards; "
                    f"bucket grew: {row['bucket_grew']})" if rnd else "")
                 + f"; 2 tapes on its backend: {made} programs made")
@@ -3454,6 +3485,468 @@ def shard_mesh_errors():
     if n < 2:
         log("  one card: S = 2 and 4 run on cuda:0 named S times; the "
             "cross-card copy of the gather is not measured")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: LM serving (python -m repro_torch.launch.serve --arch): the
+# router's rule set on the tape engine, then granite-3-8b at full width and
+# depth through ServeEngine; the same model cut to 2 layers against the CPU;
+# the ten architectures at SMOKE
+# ---------------------------------------------------------------------------
+
+LM_ARGV = ["--arch", "granite-3-8b", "--batch", "4", "--prompt-len", "32",
+           "--gen", "16", "--device", "cuda"]
+#: phase 13's tolerances, fixed before its first run on the card.
+#: ServeEngine against a manual loop of api.decode: token agreement (the
+#: reference's tests/test_serve.py bound; a bf16 argmax may flip)
+LM_AGREE = 0.8
+#: sequential decode against lm.forward: largest absolute logit difference
+#: on the first vocab columns (the reference's tests/test_models_smoke.py)
+LM_FWD_TOL = 0.15
+#: the same at full depth (40 layers), set after the first run on the card
+#: measured 0.2539 there: bf16 rounding differences grow with depth (one
+#: logit ulp, 0.0312, at 1 and 2 layers; 0.1562 at 20; 0.2384 at 40 in
+#: the series phase 13 prints), so at full depth decode is also held to
+#: forward by argmax (>= LM_AGREE).  At full width (49,155 random logits, small top-2 gaps)
+#: greedy decoding diverges after the first flipped argmax (free-running
+#: agreement 0.359 at 40 layers, 0.797 at 2, in the first runs), so there
+#: the engine is held to the manual loop fed the engine's own tokens: each
+#: step's argmax agrees >= LM_AGREE (free-running agreement is printed)
+LM_FWD_TOL_FULL = 0.5
+#: depths of the decode-vs-forward series phase 13 prints (not held)
+LM_DEPTHS = (1, 2, 5, 10, 20, 40)
+#: the 2-layer full-width model on the card against the port on the CPU,
+#: the same parameters and tokens: prefill logits (all 32 positions) and 4
+#: decode steps, largest absolute difference on the first vocab columns
+LM_CPU_TOL = 0.15
+LM_FWD_POSITIONS = 8
+LM_CPU_LAYERS = 2
+LM_CPU_STEPS = 4
+
+
+class TapeLog:
+    """While active, every ``DeviceTapeBackend.run_tape`` adds the launches
+    its tape needs to :data:`NEEDED` (the router's sessions are made inside
+    the launcher)."""
+
+    def __enter__(self):
+        from repro_torch.columnar.device import DeviceTapeBackend
+        self.cls, self.orig = DeviceTapeBackend, DeviceTapeBackend.run_tape
+        orig = self.orig
+
+        def run_tape(be, tape):
+            need_launches(be, tape)
+            return orig(be, tape)
+
+        DeviceTapeBackend.run_tape = run_tape
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_tape = self.orig
+
+
+def lm_extras(cfg, b):
+    """The stub frontend inputs, made as tests/test_models_smoke.py makes
+    them (the launcher makes none)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"vision": rng.standard_normal(
+            (b, cfg.img_seq, cfg.d_model)).astype(np.float32)}
+    return None
+
+
+def lm_manual(cfg, params, prompts, gen, extras, dev, force=None,
+              keep=LM_FWD_POSITIONS):
+    """The reference's manual decode loop (tests/test_serve.py) on the
+    port: every prompt token decoded in turn into a fresh ``max_seq``
+    cache, then greedy continuation (or, with ``force``, the tokens
+    ``force`` gives fed in its place), in sync debug mode.  Returns each
+    step's argmax, the logits of the first ``keep`` positions and the
+    synchronizing CUDA calls per decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import tensor_from_array
+    from repro_torch.models import api
+    b, plen = prompts.shape
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, b, cfg.max_seq, str(dev))
+        toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+        if extras:
+            _, pre = api.prefill(cfg, params, dict(
+                tokens=toks, **{k: tensor_from_array(v, dev)
+                                for k, v in extras.items()}))
+            cache["cross_k"], cache["cross_v"] = pre["cross_k"], \
+                pre["cross_v"]
+        torch.cuda.synchronize()
+        first, out, steps = [], [], 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for i in range(plen):
+                    logits, cache = api.decode(cfg, params, toks[:, i:i + 1],
+                                               cache, i)
+                    steps += 1
+                    if i < keep:
+                        first.append(logits[:, 0])
+                for i in range(gen):
+                    tok = torch.argmax(logits[:, -1], dim=-1).reshape(b, 1)
+                    out.append(tok)
+                    if i < gen - 1:
+                        if force is not None:
+                            tok = torch.as_tensor(force[:, i:i + 1],
+                                                  dtype=torch.long,
+                                                  device=dev)
+                        logits, cache = api.decode(cfg, params, tok, cache,
+                                                   plen + i)
+                        steps += 1
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        manual = torch.cat(out, dim=1).cpu().numpy()
+        first = torch.stack(first, dim=1).float().cpu().numpy() \
+            if first else None
+    del cache
+    return manual.astype(np.int32), first, syncs / steps
+
+
+def lm_forward_logits(cfg, params, prompts, extras, dev, n):
+    """Teacher-forced logits of the first ``n`` prompt tokens."""
+    import torch
+
+    from repro_torch.convert import tensor_from_array
+    from repro_torch.models import encdec, lm
+    toks = torch.as_tensor(prompts[:, :n], dtype=torch.long, device=dev)
+    ex = {k: tensor_from_array(v, dev) for k, v in (extras or {}).items()}
+    with torch.inference_mode():
+        if cfg.family == "encdec":
+            mem = encdec.encode(cfg, params, ex["frames"])
+            logits, _ = encdec.decode_train(cfg, params, toks, mem)
+        else:
+            logits = lm.forward(cfg, params, toks,
+                                vision=ex.get("vision"))[0]
+    return logits.float().cpu().numpy()
+
+
+def lm_consistency(label, cfg, params, prompts, generated, extras, dev,
+                   tol=LM_FWD_TOL, forced=False):
+    """Hold ``generated`` (ServeEngine's) against the manual decode loop
+    (agreement >= LM_AGREE) and the manual loop's first positions against
+    lm.forward (largest logit difference < ``tol``).  ``forced`` (full
+    width): the manual loop is fed the engine's tokens and each step's
+    argmax must agree, and decode and forward must agree by argmax too;
+    free-running agreement is printed.  Returns the numbers."""
+    import numpy as np
+    v = cfg.vocab
+    manual, first, syncs = lm_manual(cfg, params, prompts,
+                                     generated.shape[1], extras, dev)
+    agree = float((generated == manual).mean())
+    fwd = lm_forward_logits(cfg, params, prompts, extras, dev,
+                            first.shape[1])
+    diff = float(np.abs(first[..., :v] - fwd[..., :v]).max())
+    out = {"agree": agree, "decode_vs_forward": diff,
+           "syncs_per_step": syncs}
+    check(np.isfinite(first[..., :v]).all(),
+          f"{label}: decode logits not finite")
+    check(diff < tol, f"{label}: decode vs forward {diff} >= {tol}")
+    tail = (f"decode vs forward over {first.shape[1]} positions max |diff| "
+            f"{diff:.4f} (< {tol})")
+    if not forced:
+        log(f"  {label}: ServeEngine vs manual decode token agreement "
+            f"{agree:.3f} (>= {LM_AGREE}); {tail}; sync-debug warnings per "
+            f"decode step {syncs:.2f}")
+        check(agree >= LM_AGREE, f"{label}: ServeEngine vs manual decode "
+              f"agree {agree} < {LM_AGREE}")
+        return out
+    held, _, _ = lm_manual(cfg, params, prompts, generated.shape[1],
+                           extras, dev, force=generated, keep=0)
+    out["agree_forced"] = float((generated == held).mean())
+    out["argmax_agree"] = float((first[..., :v].argmax(-1)
+                                 == fwd[..., :v].argmax(-1)).mean())
+    log(f"  {label}: ServeEngine vs the manual loop fed its tokens, argmax "
+        f"agreement {out['agree_forced']:.3f} (>= {LM_AGREE}); free-running"
+        f" agreement {agree:.3f} (not held at full width); {tail}, argmax "
+        f"agreement {out['argmax_agree']:.3f} (>= {LM_AGREE}); sync-debug "
+        f"warnings per decode step {syncs:.2f}")
+    check(out["agree_forced"] >= LM_AGREE, f"{label}: ServeEngine vs the "
+          f"forced manual loop agree {out['agree_forced']} < {LM_AGREE}")
+    check(out["argmax_agree"] >= LM_AGREE, f"{label}: decode vs forward "
+          f"argmax agreement {out['argmax_agree']} < {LM_AGREE}")
+    return out
+
+
+def lm_depth_series(cfg, params, prompts, dev):
+    """Decode against forward over the first LM_FWD_POSITIONS prompt
+    tokens for the model cut to each of LM_DEPTHS layers (the same
+    parameters; a 64-position decode cache): how bf16 rounding
+    differences grow with depth.  Largest logit difference by depth."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    b, n, v = prompts.shape[0], LM_FWD_POSITIONS, cfg.vocab
+    toks = torch.as_tensor(prompts[:, :n], dtype=torch.long, device=dev)
+    out = {}
+    for depth in LM_DEPTHS:
+        c = cfg.replace(n_layers=depth, max_seq=64)
+        p = dict(params, blocks=tree_map(lambda a: a[:depth],
+                                         params["blocks"]))
+        fwd = lm_forward_logits(c, p, prompts, None, dev, n)
+        with torch.inference_mode():
+            cache = api.init_cache(c, b, c.max_seq, str(dev))
+            dec = []
+            for i in range(n):
+                lg, cache = api.decode(c, p, toks[:, i:i + 1], cache, i)
+                dec.append(lg[:, 0].float())
+            dec = torch.stack(dec, dim=1).cpu().numpy()
+        out[depth] = float(np.abs(dec[..., :v] - fwd[..., :v]).max())
+    return out
+
+
+def lm_profile(fn, top=8):
+    """``fn()`` once under the profiler: its host wall (ms, ending in a
+    synchronize), the device time the profiler saw (ms: the kernels and
+    copies) and the ``top`` largest of them by name (ms, count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]      # kernels, copies
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows[:top]
+
+
+def lm_profiles(cfg, params, prompts, dev):
+    """A warm prefill of ``prompts`` and a warm decode step (position 2 of
+    a fresh ``max_seq`` cache) under the profiler."""
+    import torch
+
+    from repro_torch.models import api
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    out = {}
+    with torch.inference_mode():
+        api.prefill(cfg, params, {"tokens": toks})
+        out["prefill"] = lm_profile(
+            lambda: api.prefill(cfg, params, {"tokens": toks}))
+        cache = api.init_cache(cfg, toks.shape[0], cfg.max_seq, str(dev))
+        for i in range(2):
+            _, cache = api.decode(cfg, params, toks[:, i:i + 1], cache, i)
+        out["decode"] = lm_profile(
+            lambda: api.decode(cfg, params, toks[:, 2:3], cache, 2))
+    del cache
+    return out
+
+
+def decode_bound_bytes(cfg, batch, max_seq):
+    """Bytes one decode step must read: every parameter but the embedding
+    (of which it reads ``batch`` rows) and the whole K/V cache (the masked
+    decode attention reads all of ``max_seq``)."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    size = lambda d: int(np.prod(d.shape)) * d.dtype.itemsize
+    weights = sum(size(d) for p, d in tree_items(api.schema(cfg))
+                  if p != "embed")
+    embed_rows = batch * cfg.d_model * 2
+    cache = sum(size(d) for _, d in tree_items(
+        api.cache_schema(cfg, batch, max_seq)))
+    return weights, embed_rows, cache
+
+
+def lm_cpu_compare(cfg, params, prompts, dev):
+    """The FULL config cut to LM_CPU_LAYERS layers, on the same parameters
+    (the first layers' slices), on the card and on the CPU: prefill logits
+    of every position and LM_CPU_STEPS decode steps of the same tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api, lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg2 = cfg.replace(n_layers=LM_CPU_LAYERS)
+    card = dict(params, blocks=tree_map(lambda a: a[:LM_CPU_LAYERS],
+                                        params["blocks"]))
+    host = tree_map(lambda a: a.cpu(), card)
+    b, plen = prompts.shape
+    nxt = np.random.default_rng(2).integers(
+        0, cfg.vocab, (b, LM_CPU_STEPS)).astype(np.int64)
+    got, times = {}, {}
+    for name, p, d in (("cuda", card, dev), ("cpu", host,
+                                             torch.device("cpu"))):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            toks = torch.as_tensor(prompts, dtype=torch.long, device=d)
+            logits, _, caches, _ = lm.forward(cfg2, p, toks, mode="prefill")
+            eng = ServeEngine(cfg2, p, batch_size=b, max_seq=cfg2.max_seq,
+                              device=str(d))
+            cache = eng._grow_cache(caches, plen)
+            steps = []
+            for i in range(LM_CPU_STEPS):
+                tok = torch.as_tensor(nxt[:, i:i + 1], device=d)
+                lg, cache = api.decode(cfg2, p, tok, cache, plen + i)
+                steps.append(lg[:, 0])
+            got[name] = [logits.float().cpu().numpy()] + \
+                [s.float().cpu().numpy() for s in steps]
+        times[name] = time.perf_counter() - t0
+        del cache, caches
+    diffs = [float(np.abs(a[..., :cfg.vocab] - c[..., :cfg.vocab]).max())
+             for a, c in zip(got["cpu"], got["cuda"])]
+    n2 = api.n_params(cfg2)
+    log(f"  {LM_CPU_LAYERS}-layer full width ({n2} parameters), card vs "
+        f"CPU: prefill logits (4 x {plen} positions) max |diff| "
+        f"{diffs[0]:.4f}, decode steps {[round(x, 4) for x in diffs[1:]]} "
+        f"(< {LM_CPU_TOL}); card {times['cuda']:.1f} s, CPU "
+        f"{times['cpu']:.1f} s")
+    for x in got["cuda"]:
+        check(np.isfinite(x[..., :cfg.vocab]).all(),
+              "2-layer card logits not finite")
+    check(max(diffs) < LM_CPU_TOL, f"2-layer card vs CPU: max |diff| "
+          f"{max(diffs)} >= {LM_CPU_TOL}")
+    del host
+    return {"n_params": n2, "prefill_diff": diffs[0],
+            "decode_diffs": diffs[1:], "cpu_s": times["cpu"]}
+
+
+def phase_lm(dev, smi, start_path, end_path):
+    """Phase 13: ``launch.serve.main(LM_ARGV)`` (the router's three rules
+    on the tape engine, then granite-3-8b FULL: 40 layers, d_model 4096,
+    through ServeEngine with a 32768-position cache), its output checked
+    and timed; ServeEngine against the manual decode loop and decode
+    against forward on the same parameters; the 2-layer cut against the
+    CPU; the ten SMOKE configs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ServeEngine
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    t0 = time.perf_counter()
+    with TapeLog():
+        res = serve_main(LM_ARGV)
+    wall = time.perf_counter() - t0
+    end_path("lm_serve")
+    peak = torch.cuda.max_memory_allocated()
+    cfg, eng, gen = res["cfg"], res["engine"], res["generated"]
+    params, prompts = res["model"].params, res["prompts"]
+    n = api.n_params(cfg)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab) == (40, 4096, 32, 8, 12800, 49155),
+          f"phase 13 did not serve the FULL granite-3-8b: {cfg}")
+    check(gen.shape == (4, 16) and ((gen >= 0) & (gen < cfg.vocab)).all(),
+          f"phase 13: generated {gen.shape}, range [{gen.min()}, "
+          f"{gen.max()}]")
+    t = eng.timings
+    steps = np.asarray(t["step_ms"])
+    w, e, c = decode_bound_bytes(cfg, 4, cfg.max_seq)
+    bound_ms = (w + e + c) / MEM_BYTES_PER_S * 1e3
+    prefill_flops = 2 * (w // 2) * prompts.size
+    prefill_bound = max(w / MEM_BYTES_PER_S, prefill_flops / BF16_OPS_PER_S) \
+        * 1e3
+    out["serve"] = {
+        "n_params": n, "init_s": res["init_s"], "main_wall_s": wall,
+        "prefill_ms": t["prefill_ms"], "step_ms": steps.tolist(),
+        "step_p50_ms": float(np.median(steps)),
+        "step_min_ms": float(steps.min()), "step_max_ms": float(steps.max()),
+        "decode_tokens_per_s": float(4 * len(steps) / (steps.sum() / 1e3)),
+        "tokens_per_s": float(gen.size / ((t["prefill_ms"] + steps.sum())
+                                          / 1e3)),
+        "peak_bytes": peak, "decode_bound_ms": bound_ms,
+        "decode_bytes": {"weights": w, "embed_rows": e, "cache": c},
+        "prefill_bound_ms": prefill_bound}
+    s = out["serve"]
+    log(f"  [{smi}] granite-3-8b FULL, {n} parameters: init "
+        f"{s['init_s']:.2f} s; main() {wall:.1f} s")
+    log(f"  [{smi}] prefill (4 x 32 tokens, with the decode buffers' "
+        f"allocation; the first call) {s['prefill_ms']:.2f} ms (bound "
+        f"{prefill_bound:.3f} ms)")
+    log(f"  [{smi}] decode per step over {len(steps)} steps: p50 "
+        f"{s['step_p50_ms']:.3f} ms, min {s['step_min_ms']:.3f} ms, max "
+        f"{s['step_max_ms']:.3f} ms; bound {bound_ms:.3f} ms (weights "
+        f"{w} B + embedding rows {e} B + K/V cache {c} B over "
+        f"{MEM_BYTES_PER_S:.3g} B/s)")
+    log(f"  [{smi}] {s['decode_tokens_per_s']:.1f} decode tokens/s, "
+        f"{s['tokens_per_s']:.1f} tokens/s with the prefill; "
+        f"torch.cuda.max_memory_allocated {peak} B")
+    # a second generate on the same engine: the warm prefill and steps
+    gen2 = eng.generate(prompts, n_steps=16)
+    t2 = eng.timings
+    s["warm_prefill_ms"] = t2["prefill_ms"]
+    s["warm_step_p50_ms"] = float(np.median(t2["step_ms"]))
+    check(np.array_equal(gen2, gen), "phase 13: a second generate differs")
+    log(f"  [{smi}] warm generate: prefill {s['warm_prefill_ms']:.2f} ms, "
+        f"decode p50 {s['warm_step_p50_ms']:.3f} ms; the same tokens")
+    del eng, res
+    torch.cuda.empty_cache()
+    for what, (pwall, busy, rows) in lm_profiles(cfg, params, prompts,
+                                                 dev).items():
+        s[f"profile_{what}"] = {"wall_ms": pwall, "device_ms": busy,
+                                "top": [(k[:80], ms, n) for k, ms, n in rows]}
+        log(f"  [{smi}] one warm {what} under the profiler: wall "
+            f"{pwall:.3f} ms, device {busy:.3f} ms (busy share "
+            f"{busy / pwall:.4f}); by kernel (ms, launches): " + "; ".join(
+                f"{k[:56]} {ms:.3f} x{n}" for k, ms, n in rows))
+    torch.cuda.empty_cache()
+    s.update(lm_consistency("granite-3-8b FULL", cfg, params, prompts, gen,
+                            None, dev, tol=LM_FWD_TOL_FULL, forced=True))
+    s["depth_series"] = lm_depth_series(cfg, params, prompts, dev)
+    log(f"  [{smi}] decode vs forward by depth (max |diff| of the first "
+        f"{LM_FWD_POSITIONS} positions' logits): " + ", ".join(
+            f"{d} layers {x:.4f}" for d, x in s["depth_series"].items()))
+    log(f"  [{smi}] host syncs per decode step (sync debug mode): "
+        f"{s['syncs_per_step']:.2f}")
+    torch.cuda.empty_cache()
+    # the first LM_CPU_LAYERS layers: engine and decode held at the
+    # SMOKE tolerances, then against the CPU
+    cfg2 = cfg.replace(n_layers=LM_CPU_LAYERS)
+    p2 = dict(params, blocks=tree_map(lambda a: a[:LM_CPU_LAYERS],
+                                      params["blocks"]))
+    g2 = ServeEngine(cfg2, p2, batch_size=4, max_seq=cfg2.max_seq) \
+        .generate(prompts, n_steps=16)
+    out["two_layers"] = lm_consistency(
+        f"granite-3-8b, its first {LM_CPU_LAYERS} layers", cfg2, p2,
+        prompts, g2, None, dev, forced=True)
+    del p2
+    torch.cuda.empty_cache()
+    out["cpu"] = lm_cpu_compare(cfg, params, prompts, dev)
+    del params
+    torch.cuda.empty_cache()
+    out["smoke"] = {}
+    for arch in ARCHS:
+        scfg = get_smoke(arch)
+        p = api.init(scfg, 0, "cuda")
+        b, plen, ngen = 2, 12, 5
+        pr = np.random.default_rng(0).integers(
+            0, scfg.vocab, (b, plen)).astype(np.int32)
+        ex = lm_extras(scfg, b)
+        g = ServeEngine(scfg, p, batch_size=b, max_seq=scfg.max_seq) \
+            .generate(pr, ngen, batch_extras=ex)
+        check(g.shape == (b, ngen) and ((g >= 0) & (g < scfg.vocab)).all(),
+              f"{arch} SMOKE: generated {g}")
+        out["smoke"][arch] = lm_consistency(f"{arch} SMOKE", scfg, p, pr, g,
+                                            ex, dev)
+    torch.cuda.empty_cache()
+    return out
 
 
 def smi_line() -> str:
@@ -4096,6 +4589,14 @@ def main(argv) -> int:
     del table, stream, block, sharded
     torch.cuda.empty_cache()
     log(f"  phase 12 (stream) took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 13: LM serving, python -m repro_torch.launch.serve "
+        + " ".join(LM_ARGV) + "; " + smi)
+    t0 = time.perf_counter()
+    lm_out = phase_lm(dev, smi, start_path, end_path)
+    log(f"  phase 13 summary ({smi}): " + json.dumps(lm_out, default=str))
+    del lm_out
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -451,6 +451,9 @@ class DeviceTapeBackend(SetBackend):
         self.host_fallbacks = 0
         self.device_dispatches = 0
         self.uploaded_bytes = 0       # host->device column traffic
+        # port-only: the bytes that really moved host->device (equal to
+        # uploaded_bytes here; a sharded refresh moves only the real tail)
+        self.transferred_bytes = 0
         # deferred set operations (port-only counters, see the module doc)
         self.setops_deferred = 0
         self.setop_launches = 0
@@ -572,6 +575,7 @@ class DeviceTapeBackend(SetBackend):
             arr = np.zeros(self._padded, dtype=np.float32)
             arr[: self.n] = raw.astype(np.float32)
             self.uploaded_bytes += arr.nbytes
+            self.transferred_bytes += arr.nbytes
             arr = arr.reshape(self.nblocks, self.block)
             col = self._join([torch.from_numpy(arr[lo:hi]).to(dev)
                               for lo, hi, dev in self._spans()])
@@ -689,6 +693,7 @@ class DeviceTapeBackend(SetBackend):
             else:
                 self._cols[name] = torch.cat([col[:dirty], tail])
         self.uploaded_bytes += up
+        self.transferred_bytes += up
         return up
 
     def extend_set(self, s: _DevSet, old_n: int, delta_hits) -> _DevSet:

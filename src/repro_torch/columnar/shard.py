@@ -38,7 +38,9 @@ them: a small append lands on ONE shard), and inside the block bucket
 updates the columns and the full set in place, so no program is made
 again.  When the bucket grows the partition changes: the surviving prefix
 moves device to device, never from the host again, and the programs are
-dropped.
+dropped.  ``uploaded_bytes`` (and so a session's ``upload_bytes``) keeps
+the reference's count, the blocks from the dirty one to the end of the
+bucket; the port-only ``transferred_bytes`` counts the real tail moved.
 
 Select it with ``ExecConfig(engine="tape", shards=S)`` (or an explicit
 ``mesh=``), which :func:`repro_torch.columnar.executor.resolve_backend`
@@ -184,7 +186,10 @@ class ShardedTapeBackend(DeviceTapeBackend):
         and the full set update in place (the programs read them by
         address and stay); when the bucket grows the partition changes,
         the surviving prefix moves device to device and the programs are
-        dropped.  Returns the bytes uploaded."""
+        dropped.  ``uploaded_bytes`` and the return value count what the
+        reference's unsharded backend uploads, every block from the dirty
+        one to the end of the (new) bucket; ``transferred_bytes`` counts
+        the real dirty tail that moved."""
         _faults.trip("device.upload", backend=self)
         self._flush()
         if self._zones:
@@ -212,18 +217,20 @@ class ShardedTapeBackend(DeviceTapeBackend):
             self._write_rows([p.bits for p in self._full],
                              padded.view(np.int32), dirty, real)
             self._write_rows([p.pops for p in self._full], pops, dirty, real)
-        up = 0
+        up = moved = 0
         for name, col in list(self._cols.items()):
             if col is False:
                 continue               # non-numeric: still host-resident
             tail = dirty_tail(self.table.column_data(name), dirty, real,
                               self.block).reshape(real - dirty, self.block)
-            up += tail.nbytes
+            up += (nblocks - dirty) * self.block * 4
+            moved += tail.nbytes
             if grew:
                 self._cols[name] = self._repartition(col, dirty, tail)
             else:
                 self._write_rows(col, tail, dirty, real, offset=dirty)
         self.uploaded_bytes += up
+        self.transferred_bytes += moved
         return up
 
     def _write_rows(self, parts: Sequence[torch.Tensor], rows: np.ndarray,

@@ -1,8 +1,19 @@
-"""Serving launcher: predicate-routed request admission, optionally as a
-durable, warm-restartable stream.
+"""Serving launcher: predicate-routed batched generation, and request
+admission as a durable, warm-restartable stream.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        [--smoke] [--batch 4 --prompt-len 32 --gen 16]
     PYTHONPATH=src python -m repro_torch.launch.serve --stream \
         --durable DIR --cache-dir DIR2 --serve-port 0
+
+``--arch`` (one of the ten ``configs.ARCHS``; ``--smoke`` takes its SMOKE
+config) makes the architecture's parameters (random, seed 0, on the
+device) and, after the router, serves a batch of ``--batch`` random
+prompts of ``--prompt-len`` tokens through a :class:`ServeEngine`, which
+prefills them once and greedy-decodes ``--gen`` tokens.  As in the
+reference, the launcher makes no ``frames`` / ``vision`` stub: whisper-base
+and llama-3.2-vision-11b are served through ``ServeEngine.generate(
+batch_extras=...)``.
 
 ``--stream`` demos the streaming admission layer: a background drainer
 with an interactive and a bulk lane, three rounds of metadata appends
@@ -18,16 +29,29 @@ routes one request batch twice (the second from a warm plan cache).
 ``pallas`` are one path in the port, the per-step block engine, as
 ``tape`` and ``tape-pallas`` are); the stream demo runs ``numpy`` as
 ``tape``, as the reference's does.  Everything runs on ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions).  The reference launcher's LM half (``--arch``,
-batched generation with ``ServeEngine``) is not part of this package yet.
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+
+:func:`main` returns what it made (the router; with ``--arch`` also the
+config, the ``models.LM``, the engine, prompts, generated tokens and the
+init time),
+for a caller that checks them.
 """
 import argparse
+import time
 
 import numpy as np
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="serve this architecture (configs.ARCHS) after "
+                         "the router")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: its reduced SMOKE config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--engine", default="tape",
                     choices=["numpy", "jax", "pallas", "tape", "tape-pallas"],
                     help="predicate-router engine (tape = device-resident; "
@@ -62,6 +86,21 @@ def main(argv=None):
     from ..core import Atom
     from ..serve import RequestRouter
 
+    out = {}
+    if args.arch is not None:
+        import torch
+
+        from ..configs import get_config, get_smoke
+        from ..models import LM
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        t0 = time.perf_counter()
+        model = LM.init(cfg, seed=0, device=args.device)
+        if model.params["embed"].is_cuda:
+            torch.cuda.synchronize()
+        out.update(cfg=cfg, model=model,
+                   init_s=time.perf_counter() - t0)
+        print(f"{cfg.name}: {sum(p.numel() for p in model.parameters())} "
+              f"parameters on {args.device}, made in {out['init_s']:.2f} s")
     rng = np.random.default_rng(0)
 
     n_req = 32
@@ -168,6 +207,27 @@ def main(argv=None):
     routes = router.route(requests)        # warm plan cache across calls
     st = router.last_result.stats
     print(f"second batch: plan-cache hit rate {st.plan_hit_rate:.0%}")
+    out.update(router=router, routes=routes)
+    if args.arch is None:
+        return out
+
+    from ..serve import ServeEngine
+    cfg = out["cfg"]
+    eng = ServeEngine(cfg, out["model"].params, batch_size=args.batch,
+                      max_seq=cfg.max_seq, device=args.device)
+    prompts = rng.integers(0, cfg.vocab,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    gen = eng.generate(prompts, n_steps=args.gen)
+    print("generated:", gen.shape, gen[0, :8].tolist())
+    t = eng.timings
+    steps = t["step_ms"]
+    if steps:
+        print(f"prefill {t['prefill_ms']:.2f} ms; decode per step p50 "
+              f"{float(np.median(steps)):.2f} ms (min {min(steps):.2f}, max "
+              f"{max(steps):.2f}) over {len(steps)} steps; "
+              f"{args.batch * len(steps) / (sum(steps) / 1e3):.1f} tokens/s")
+    out.update(engine=eng, prompts=prompts, generated=gen)
+    return out
 
 
 if __name__ == "__main__":

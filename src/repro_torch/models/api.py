@@ -1,0 +1,133 @@
+"""Unified model API: schema / init / prefill / decode per config.
+
+``batch`` layout, as in the reference:
+    tokens: (B, S) int              LM families
+    frames: (B, enc_seq, d) f32     encdec stub frontend
+    vision: (B, img_seq, d) f32     vlm stub frontend
+
+Parameters are a nested dict of tensors in the reference's tree layout
+(stacked ``(L, ...)`` leaves), so the reference's parameters convert leaf
+by leaf (:func:`repro_torch.convert.lm_params_from_arrays`).  :class:`LM`
+holds such a tree as an ``nn.Module`` whose ``state_dict()`` keys are the
+schema paths joined with ``"."`` (``blocks.attn.wq``).  Every function
+runs on the device its tensors are on; ``init`` and ``init_cache`` default
+to the card and raise without one.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from torch import nn
+
+from . import encdec, lm
+from .common import abstract_params, count_params, init_params
+from .config import LMConfig
+
+
+def schema(cfg: LMConfig):
+    if cfg.family == "encdec":
+        return encdec.encdec_schema(cfg)
+    return lm.lm_schema(cfg)
+
+
+def init(cfg: LMConfig, seed: int = 0, device: str = "cuda"):
+    return init_params(schema(cfg), seed, device)
+
+
+def abstract(cfg: LMConfig):
+    return abstract_params(schema(cfg))
+
+
+def n_params(cfg: LMConfig) -> int:
+    return count_params(schema(cfg))
+
+
+def cache_schema(cfg: LMConfig, batch: int, max_seq: int):
+    if cfg.family == "encdec":
+        return encdec.encdec_cache_schema(cfg, batch, max_seq)
+    return lm.cache_schema(cfg, batch, max_seq)
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_seq: int):
+    return abstract_params(cache_schema(cfg, batch, max_seq))
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               device: str = "cuda"):
+    return init_params(cache_schema(cfg, batch, max_seq), 0, device)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+def prefill(cfg: LMConfig, params, batch):
+    """Returns (last-position logits (B, V), caches)."""
+    tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        memory = encdec.encode(cfg, params, batch["frames"])
+        logits, caches = encdec.decode_train(cfg, params, tokens, memory,
+                                             mode="prefill")
+        ck, cv = encdec.cross_kv(cfg, params, memory)
+        cache = {"k": caches["k"], "v": caches["v"],
+                 "cross_k": ck, "cross_v": cv}
+        return logits[:, -1], cache
+    logits, _, caches, _ = lm.forward(cfg, params, tokens,
+                                      vision=batch.get("vision"),
+                                      mode="prefill")
+    if cfg.family == "vlm" and caches is not None:
+        ck, cv = lm.vlm_cross_cache(cfg, params, batch["vision"])
+        caches = {"kv": caches["kv"], "cross_k": ck, "cross_v": cv}
+    return logits[:, -1], caches
+
+
+def decode(cfg: LMConfig, params, token, cache, index: int):
+    """token: (B, 1) int; index: the position (a host int).  Updates
+    ``cache`` in place; returns (logits (B, 1, V), cache)."""
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, params, token, cache, index)
+    return lm.decode(cfg, params, token, cache, index)
+
+
+# ---------------------------------------------------------------------------
+# The module
+# ---------------------------------------------------------------------------
+def _register(module: nn.Module, tree: Dict) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            sub = nn.Module()
+            _register(sub, val)
+            module.add_module(key, sub)
+        else:
+            module.register_parameter(
+                key, nn.Parameter(val, requires_grad=False))
+
+
+def _tree(module: nn.Module) -> Dict:
+    out = dict(module._parameters)
+    out.update({k: _tree(m) for k, m in module._modules.items()})
+    return out
+
+
+class LM(nn.Module):
+    """An architecture's parameters as a module (the tensors are shared,
+    not copied), with the serving entry points as methods."""
+
+    def __init__(self, cfg: LMConfig, params: Dict):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, params)
+
+    @classmethod
+    def init(cls, cfg: LMConfig, seed: int = 0, device: str = "cuda"):
+        return cls(cfg, init(cfg, seed, device))
+
+    @property
+    def params(self) -> Dict:
+        """The parameter tree, in the reference's layout."""
+        return _tree(self)
+
+    def prefill(self, batch):
+        return prefill(self.cfg, self.params, batch)
+
+    def decode(self, token, cache, index: int):
+        return decode(self.cfg, self.params, token, cache, index)

@@ -1,0 +1,248 @@
+"""Shared model machinery: parameter schemas, norms, RoPE, blockwise attention.
+
+Parameters are declared as a nested dict of :class:`ParamDef` (shape +
+logical axes + init + dtype); from one schema we derive real
+initialization and abstract (meta) tensors; ``sharding.spec_for`` gives
+a leaf's partition from its axes.  Every function here is the reference's ``models/common.py`` on
+torch tensors, one implementation for both devices: each product the
+reference accumulates in f32 (``preferred_element_type=jnp.float32``) runs
+on inputs upcast to f32, so a bf16 product never rounds its output.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..columnar.device import torch_device
+
+
+# ---------------------------------------------------------------------------
+# Parameter schema
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axis names (len == ndim)
+    init: str = "normal"                  # normal | zeros | ones
+    scale: float = 0.02
+    dtype: Any = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) of a nested dict, keys in sorted order (the
+    order ``jax.tree`` flattens a dict in)."""
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from tree_items(v, path + ".")
+        else:
+            yield path, v
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def layer(tree, i):
+    """Layer ``i`` of a tree of stacked ``(L, ...)`` leaves: views, so an
+    in-place write reaches the stacked tensor."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def stack(trees):
+    """The per-layer trees stacked on a new leading axis."""
+    return tree_map(lambda *a: torch.stack(a), *trees)
+
+
+def init_params(schema, seed: int = 0, device: str = "cuda"):
+    """Materialize a schema into real tensors on ``device``, drawn from one
+    ``torch.Generator`` seeded with ``seed`` on that device.  A stacked
+    leaf fills slice by slice along its leading axis, so no f32 copy of a
+    whole leaf is ever held (granite-3-8b's ``blocks.mlp.w_in`` is 16.8 GB
+    in f32)."""
+    dev = torch_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(d: ParamDef):
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=d.dtype, device=dev)
+        out = torch.empty(d.shape, dtype=d.dtype, device=dev)
+        parts = out if out.dim() >= 3 else [out]
+        for part in parts:
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
+                                   dtype=torch.float32) * d.scale)
+        return out
+
+    return tree_map(make, schema)
+
+
+def abstract_params(schema):
+    """Meta tensors of each leaf's shape and dtype: no allocation."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), schema)
+
+
+def count_params(schema) -> int:
+    return int(sum(np.prod(d.shape) for _, d in tree_items(schema)))
+
+
+def promote_mm(a, b):
+    """``a @ b`` with JAX's dtype promotion (f32 @ bf16 runs in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+def rms_norm(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def swiglu(gate, up):
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, D/2)
+    if x.dim() == ang.dim() + 1:                            # head axis
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoid_positions(seq: int, d: int, device=None):
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return torch.tensor(np.concatenate([np.sin(ang), np.cos(ang)], axis=-1),
+                        dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention, O(block_q * block_kv) scores per head
+# ---------------------------------------------------------------------------
+def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                        block_q: int = 1024, block_kv: int = 1024,
+                        kv_len_mask: Optional[int] = None,
+                        window: int = 0):
+    """Numerically-stable chunked attention.
+
+    q: (B, Sq, Hq, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv) with
+    Hq % Hkv == 0 (GQA) and Dv free (MLA).  Causal masking treats query
+    position i as absolute ``q_offset + i``; ``window > 0`` adds sliding-
+    window masking.  The reference's ``lax.map`` over query blocks and
+    ``lax.scan`` over key blocks are Python loops here, the same running
+    max / sum / accumulator updates in f32.
+    """
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    group = hq // hkv
+    scalef = 1.0 / math.sqrt(d)
+    dev = q.device
+
+    bq = min(block_q, sq)
+    bkv = min(block_kv, sk)
+    pad_q = (-sq) % bq
+    pad_kv = (-sk) % bkv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    nq, nkv = (sq + pad_q) // bq, (sk + pad_kv) // bkv
+
+    qb = q.reshape(b, nq, bq, hkv, group, d).float()
+    kb = k.reshape(b, nkv, bkv, hkv, d).float()
+    vb = v.reshape(b, nkv, bkv, hkv, dv).float()
+
+    q_pos = (q_offset + torch.arange(sq + pad_q, device=dev)).reshape(nq, bq)
+    k_pos = torch.arange(sk + pad_kv, device=dev).reshape(nkv, bkv)
+    k_valid = (torch.arange(sk + pad_kv, device=dev)
+               < (sk if kv_len_mask is None else kv_len_mask)).reshape(nkv,
+                                                                       bkv)
+    outs = []
+    for qi in range(nq):
+        qc, qp = qb[:, qi], q_pos[qi]               # (B, bq, Hkv, G, D)
+        acc = torch.zeros((b, hkv, group, bq, dv), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, hkv, group, bq), -1e30, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, group, bq), dtype=torch.float32, device=dev)
+        for ki in range(nkv):
+            kc, vc = kb[:, ki], vb[:, ki]           # (B, bkv, Hkv, D[v])
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scalef
+            mask = k_valid[ki][None, :]
+            if causal:
+                mask = mask & (qp[:, None] >= k_pos[ki][None, :])
+            if window:
+                mask = mask & (qp[:, None] - k_pos[ki][None, :] < window)
+            s = torch.where(mask[None, None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                       p, vc)
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, dim=3)                  # (B, Hkv, G, nq, bq, Dv)
+    out = out.reshape(b, hkv, group, nq * bq, dv)[:, :, :, :sq]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k, v):
+    """Single-position attention against a cache, softmax over all of it.
+
+    q: (B, 1, Hq, D); k/v: (B, Sk, Hkv, D)."""
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) / math.sqrt(d)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return o.reshape(b, 1, hq, d).to(q.dtype)

@@ -1,0 +1,467 @@
+"""Decoder-only LM assembly for all non-enc-dec families.
+
+Families: dense (llama/granite/yi), moe (qwen3), mla (minicpm3),
+mla_moe (deepseek-v3 + MTP), vlm (llama-3.2-vision gated cross-attn),
+zamba (mamba2 + shared attn block), rwkv (rwkv6).
+
+Layers are stacked on a leading axis, as in the reference; its
+``lax.scan`` over them is a Python loop here that indexes the stacked
+``(L, ...)`` parameters (and caches) layer by layer.  Two entry points per
+family: ``forward`` (modes ``train`` and ``prefill``; prefill also returns
+the per-layer caches, stacked) and ``decode`` (one token; it updates the
+cache tensors it is given in place and returns them).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from . import attention as att
+from . import mamba2, moe, rwkv6
+from .common import (ParamDef, decode_attention, layer, layer_norm,
+                     promote_mm, rms_norm, stack, swiglu, tree_map)
+from .config import LMConfig
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_schema(cfg: LMConfig, d_ff: int, layers: Optional[int] = None) -> Dict:
+    L = cfg.n_layers if layers is None else layers
+    d = cfg.d_model
+    lead = (L,) if L else ()
+    lax_ = ("layers",) if L else ()
+    return {
+        "w_in": ParamDef(lead + (d, 2 * d_ff), lax_ + ("embed", "ff")),
+        "w_out": ParamDef(lead + (d_ff, d), lax_ + ("ff", "embed")),
+    }
+
+
+def mlp_apply(p, x):
+    gate, up = (x @ p["w_in"]).chunk(2, dim=-1)
+    return swiglu(gate, up) @ p["w_out"]
+
+
+def norm_def(cfg: LMConfig, layers: Optional[int] = None) -> ParamDef:
+    L = cfg.n_layers if layers is None else layers
+    lead = (L,) if L else ()
+    lax_ = ("layers",) if L else ()
+    return ParamDef(lead + (cfg.d_model,), lax_ + (None,), init="ones")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+def attn_ff_block(cfg: LMConfig, p, x, *, kind: str, mode: str,
+                  cache=None, index=None, window: int = 0):
+    """One transformer block; kind in {dense, moe, mla_dense, mla_moe}.
+    Returns (x, aux, new_cache)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    new_cache = None
+    if kind.startswith("mla"):
+        if mode == "decode":
+            a, new_cache = att.mla_decode(cfg, p["attn"], h, cache, index)
+        else:
+            a = att.mla_train(cfg, p["attn"], h)
+            if mode == "prefill":
+                positions = torch.arange(h.shape[1], device=h.device)[None]
+                c, k_rope = att._mla_latent(cfg, p["attn"], h, positions)
+                new_cache = {"c": c, "k_rope": k_rope}
+    else:
+        if mode == "decode":
+            a, new_cache = att.gqa_decode(cfg, p["attn"], h, cache, index,
+                                          window=window)
+        else:
+            a = att.gqa_train(cfg, p["attn"], h, window=window)
+            if mode == "prefill":
+                positions = torch.arange(h.shape[1], device=h.device)[None]
+                _, k, v = att._qkv(cfg, p["attn"], h, positions)
+                new_cache = {"k": k, "v": v}
+    x = x + a
+    h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if kind.endswith("moe"):
+        m, aux = moe.moe_apply(cfg, p["moe"], h2)
+    else:
+        m = mlp_apply(p["mlp"], h2)
+    return x + m, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Schemas per family
+# ---------------------------------------------------------------------------
+def vocab_padded(cfg: LMConfig) -> int:
+    """Vocab rounded up to a 128 multiple (the reference pads it so the
+    vocab dim divides its model axis).  Pad columns are masked to -1e30 in
+    _logits."""
+    return -(-cfg.vocab // 128) * 128
+
+
+def lm_schema(cfg: LMConfig) -> Dict:
+    d, v = cfg.d_model, vocab_padded(cfg)
+    emb_d_axis = "embed" if cfg.embed_fsdp else None
+    s: Dict[str, Any] = {
+        "embed": ParamDef((v, d), ("vocab", emb_d_axis), scale=0.01),
+        "final_norm": norm_def(cfg, 0),
+        "unembed": ParamDef((d, v), ("embed", "vocab")),
+    }
+    f = cfg.family
+    if f in ("dense", "moe", "mla"):
+        blk = {"attn_norm": norm_def(cfg), "mlp_norm": norm_def(cfg)}
+        blk["attn"] = (att.mla_schema(cfg) if f == "mla"
+                       else att.gqa_schema(cfg))
+        if f == "moe":
+            blk["moe"] = moe.moe_schema(cfg)
+        else:
+            blk["mlp"] = mlp_schema(cfg, cfg.d_ff)
+        s["blocks"] = blk
+    elif f == "mla_moe":
+        nd, nm = cfg.first_dense_layers, cfg.n_layers - cfg.first_dense_layers
+        s["dense_blocks"] = {
+            "attn_norm": norm_def(cfg, nd), "mlp_norm": norm_def(cfg, nd),
+            "attn": att.mla_schema(cfg, nd), "mlp": mlp_schema(cfg, cfg.d_ff, nd)}
+        s["moe_blocks"] = {
+            "attn_norm": norm_def(cfg, nm), "mlp_norm": norm_def(cfg, nm),
+            "attn": att.mla_schema(cfg, nm), "moe": moe.moe_schema(cfg, nm)}
+        if cfg.mtp:
+            s["mtp"] = {
+                "proj": ParamDef((2 * d, d), (None, "embed")),
+                "norm_h": norm_def(cfg, 0), "norm_e": norm_def(cfg, 0),
+                "attn_norm": norm_def(cfg, 0), "mlp_norm": norm_def(cfg, 0),
+                "attn": att.mla_schema(cfg, 0),
+                "mlp": mlp_schema(cfg, cfg.d_ff, 0)}
+    elif f == "vlm":
+        ncross = cfg.n_layers // cfg.cross_every
+        nself = ncross * (cfg.cross_every - 1)
+        s["self_blocks"] = {
+            "attn_norm": norm_def(cfg, nself), "mlp_norm": norm_def(cfg, nself),
+            "attn": att.gqa_schema(cfg, nself),
+            "mlp": mlp_schema(cfg, cfg.d_ff, nself)}
+        s["cross_blocks"] = {
+            "attn_norm": norm_def(cfg, ncross), "mlp_norm": norm_def(cfg, ncross),
+            "attn": att.cross_schema(cfg, ncross),
+            "mlp": mlp_schema(cfg, cfg.d_ff, ncross),
+            "gate_attn": ParamDef((ncross, 1), ("layers", None), init="zeros",
+                                  dtype=torch.float32),
+            "gate_mlp": ParamDef((ncross, 1), ("layers", None), init="zeros",
+                                 dtype=torch.float32)}
+    elif f == "zamba":
+        g = cfg.n_layers // cfg.attn_every
+        tail = cfg.n_layers % cfg.attn_every
+        s["mamba_groups"] = {
+            "norm": _stack_norm(cfg, (g, cfg.attn_every)),
+            "mamba": _stack2(mamba2.mamba_schema(cfg, cfg.attn_every), g)}
+        if tail:
+            s["mamba_tail"] = {"norm": norm_def(cfg, tail),
+                               "mamba": mamba2.mamba_schema(cfg, tail)}
+        s["shared"] = {
+            "proj": ParamDef((2 * d, d), (None, "embed")),
+            "attn_norm": norm_def(cfg, 0), "mlp_norm": norm_def(cfg, 0),
+            "attn": att.gqa_schema(cfg, 0),
+            "mlp": mlp_schema(cfg, cfg.d_ff, 0)}
+    elif f == "rwkv":
+        s["blocks"] = rwkv6.rwkv_schema(cfg)
+        s["ln0_s"] = ParamDef((d,), (None,), init="ones")
+        s["ln0_b"] = ParamDef((d,), (None,), init="zeros")
+    else:
+        raise ValueError(f"unknown family {f}")
+    return s
+
+
+def _stack_norm(cfg, lead):
+    return ParamDef(tuple(lead) + (cfg.d_model,),
+                    ("layers",) * len(lead) + (None,), init="ones")
+
+
+def _stack2(schema, g):
+    """Add an extra leading group axis to every ParamDef in schema."""
+    return tree_map(lambda d: ParamDef((g,) + d.shape, ("layers",) + d.axes,
+                                       d.init, d.scale, d.dtype), schema)
+
+
+# ---------------------------------------------------------------------------
+# Cache schemas
+# ---------------------------------------------------------------------------
+def cache_schema(cfg: LMConfig, batch: int, max_seq: int) -> Dict:
+    f = cfg.family
+    if f in ("dense", "moe"):
+        return {"kv": att.gqa_cache_schema(cfg, batch, max_seq)}
+    if f == "mla":
+        return {"kv": att.mla_cache_schema(cfg, batch, max_seq)}
+    if f == "mla_moe":
+        return {"kv_dense": att.mla_cache_schema(cfg, batch, max_seq,
+                                                 cfg.first_dense_layers),
+                "kv_moe": att.mla_cache_schema(
+                    cfg, batch, max_seq,
+                    cfg.n_layers - cfg.first_dense_layers)}
+    if f == "vlm":
+        ncross = cfg.n_layers // cfg.cross_every
+        nself = ncross * (cfg.cross_every - 1)
+        cross = ParamDef((ncross, batch, cfg.img_seq, cfg.n_heads,
+                          cfg.head_dim),
+                         ("layers", "batch", None, "heads", None),
+                         init="zeros")
+        return {"kv": att.gqa_cache_schema(cfg, batch, max_seq, nself),
+                "cross_k": cross, "cross_v": cross}
+    if f == "zamba":
+        g = cfg.n_layers // cfg.attn_every
+        tail = cfg.n_layers % cfg.attn_every
+        win = min(cfg.window or max_seq, max_seq)
+        out = {"mamba": _stack2(mamba2.mamba_state_schema(cfg, batch,
+                                                          cfg.attn_every), g),
+               "attn": att.gqa_cache_schema(cfg, batch, win, g)}
+        if tail:
+            out["mamba_tail"] = mamba2.mamba_state_schema(cfg, batch, tail)
+        return out
+    if f == "rwkv":
+        return {"blocks": rwkv6.rwkv_state_schema(cfg, batch)}
+    raise ValueError(f)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+def n_layers_of(tree) -> int:
+    """The leading (layer) size of a tree of stacked leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens].to(torch.bfloat16)
+
+
+def _logits(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["unembed"]
+    if logits.shape[-1] != cfg.vocab:     # mask vocab padding
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def _blocks(cfg, params, x, kind, mode):
+    """The stacked blocks ``params`` in order; returns (x, aux, the prefill
+    caches stacked or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = []
+    for i in range(n_layers_of(params)):
+        x, a, kv = attn_ff_block(cfg, layer(params, i), x, kind=kind,
+                                 mode=mode)
+        aux = aux + a
+        kvs.append(kv)
+    return x, aux, (stack(kvs) if mode == "prefill" else None)
+
+
+def _mamba_layers(cfg, params, h):
+    """Mamba layers over a full sequence; returns (h, states stacked)."""
+    states = []
+    for i in range(n_layers_of(params)):
+        lp = layer(params, i)
+        out, (cs, ss) = mamba2.mamba_train(
+            cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps))
+        h = h + out
+        states.append({"conv": cs, "ssm": ss})
+    return h, stack(states)
+
+
+def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
+            mode: str = "train"):
+    """tokens: (B, S) int -> (logits, aux, caches-or-None, hidden).
+
+    ``vision``: (B, img_seq, d) stub embeddings for the vlm family.
+    ``mode``: train | prefill (prefill also returns per-layer caches).
+    """
+    f = cfg.family
+    x = _embed(cfg, params, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = None
+    emb0 = x
+
+    if f in ("dense", "moe", "mla"):
+        kind = {"dense": "dense", "moe": "moe", "mla": "mla_dense"}[f]
+        x, aux_total, kv = _blocks(cfg, params["blocks"], x, kind, mode)
+        caches = {"kv": kv} if mode == "prefill" else None
+
+    elif f == "mla_moe":
+        x, a_d, kvd = _blocks(cfg, params["dense_blocks"], x, "mla_dense",
+                              mode)
+        x, a_m, kvm = _blocks(cfg, params["moe_blocks"], x, "mla_moe", mode)
+        aux_total = a_d + a_m
+        caches = ({"kv_dense": kvd, "kv_moe": kvm}
+                  if mode == "prefill" else None)
+
+    elif f == "vlm":
+        ncross = cfg.n_layers // cfg.cross_every
+        nself_per = cfg.cross_every - 1
+        kvs = []
+        for g in range(ncross):
+            for j in range(nself_per):
+                lp = layer(params["self_blocks"], g * nself_per + j)
+                x, a, kv = attn_ff_block(cfg, lp, x, kind="dense", mode=mode)
+                aux_total = aux_total + a
+                kvs.append(kv)
+            # gated cross-attn layer
+            cp = layer(params["cross_blocks"], g)
+            hn = rms_norm(x, cp["attn_norm"], cfg.norm_eps)
+            ca = att.cross_attn(cfg, cp["attn"], hn, vision)
+            x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * ca
+            hm = rms_norm(x, cp["mlp_norm"], cfg.norm_eps)
+            x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) \
+                * mlp_apply(cp["mlp"], hm)
+        if mode == "prefill":
+            caches = {"kv": stack(kvs), "vision": vision}
+
+    elif f == "zamba":
+        shared = params["shared"]
+        kvs, mstates = [], []
+        for g in range(n_layers_of(params["mamba_groups"])):
+            # shared attention block (concat with the original embedding)
+            hin = torch.cat([x, emb0], dim=-1) @ shared["proj"]
+            hb, a, kv = attn_ff_block(cfg, shared, hin, kind="dense",
+                                      mode=mode, window=cfg.window)
+            x, st = _mamba_layers(cfg, layer(params["mamba_groups"], g),
+                                  x + hb)
+            aux_total = aux_total + a
+            kvs.append(kv)
+            mstates.append(st)
+        tail_states = None
+        if "mamba_tail" in params:
+            x, tail_states = _mamba_layers(cfg, params["mamba_tail"], x)
+        if mode == "prefill":
+            caches = {"mamba": stack(mstates), "attn": stack(kvs)}
+            if tail_states is not None:
+                caches["mamba_tail"] = tail_states
+
+    elif f == "rwkv":
+        x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+        b = tokens.shape[0]
+        state0 = tree_map(
+            lambda d: torch.zeros(d.shape[1:], dtype=d.dtype,
+                                  device=x.device),
+            rwkv6.rwkv_state_schema(cfg, b))
+        states = []
+        for i in range(n_layers_of(params["blocks"])):
+            x, st = rwkv6.rwkv_block(cfg, layer(params["blocks"], i), x,
+                                     state0)
+            states.append(st)
+        caches = {"blocks": stack(states)} if mode == "prefill" else None
+
+    else:
+        raise ValueError(f)
+
+    logits = _logits(cfg, params, x)
+    return logits, aux_total, caches, x
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def _put(dst, src):
+    """Write a layer's new recurrent state into its cache views."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def _decode_blocks(cfg, params, kv, x, kind, index):
+    for i in range(n_layers_of(params)):
+        x, _, _ = attn_ff_block(cfg, layer(params, i), x, kind=kind,
+                                mode="decode", cache=layer(kv, i),
+                                index=index)
+    return x
+
+
+def _mamba_decode_layers(cfg, params, states, h):
+    for i in range(n_layers_of(params)):
+        lp, st = layer(params, i), layer(states, i)
+        out, ns = mamba2.mamba_decode(
+            cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps), st)
+        _put(st, ns)
+        h = h + out
+    return h
+
+
+def decode(cfg: LMConfig, params, token, cache, index: int):
+    """token: (B, 1) int; cache: family cache tree; index: the position (a
+    host int).  Updates ``cache`` in place; returns (logits (B, 1, V),
+    cache)."""
+    f = cfg.family
+    x = _embed(cfg, params, token)
+    emb0 = x
+
+    if f in ("dense", "moe", "mla"):
+        kind = {"dense": "dense", "moe": "moe", "mla": "mla_dense"}[f]
+        x = _decode_blocks(cfg, params["blocks"], cache["kv"], x, kind, index)
+
+    elif f == "mla_moe":
+        x = _decode_blocks(cfg, params["dense_blocks"], cache["kv_dense"], x,
+                           "mla_dense", index)
+        x = _decode_blocks(cfg, params["moe_blocks"], cache["kv_moe"], x,
+                           "mla_moe", index)
+
+    elif f == "vlm":
+        ncross = cfg.n_layers // cfg.cross_every
+        nself_per = cfg.cross_every - 1
+        for g in range(ncross):
+            for j in range(nself_per):
+                i = g * nself_per + j
+                x, _, _ = attn_ff_block(
+                    cfg, layer(params["self_blocks"], i), x, kind="dense",
+                    mode="decode", cache=layer(cache["kv"], i), index=index)
+            cp = layer(params["cross_blocks"], g)
+            hn = rms_norm(x, cp["attn_norm"], cfg.norm_eps)
+            ca = _cached_cross_decode(cfg, cp["attn"], hn,
+                                      cache["cross_k"][g],
+                                      cache["cross_v"][g])
+            x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * ca
+            hm = rms_norm(x, cp["mlp_norm"], cfg.norm_eps)
+            x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) \
+                * mlp_apply(cp["mlp"], hm)
+
+    elif f == "zamba":
+        shared = params["shared"]
+        for g in range(n_layers_of(params["mamba_groups"])):
+            hin = torch.cat([x, emb0], dim=-1) @ shared["proj"]
+            hb, _, _ = attn_ff_block(cfg, shared, hin, kind="dense",
+                                     mode="decode",
+                                     cache=layer(cache["attn"], g),
+                                     index=index, window=cfg.window)
+            x = _mamba_decode_layers(cfg, layer(params["mamba_groups"], g),
+                                     layer(cache["mamba"], g), x + hb)
+        if "mamba_tail" in params:
+            x = _mamba_decode_layers(cfg, params["mamba_tail"],
+                                     cache["mamba_tail"], x)
+
+    elif f == "rwkv":
+        x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+        for i in range(n_layers_of(params["blocks"])):
+            st = layer(cache["blocks"], i)
+            x, ns = rwkv6.rwkv_block(cfg, layer(params["blocks"], i), x, st)
+            _put(st, ns)
+
+    else:
+        raise ValueError(f)
+
+    return _logits(cfg, params, x), cache
+
+
+def _cached_cross_decode(cfg, p, x, k, v):
+    b = x.shape[0]
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, 1, h, hd)
+    o = decode_attention(q, k, v)
+    return o.reshape(b, 1, h * hd) @ p["wo"]
+
+
+def vlm_cross_cache(cfg: LMConfig, params, vision):
+    """Precompute cross-attn K/V from vision states (prefill side); an f32
+    vision stub gives f32 K/V, as in the reference."""
+    b, simg, _ = vision.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    cross = params["cross_blocks"]["attn"]
+    ks, vs = [], []
+    for g in range(n_layers_of(cross)):
+        cp = layer(cross, g)
+        ks.append(promote_mm(vision, cp["wk"]).reshape(b, simg, h, hd))
+        vs.append(promote_mm(vision, cp["wv"]).reshape(b, simg, h, hd))
+    return torch.stack(ks), torch.stack(vs)

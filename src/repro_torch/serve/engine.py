@@ -1,26 +1,32 @@
-"""Predicate-plan request routing.
+"""Batched serving engine + predicate-plan request routing.
 
-``RequestRouter`` evaluates admission/routing *rule sets* over a
-request-metadata column batch through the multi-query layer
+``ServeEngine`` runs prefill once, then greedy single-token decode steps
+over a fixed batch of slots, against decode buffers allocated once at
+``max_seq``.  ``RequestRouter`` evaluates admission/routing *rule sets*
+over a request-metadata column batch through the multi-query layer
 (columnar.multiquery): the same ShallowFish/DeepFish plans used in the
 data pipeline, served from a cross-call plan cache with per-batch atom
 dedupe (e.g. "(tier = pro OR prompt_tokens < 2k) AND NOT flagged"
 alongside its sibling routing rules).
-
-The reference's batched generation engine (``ServeEngine``) is LM code and
-is not part of this package yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..columnar.bitmap import unpack_bits
 from ..columnar.config import ExecConfig
+from ..columnar.device import torch_device
 from ..columnar.multiquery import BatchResult, LRUPlanCache, QuerySession
 from ..columnar.table import Table
+from ..convert import tensor_from_array
 from ..core import Node
+from ..models import api
+from ..models.common import tree_map
+from ..models.config import LMConfig
 
 
 class RequestRouter:
@@ -102,3 +108,95 @@ class RequestRouter:
     def admit(self, requests: Dict[str, np.ndarray]) -> np.ndarray:
         """Boolean admit mask: requests accepted by at least one rule."""
         return self.route(requests).any(axis=0)
+
+
+class _Clock:
+    """Marks on the device's timeline (CUDA events, read after the run, so
+    marking never waits for the card) or, on the CPU, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> List[float]:
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in
+                    zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class ServeEngine:
+    """Fixed-slot batched generation over any registry architecture, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, cfg: LMConfig, params, batch_size: int, max_seq: int,
+                 device: str = "cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.batch = batch_size
+        self.max_seq = max_seq
+        self.device = torch_device(device)
+        #: the last ``generate``'s prefill time and each decode step's, in
+        #: ms (device time on the card)
+        self.timings: Dict = {}
+
+    def generate(self, prompts: np.ndarray, n_steps: int,
+                 batch_extras: Optional[dict] = None) -> np.ndarray:
+        """prompts: (B, P) int. Greedy-decodes ``n_steps`` tokens; returns
+        them as an int32 (B, n_steps) array."""
+        b, plen = prompts.shape
+        if b != self.batch:
+            raise ValueError(f"{b} prompts for {self.batch} slots")
+        with torch.inference_mode():
+            batch = {"tokens": torch.as_tensor(np.asarray(prompts),
+                                               dtype=torch.long,
+                                               device=self.device)}
+            for k, v in (batch_extras or {}).items():
+                batch[k] = tensor_from_array(np.asarray(v), self.device)
+            clock = _Clock(self.device)
+            clock.mark()
+            logits, cache = api.prefill(self.cfg, self.params, batch)
+            cache = self._grow_cache(cache, plen)
+            tok = torch.argmax(logits, dim=-1).reshape(b, 1)
+            clock.mark()
+            out = [tok]
+            for i in range(n_steps - 1):
+                logits, cache = api.decode(self.cfg, self.params, tok, cache,
+                                           plen + i)
+                tok = torch.argmax(logits[:, -1], dim=-1).reshape(b, 1)
+                out.append(tok)
+                clock.mark()
+            tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        ms = clock.intervals_ms()
+        self.timings = {"prefill_ms": ms[0], "step_ms": ms[1:]}
+        return tokens
+
+    def _grow_cache(self, cache, plen: int):
+        """The decode buffers, allocated once at ``max_seq``: each prefill
+        cache is copied into the front of its buffer along the one axis
+        that differs (the sequence), or cropped to its most recent window
+        where the buffer is shorter (zamba's windowed attention)."""
+        target = api.abstract_cache(self.cfg, self.batch, self.max_seq)
+
+        def fit(src, dst):
+            if tuple(src.shape) == tuple(dst.shape):
+                return src.to(dst.dtype)
+            ax = next(a for a, (s, d) in enumerate(zip(src.shape, dst.shape))
+                      if s != d)
+            s, d = src.shape[ax], dst.shape[ax]
+            if s > d:                      # keep the most recent window
+                return src.narrow(ax, s - d, d).to(dst.dtype).contiguous()
+            buf = torch.zeros(dst.shape, dtype=dst.dtype, device=src.device)
+            buf.narrow(ax, 0, s).copy_(src)
+            return buf
+
+        return tree_map(fit, cache, target)

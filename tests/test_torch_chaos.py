@@ -74,8 +74,12 @@ def worker(argv) -> None:
             os.fsync(f.fileno())
 
     def modules():
-        with open(modules_file, "w") as f:
+        # written aside and renamed: a kill inside the write must leave
+        # the last complete list, not an empty file
+        tmp = modules_file + ".tmp"
+        with open(tmp, "w") as f:
             json.dump(_loaded_forbidden(), f)
+        os.replace(tmp, modules_file)
 
     modules()
     for i, (kind, arg) in enumerate(gen_ops(seed, n_ops)):

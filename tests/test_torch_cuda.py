@@ -780,3 +780,89 @@ def test_sharded_graph_pools_keep_each_shards_output(cuda_device):
             keys.add(be.last_tape.key)
     assert len(keys) == 2 and be.graph_captures == 4
     assert be.graph_replays == 12 and len(be._pools) == 2
+
+
+# -- LM serving ----------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen3-moe-30b-a3b",
+                                  "rwkv6-1.6b", "zamba2-1.2b",
+                                  "whisper-base", "llama-3.2-vision-11b"])
+def test_lm_smoke_logits_on_the_card_match_the_cpu(cuda_device, arch):
+    """The same SMOKE parameters (made on the CPU, copied to the card):
+    prefill logits and 4 decode steps within 0.15 of the CPU's on the
+    first ``vocab`` columns (bf16: cuBLAS sums in another order)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    cfg = get_smoke(arch)
+    cpu = api.init(cfg, 0, "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    rng = np.random.default_rng(0)
+    b, s = 2, 8
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_seq, cfg.d_model)).astype(np.float32))
+    got = {}
+    for dev, params in (("cpu", cpu), (cuda_device, card)):
+        with torch.inference_mode():
+            bt = {k: v.to(dev) for k, v in batch.items()}
+            last, _ = api.prefill(cfg, params, bt)
+            cache = api.init_cache(cfg, b, cfg.max_seq, str(dev))
+            if cfg.family in ("encdec", "vlm"):
+                _, pre = api.prefill(cfg, params, bt)
+                cache["cross_k"], cache["cross_v"] = (
+                    pre["cross_k"].to(torch.bfloat16),
+                    pre["cross_v"].to(torch.bfloat16))
+            steps = []
+            for i in range(4):
+                lg, cache = api.decode(cfg, params, bt["tokens"][:, i:i + 1],
+                                       cache, i)
+                steps.append(lg[:, 0])
+            got[str(dev)] = [t.float().cpu().numpy()[..., :cfg.vocab]
+                             for t in [last] + steps]
+    for a, c in zip(got["cpu"], got[str(cuda_device)]):
+        assert np.isfinite(c).all()
+        assert np.abs(a - c).max() < 0.15
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen3-moe-30b-a3b",
+                                  "whisper-base"])
+def test_serve_engine_on_the_card_matches_manual_decode(cuda_device, arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke(arch)
+    b, plen, gen = 2, 12, 5
+    params = api.init(cfg, 0, "cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, plen)).astype(np.int32)
+    extras = None
+    if cfg.family == "encdec":
+        extras = {"frames": np.random.default_rng(1).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    eng = ServeEngine(cfg, params, batch_size=b, max_seq=cfg.max_seq)
+    out = eng.generate(prompts, gen, batch_extras=extras)
+    assert out.shape == (b, gen) and ((out >= 0) & (out < cfg.vocab)).all()
+    assert all(t > 0 for t in eng.timings["step_ms"])
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, b, cfg.max_seq)
+        toks = torch.from_numpy(prompts).long().to(cuda_device)
+        if extras is not None:
+            _, pre = api.prefill(cfg, params, {
+                "tokens": toks, "frames": torch.from_numpy(
+                    extras["frames"]).to(cuda_device)})
+            cache["cross_k"], cache["cross_v"] = pre["cross_k"], pre["cross_v"]
+        for i in range(plen):
+            logits, cache = api.decode(cfg, params, toks[:, i:i + 1], cache, i)
+        manual = []
+        for i in range(gen):
+            tok = torch.argmax(logits[:, -1], dim=-1).reshape(b, 1)
+            manual.append(tok)
+            if i < gen - 1:
+                logits, cache = api.decode(cfg, params, tok, cache, plen + i)
+    manual = torch.cat(manual, dim=1).cpu().numpy()
+    assert (out == manual).mean() >= 0.8, (out, manual)

@@ -218,12 +218,16 @@ def test_small_append_lands_on_one_shard_then_delete():
     rows = {k: np.asarray(v)[:900] for k, v in ref_table.columns.items()}
     ref_table.append(rows)
     port_table.append({k: v.copy() for k, v in rows.items()})
-    r_be.refresh()
+    r_up = r_be.refresh()
+    u0, m0 = p_be.uploaded_bytes, p_be.transferred_bytes
     up = p_be.refresh()
     assert p_be.delta_upload_shards == 1
-    # the real dirty tail only: block 12 of 13, one block per column
-    assert up == len([c for c in p_be._cols.values() if c is not False]) \
-        * BLOCK * 4
+    n_cols = len([c for c in p_be._cols.values() if c is not False])
+    # the count is the reference's: blocks 12-15, to the end of the bucket
+    assert up == r_up == p_be.uploaded_bytes - u0 == n_cols * 4 * BLOCK * 4
+    assert p_be.uploaded_bytes == r_be.uploaded_bytes
+    # what moved is the real dirty tail only: block 12 of 13, per column
+    assert p_be.transferred_bytes - m0 == n_cols * BLOCK * 4
     for rt, pt in zip(rq, pq):
         r_be, p_be = _run_pair(rt, pt, ref_table, port_table, r_be, p_be, 8)
     ref_table.delete(np.arange(0, 5000, 7))
@@ -306,6 +310,46 @@ def test_stream_with_appends_and_deletes_matches_unsharded_reference():
     assert seen == [(8, 0), (8, 0), (8, 1), (16, 3), (16, 3), (16, 0)]
     assert ps.stats.degraded_batches == rs.stats.degraded_batches == 0
     assert ps.stats.atoms_delta_extended == rs.stats.atoms_delta_extended > 0
+
+
+def test_stream_upload_bytes_match_unsharded_reference():
+    """A StreamSession at S = 2 counts ``upload_bytes`` as the reference's
+    unsharded stream does (each resident column from the dirty block to the
+    end of the bucket), across an append inside the bucket and one past
+    it, while ``transferred_bytes`` counts the real dirty tail that moved
+    (12,500 rows, block 1,024: 13 blocks in a bucket of 16)."""
+    ref_table, port_table = _tables(12_500, n_dup=1)
+    extra = R.make_forest_table(6000, n_dup=1, seed=9)
+    cfg = dict(block=1024)
+    rs = R.StreamSession(ref_table, config=R.StreamSession.DEFAULT_CONFIG
+                         .replace(**cfg))
+    ps = T.StreamSession(port_table, config=T.StreamSession.DEFAULT_CONFIG
+                         .replace(shards=2, device="cpu", **cfg))
+    rq = R.random_query_suite(ref_table, 4, 8, 3, seed=4)
+    pq = T.random_query_suite(port_table, 4, 8, 3, seed=4)
+    seen = []
+    for lo, hi in [(0, 0), (0, 900), (900, 6000)]:
+        if hi:
+            rows = {k: v[lo:hi] for k, v in extra.columns.items()}
+            rs.append({k: v.copy() for k, v in rows.items()})
+            ps.append({k: v.copy() for k, v in rows.items()})
+        rf, pf = [rs.submit(q) for q in rq], [ps.submit(q) for q in pq]
+        a, b = rs.drain(), ps.drain()
+        for x, y in zip(rf, pf):
+            np.testing.assert_array_equal(y.result(), x.result())
+        be = b.backend
+        assert isinstance(be, T.ShardedTapeBackend)
+        assert b.stats.upload_bytes == a.stats.upload_bytes
+        assert be.uploaded_bytes == a.backend.uploaded_bytes
+        seen.append((be.nblocks, be.transferred_bytes))
+    n_cols = len([c for c in be._cols.values() if c is not False])
+    per_block = n_cols * 1024 * 4
+    first = seen[0][1]
+    assert first == n_cols * 16 * 1024 * 4   # the first upload: the bucket
+    # inside the bucket blocks 12-13 of 16 move, on shard 1; past it
+    # blocks 13-18 (the real tail, not the 19 to the end of a bucket of 32)
+    assert seen[1] == (16, first + 2 * per_block)
+    assert seen[2] == (32, first + 2 * per_block + 6 * per_block)
 
 
 # -- construction -------------------------------------------------------------
