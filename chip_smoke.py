@@ -111,8 +111,22 @@ Phases:
    step in sync debug mode) and the decode-vs-forward difference by
    depth; the model cut to 2 layers held the same way and against the
    port on the CPU; the ten architectures at SMOKE
+14. LM training: ``launch.train.train`` (what ``python -m
+   repro_torch.launch.train --arch granite-3-8b`` runs) on granite-3-8b's
+   FULL widths cut to 16 of its 40 layers (3.59 B parameters; AdamW,
+   microbatch 2, remat, batch 8 x 128), 6 steps in sync debug mode: every
+   metric finite, step times (first; p50, min, max of the rest), tokens/s,
+   peak memory, the bound and the step's share of the bf16 peak, host
+   syncs per step, a warm step under the profiler, and none of the port's
+   kernels launched; the widths cut to 1 layer, one step on the card
+   against the CPU; the SMOKE config's AdamW, Adafactor and int8 steps, a
+   crash-and-restore ``TrainLoop`` bit-equal to the run without the crash
+   (dense held, MoE reported) and a card-written checkpoint loaded on the
+   CPU bit for bit; the CLI ``--smoke --steps 4`` as a child process; one
+   step of each of the ten SMOKE configs on the card against the CPU
+   (``TRAIN_*`` tolerances)
 
-Each path of phases 3-6 and 8-13 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-14 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -251,6 +265,9 @@ PATH_KERNELS = {
                        "bitmap_setop", "bitmap_union_reduce"),
     # phase 13: the launcher's router, one tape per rule, twice
     "lm_serve": ("predicate_scan", "bitmap_setop", "fused_chain_scan"),
+    # phase 14: LM training runs none of the port's kernels (its data
+    # pipeline filters on the host engine, as the reference's does)
+    "lm_train": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -3712,7 +3729,8 @@ def lm_depth_series(cfg, params, prompts, dev):
 def lm_profile(fn, top=8):
     """``fn()`` once under the profiler: its host wall (ms, ending in a
     synchronize), the device time the profiler saw (ms: the kernels and
-    copies) and the ``top`` largest of them by name (ms, count)."""
+    copies) and the ``top`` largest of them by name (ms, count; all of
+    them with ``top=None``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3946,6 +3964,412 @@ def phase_lm(dev, smi, start_path, end_path):
         out["smoke"][arch] = lm_consistency(f"{arch} SMOKE", scfg, p, pr, g,
                                             ex, dev)
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: LM training (python -m repro_torch.launch.train --arch): the
+# launcher's train function at granite-3-8b's full width, 16 of its 40
+# layers; a full-width 1-layer step on the card against the CPU; the SMOKE
+# config's convergence, int8 step, crash-and-restore replay and
+# checkpoint; the CLI as a child process; the ten SMOKE configs' steps on
+# the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: the full-width training cell: granite-3-8b FULL cut to TRAIN_LAYERS of
+#: its 40 layers (the card holds about 18 B per parameter of training
+#: state: 64.6 GB at 16 layers, 150.7 GB at 40), the reference
+#: launcher's batch, sequence and learning rate
+TRAIN_LAYERS = 16
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-4
+#: the AdamW step's bytes per parameter: bf16 parameter and gradient
+#: read, f32 m and v read and written, bf16 parameter written
+TRAIN_BYTES_PER_PARAM = 22
+#: phase 14's tolerances, fixed before its first run on the card.  Card
+#: against CPU, one step from the same parameters and batch: the loss and
+#: the metrics (bf16 products accumulate in another order on each), the
+#: gradient norm relative to its size, and every parameter (an Adam step
+#: moves one by about lr whatever its gradient, so a gradient entry near
+#: zero of the other sign moves it 2 lr the other way; plus one bf16 ulp
+#: of the largest parameters)
+TRAIN_LOSS_TOL = 5e-3
+TRAIN_NORM_RTOL = 1e-2
+TRAIN_PARAM_TOL = 1e-2
+#: the full-width 1-layer step's batch (microbatch 2: 1 x 32 tokens each)
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 32
+#: SMOKE convergence: 8 steps on one batch lower the loss by more than
+#: this (the reference's tests/test_train.py bound)
+TRAIN_DROP = 0.3
+#: the profiled step's device time by kind ("copy": copies, fills and
+#: dtype casts): the first kind with a mark in the kernel's name (lower
+#: case) takes it
+TRAIN_KINDS = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+               ("copy", ("memcpy", "memset", "copy_kernel", "catarray")),
+               ("reduction", ("reduce",)),
+               ("elementwise", ("elementwise",)))
+
+
+def train_host_syncs(fn):
+    """``fn()`` in sync debug mode: its result and the synchronizing CUDA
+    calls it made."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def train_bound(n_params, tokens):
+    """The train step's least time (ms) on the card: its model FLOPs (6
+    per parameter and token) over the bf16 dense peak, or the optimizer's
+    bytes over the memory rate, whichever is larger."""
+    flops = 6 * n_params * tokens
+    nbytes = TRAIN_BYTES_PER_PARAM * n_params
+    f_ms, b_ms = flops / BF16_OPS_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "flops_ms": f_ms,
+            "bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
+            "bound_by": "operations" if f_ms >= b_ms else "bytes"}
+
+
+def train_full(dev, smi, ckpt_root):
+    """(a): ``launch.train.train`` at granite-3-8b's full width and
+    TRAIN_LAYERS layers for TRAIN_STEPS steps, in sync debug mode; then
+    one more warm step under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import api
+    from repro_torch.train import make_train_step
+    full = get_config("granite-3-8b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab, cfg.microbatch, cfg.optimizer, cfg.remat)
+          == (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
+              full.d_ff, full.vocab, 2, "adamw", True)
+          and full.d_model == 4096 and full.d_ff == 12800,
+          f"phase 14 does not train granite-3-8b at full width: {cfg}")
+    n = api.n_params(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, syncs = train_host_syncs(lambda: train(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR, ckpt_dir=str(ckpt_root / "full"), device=str(dev)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist, t = res["history"], res["timings"]
+    check(len(hist) == TRAIN_STEPS and all(
+        np.isfinite(v) for h in hist for k, v in h.items()
+        if k not in ("step", "straggler")), f"phase 14: metrics {hist}")
+    steps = np.asarray(t["step_ms"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    b = train_bound(n, tokens)
+    warm = steps[1:]
+    p50 = float(np.median(warm))
+    out = {"layers": TRAIN_LAYERS, "n_params": n, "main_wall_s": wall,
+           "init_s": t["init_s"], "filter_s": t["filter_s"],
+           "step_ms": steps.tolist(), "first_step_ms": float(steps[0]),
+           "step_p50_ms": p50, "step_min_ms": float(warm.min()),
+           "step_max_ms": float(warm.max()),
+           "tokens_per_s": tokens / (p50 / 1e3), "peak_bytes": peak,
+           "host_syncs_per_step": syncs / TRAIN_STEPS,
+           "bf16_peak_share": b["flops"] / (p50 / 1e3) / BF16_OPS_PER_S,
+           "bound_share": b["bound_ms"] / p50,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "filter": res["filter_stats"], **b}
+    log(f"  [{smi}] granite-3-8b, full width, {TRAIN_LAYERS} of 40 layers "
+        f"({n} parameters), AdamW, microbatch {cfg.microbatch}, remat; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: init {t['init_s']:.2f} s, "
+        f"filter {t['filter_s']:.2f} s, train() {wall:.1f} s")
+    log(f"  [{smi}] train step: first {steps[0]:.1f} ms; the {len(warm)} "
+        f"after it p50 {p50:.1f} ms, min {warm.min():.1f} ms, max "
+        f"{warm.max():.1f} ms; {out['tokens_per_s']:.1f} tokens/s; "
+        f"torch.cuda.max_memory_allocated {peak} B")
+    log(f"  [{smi}] bound {b['bound_ms']:.2f} ms ({b['bound_by']}: "
+        f"{b['flops']:.4g} model FLOPs over {BF16_OPS_PER_S:.3g}/s = "
+        f"{b['flops_ms']:.2f} ms; {b['bytes']} optimizer bytes over "
+        f"{MEM_BYTES_PER_S:.3g} B/s = {b['bytes_ms']:.2f} ms); the step's "
+        f"share of the bf16 peak {out['bf16_peak_share']:.4f}, of the bound "
+        f"{out['bound_share']:.4f}")
+    log(f"  [{smi}] losses {[round(x, 4) for x in out['losses']]}; host "
+        f"syncs per step (sync debug mode) {out['host_syncs_per_step']:.2f}")
+    params, opt_state = res["params"], res["opt_state"]
+    del res
+    step = make_train_step(cfg, lr=TRAIN_LR)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+
+    def one():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, {"tokens": toks})
+
+    pwall, busy, rows = lm_profile(one, top=None)
+    by_kind = {}
+    for k, ms, c in rows:
+        kind = next((name for name, marks in TRAIN_KINDS if any(
+            m in k.lower() for m in marks)), "other")
+        got = by_kind.setdefault(kind, [0.0, 0])
+        got[0] += ms
+        got[1] += c
+    out["profile"] = {"wall_ms": pwall, "device_ms": busy,
+                      "launches": sum(c for _, _, c in rows),
+                      "by_kind": by_kind,
+                      "top": [(k[:80], ms, c) for k, ms, c in rows[:10]]}
+    log(f"  [{smi}] one warm step under the profiler: wall {pwall:.1f} ms, "
+        f"device {busy:.1f} ms (busy share {busy / pwall:.4f}; "
+        f"{busy / p50:.4f} of the unprofiled p50) in "
+        f"{out['profile']['launches']} kernels and copies; by kind (ms, "
+        f"launches): " + "; ".join(f"{k} {ms:.2f} x{c}" for k, (ms, c) in
+                                  sorted(by_kind.items(),
+                                         key=lambda kv: -kv[1][0])))
+    log(f"  [{smi}] by kernel (ms, launches): " + "; ".join(
+        f"{k[:64]} {ms:.2f} x{c}" for k, ms, c in rows[:10]))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step_pair(cfg, card_params, batch, dev, lr):
+    """One step of ``cfg`` from the same parameters and batch on the card
+    and on the CPU: the metrics, the parameters' largest difference, each
+    side's seconds and the card step's host syncs (sync debug mode)."""
+    import torch
+
+    from repro_torch.convert import tensor_from_array
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.train import make_train_step
+    got, times = {}, {}
+    host_params = tree_map(lambda a: a.to("cpu", copy=True), card_params)
+    for name, p, d in (("cuda", card_params, dev),
+                       ("cpu", host_params, torch.device("cpu"))):
+        step = make_train_step(cfg, lr=lr)
+        b = {k: tensor_from_array(v, d) for k, v in batch.items()}
+        st = step.init_state(p)
+        t0 = time.perf_counter()
+        if name == "cuda":
+            (p, _, m), syncs = train_host_syncs(lambda: step(p, st, b))
+        else:
+            p, _, m = step(p, st, b)
+        m = {k: float(v) for k, v in m.items()}
+        times[name] = time.perf_counter() - t0
+        got[name] = (dict(tree_items(p)), m)
+    (pc, mc), (ph, mh) = got["cuda"], got["cpu"]
+    diff = max(float((pc[k].cpu().float() - ph[k].float()).abs().max())
+               for k in ph)
+    for k in mh:
+        tol = TRAIN_NORM_RTOL * mh[k] if k == "grad_norm" else TRAIN_LOSS_TOL
+        check(abs(mc[k] - mh[k]) < tol and all(
+            torch.isfinite(v).all() for v in pc.values()),
+              f"{cfg.name} train step card vs CPU: {k} {mc[k]} vs {mh[k]}")
+    check(diff < TRAIN_PARAM_TOL, f"{cfg.name} train step card vs CPU: "
+          f"params max |diff| {diff} >= {TRAIN_PARAM_TOL}")
+    return {"card": mc, "cpu": mh, "param_diff": diff, "card_s":
+            times["cuda"], "cpu_s": times["cpu"], "card_syncs": syncs}
+
+
+def train_cpu_compare(dev, smi):
+    """(b): granite-3-8b FULL cut to 1 layer (microbatch 2), one step on
+    the card and on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("granite-3-8b").replace(n_layers=1)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab, (TRAIN_CPU_BATCH, TRAIN_CPU_SEQ + 1)).astype(np.int32)
+    out = train_step_pair(cfg, api.init(cfg, 0, str(dev)), {"tokens": toks},
+                          dev, TRAIN_LR)
+    out["n_params"] = api.n_params(cfg)
+    log(f"  [{smi}] full width, 1 layer ({out['n_params']} parameters), "
+        f"microbatch 2, one step card vs CPU: loss {out['card']['loss']:.5f}"
+        f" vs {out['cpu']['loss']:.5f} (< {TRAIN_LOSS_TOL}), grad_norm "
+        f"{out['card']['grad_norm']:.5f} vs {out['cpu']['grad_norm']:.5f} "
+        f"(< {TRAIN_NORM_RTOL} of it), params max |diff| "
+        f"{out['param_diff']:.3g} (< {TRAIN_PARAM_TOL}); card "
+        f"{out['card_s']:.2f} s, CPU {out['cpu_s']:.1f} s")
+    return out
+
+
+def smoke_batch(cfg, b=4, s=32, seed=0):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, s + 1), generator=g)
+
+
+def train_restart(cfg, dev, root, fail_at=()):
+    """The SMOKE config through ``TrainLoop`` on the card, 6 steps,
+    checkpoints every 2 (async writer), a crash injected at ``fail_at``:
+    the final parameters, optimizer state and history."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.models import api
+    from repro_torch.runtime import FailureInjector, TrainLoop
+    from repro_torch.train import make_train_step
+    params = api.init(cfg, 0, str(dev))
+    step = make_train_step(cfg, lr=1e-3)
+
+    def data_fn(i):
+        return {"tokens": smoke_batch(cfg, 2, 32, 1000 + i).to(dev)}
+
+    loop = TrainLoop(step_fn=step, data_fn=data_fn,
+                     ckpt=CheckpointManager(str(root), keep=3),
+                     ckpt_every=2,
+                     injector=FailureInjector(fail_at) if fail_at else None)
+    out = loop.run(params, step.init_state(params), n_steps=6)
+    loop.ckpt.async_ckpt.close()
+    torch.cuda.synchronize()
+    return out
+
+
+def train_smoke(dev, smi, ckpt_root):
+    """(c): the SMOKE config on the card: AdamW and Adafactor lower the
+    loss on one batch, the int8 step runs, a crash at step 4 replays bit
+    for bit (granite-3-8b, held; qwen3-moe, its MoE scatter-adds atomic,
+    reported), and a checkpoint written from the card loads on the CPU
+    bit for bit."""
+    import torch
+
+    from repro_torch.ckpt import load_pytree, save_pytree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import make_train_step
+    out = {}
+    for opt, lr, comp in (("adamw", 5e-3, None), ("adafactor", 1e-2, None),
+                          ("adamw", 5e-3, "int8")):
+        cfg = get_smoke("granite-3-8b").replace(microbatch=1, optimizer=opt)
+        params = api.init(cfg, 0, str(dev))
+        step = make_train_step(cfg, lr=lr, grad_compression=comp)
+        state = step.init_state(params)
+        batch = {"tokens": smoke_batch(cfg).to(dev)}
+        losses = []
+        for _ in range(8):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        name = opt + ("+int8" if comp else "")
+        out[name] = losses
+        drop = TRAIN_DROP if comp is None else 0.0
+        check(losses[-1] < losses[0] - drop, f"phase 14 SMOKE {name}: "
+              f"losses {losses}")
+    log(f"  SMOKE granite-3-8b on the card, 8 steps on one batch: " + "; ".join(
+        f"{k} loss {v[0]:.4f} -> {v[-1]:.4f}" for k, v in out.items())
+        + f" (AdamW and Adafactor drop > {TRAIN_DROP}; int8 drops)")
+    for arch, held in (("granite-3-8b", True), ("qwen3-moe-30b-a3b", False)):
+        cfg = get_smoke(arch).replace(microbatch=1)
+        p_ref, s_ref, h_ref = train_restart(cfg, dev, ckpt_root / arch / "a")
+        p_cr, s_cr, h_cr = train_restart(cfg, dev, ckpt_root / arch / "b",
+                                         fail_at=(4,))
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_items({"p": p_ref, "s": s_ref}),
+            tree_items({"p": p_cr, "s": s_cr})))
+        loss_same = [h["loss"] for h in h_ref] == [h["loss"] for h in h_cr]
+        out[f"replay_{arch}"] = {"bit_exact": same, "losses_equal": loss_same,
+                                 "steps": [h["step"] for h in h_cr]}
+        log(f"  SMOKE {arch} on the card, crash at step 4, checkpoints every "
+            f"2 (async): parameters and optimizer state bit-equal to the "
+            f"uninterrupted run: {same}; losses equal: {loss_same}"
+            + ("" if held else " (reported, not held)"))
+        if held:
+            check(same and loss_same, f"phase 14: {arch} replay after a "
+                  "crash is not bit-exact on the card")
+    cfg = get_smoke("granite-3-8b")
+    params = api.init(cfg, 0, str(dev))
+    step = make_train_step(cfg, lr=1e-3)
+    params, state, _ = step(params, step.init_state(params),
+                            {"tokens": smoke_batch(cfg).to(dev)})
+    tree = {"params": params, "opt": state}
+    save_pytree(tree, str(ckpt_root / "card"), 1)
+    back, _ = load_pytree(str(ckpt_root / "card"))
+    got = dict(tree_items(back))
+    equal = all(got[k].device.type == "cpu" and got[k].dtype == v.dtype
+                and torch.equal(got[k], v.cpu())
+                for k, v in tree_items(tree))
+    check(equal and set(got) == set(dict(tree_items(tree))),
+          "phase 14: a checkpoint written from the card does not load on "
+          "the CPU bit for bit")
+    out["card_checkpoint_on_cpu"] = equal
+    log(f"  a checkpoint written from the card ({len(got)} leaves) loads on "
+        f"the CPU bit for bit")
+    return out
+
+
+def train_cli(ckpt_root):
+    """(d): ``python -m repro_torch.launch.train --arch granite-3-8b
+    --smoke --steps 4`` as a child process on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "granite-3-8b", "--smoke", "--steps", "4", "--ckpt-dir",
+         str(ckpt_root / "cli")], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and any(l.startswith("filter: ")
+                                       for l in lines)
+          and lines and lines[-1].startswith("done: loss "),
+          f"phase 14 CLI: rc {proc.returncode}\n{proc.stdout}\n"
+          f"{proc.stderr[-3000:]}")
+    log(f"  python -m repro_torch.launch.train --arch granite-3-8b --smoke "
+        f"--steps 4 (a child process, {wall:.1f} s): {lines[-1]}")
+    return {"wall_s": wall, "done": lines[-1]}
+
+
+def train_smoke_archs(dev):
+    """(e): one step of each of the ten SMOKE configs on the card against
+    the CPU, the card's host syncs counted (an MoE layer reads its group
+    sizes on the host in the forward and again in the remat recompute)."""
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.convert import tensor_from_array
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    import numpy as np
+    out = {}
+    for arch in ARCHS:
+        cfg = get_smoke(arch)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 17)).astype(
+            np.int32), **(lm_extras(cfg, 2) or {})}
+        params = tree_map(lambda a: a.to(dev), api.init(cfg, 0, "cpu"))
+        out[arch] = r = train_step_pair(cfg, params, batch, dev, 1e-3)
+        log(f"  {arch} SMOKE, one step card vs CPU: loss "
+            f"{r['card']['loss']:.5f} vs {r['cpu']['loss']:.5f}, grad_norm "
+            f"{r['card']['grad_norm']:.4f} vs {r['cpu']['grad_norm']:.4f}, "
+            f"params max |diff| {r['param_diff']:.3g}; host syncs inside "
+            f"the card's step {r['card_syncs']}")
+    return out
+
+
+def phase_train(dev, smi, start_path, end_path):
+    """Phase 14: (a)-(e) above; the training path launches none of the
+    port's kernels (the data pipeline filters on the host engine), which
+    the launch counts around (a) hold."""
+    import shutil
+    root = ROOT / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        start_path()
+        out["full"] = train_full(dev, smi, root)
+        end_path("lm_train")
+        out["cpu"] = train_cpu_compare(dev, smi)
+        out["smoke"] = train_smoke(dev, smi, root)
+        out["cli"] = train_cli(root)
+        out["archs"] = train_smoke_archs(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -4597,6 +5021,14 @@ def main(argv) -> int:
     log(f"  phase 13 summary ({smi}): " + json.dumps(lm_out, default=str))
     del lm_out
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 14: LM training, python -m repro_torch.launch.train --arch "
+        f"granite-3-8b (full width, {TRAIN_LAYERS} of 40 layers); " + smi)
+    t0 = time.perf_counter()
+    train_out = phase_train(dev, smi, start_path, end_path)
+    log(f"  phase 14 summary ({smi}): " + json.dumps(train_out, default=str))
+    del train_out
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -9,7 +9,8 @@ lazily, as in the reference.
 For a language model the state is its parameter tree:
 :func:`lm_params_from_arrays` copies the reference's parameters (its
 pytree with each leaf as a numpy array) into the port's tree, leaf by
-leaf.
+leaf; :func:`opt_state_from_arrays` does the same for the train step's
+optimizer state.
 """
 from __future__ import annotations
 
@@ -55,22 +56,50 @@ def lm_params_from_arrays(cfg, tree, device="cuda"):
     dtype; a missing, extra or mismatched leaf raises ``ValueError``."""
     from .models import api
     from .models.common import tree_items
-    want = dict(tree_items(api.schema(cfg)))
+    want = {p: (d.shape, d.dtype) for p, d in tree_items(api.schema(cfg))}
+    return _tree_from_arrays(cfg, want, tree, device)
+
+
+def opt_state_from_arrays(cfg, tree, device="cuda"):
+    """The port's train-step state for ``cfg`` (``step.init_state``'s
+    layout: ``{"opt": ..., ["ef_residual": ...]}``) from the reference's
+    (nested dicts of numpy arrays): AdamW's ``m`` / ``v`` or Adafactor's
+    factored ``f``, the int32 ``step``, and the int8 compression's
+    residuals where ``tree`` has them.  A missing, extra or mismatched
+    leaf raises ``ValueError``."""
+    from .models import api
+    from .models.common import tree_items
+    f32 = torch.float32
+    want = {"opt.step": ((), torch.int32)}
+    for path, d in tree_items(api.schema(cfg)):
+        if cfg.optimizer == "adamw":
+            want[f"opt.m.{path}"] = want[f"opt.v.{path}"] = (d.shape, f32)
+        elif len(d.shape) >= 2:
+            want[f"opt.f.{path}.vr"] = (d.shape[:-1], torch.bfloat16)
+            want[f"opt.f.{path}.vc"] = (d.shape[:-2] + d.shape[-1:],
+                                        torch.bfloat16)
+        else:
+            want[f"opt.f.{path}.v"] = (d.shape, f32)
+        if "ef_residual" in tree:
+            want[f"ef_residual.{path}"] = (d.shape, f32)
+    return _tree_from_arrays(cfg, want, tree, device)
+
+
+def _tree_from_arrays(cfg, want, tree, device):
+    """Nested dicts of tensors on ``device`` from ``tree``'s leaves, each
+    of the (shape, dtype) ``want`` gives its dotted path."""
+    from .models.common import tree_from_items, tree_items
     got = dict(tree_items(tree))
     if set(want) != set(got):
         raise ValueError(f"{cfg.name}: missing leaves "
                          f"{sorted(set(want) - set(got))}, extra leaves "
                          f"{sorted(set(got) - set(want))}")
-    out = {}
-    for path, d in want.items():
+    out = []
+    for path, (shape, dtype) in want.items():
         t = tensor_from_array(np.asarray(got[path]), device)
-        if tuple(t.shape) != tuple(d.shape) or t.dtype != d.dtype:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{cfg.name}: {path} is {t.dtype}"
                              f"{tuple(t.shape)}, the schema wants "
-                             f"{d.dtype}{tuple(d.shape)}")
-        node = out
-        *head, last = path.split(".")
-        for k in head:
-            node = node.setdefault(k, {})
-        node[last] = t
-    return out
+                             f"{dtype}{tuple(shape)}")
+        out.append((path, t))
+    return tree_from_items(out)

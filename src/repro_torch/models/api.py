@@ -1,7 +1,8 @@
-"""Unified model API: schema / init / prefill / decode per config.
+"""Unified model API: schema / init / loss / prefill / decode per config.
 
 ``batch`` layout, as in the reference:
-    tokens: (B, S) int              LM families
+    tokens: (B, S) int              LM families ((B, S+1) for ``loss_fn``:
+                                    inputs and targets by shift)
     frames: (B, enc_seq, d) f32     encdec stub frontend
     vision: (B, img_seq, d) f32     vlm stub frontend
 
@@ -15,12 +16,13 @@ to the card and raise without one.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
+import torch
 from torch import nn
 
 from . import encdec, lm
-from .common import abstract_params, count_params, init_params
+from .common import abstract_params, count_params, cross_entropy, init_params
 from .config import LMConfig
 
 
@@ -55,6 +57,34 @@ def abstract_cache(cfg: LMConfig, batch: int, max_seq: int):
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                device: str = "cuda"):
     return init_params(cache_schema(cfg, batch, max_seq), 0, device)
+
+
+# ---------------------------------------------------------------------------
+# Loss (train)
+# ---------------------------------------------------------------------------
+def loss_fn(cfg: LMConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """(loss, metrics) of a batch: mean next-token CE plus the MoE aux
+    loss and, with ``cfg.mtp``, the weighted t+2 CE.  Metrics are 0-dim
+    f32 tensors: ``ce``, ``aux`` (not for encdec) and ``mtp_ce``."""
+    tokens = batch["tokens"].long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.family == "encdec":
+        memory = encdec.encode(cfg, params, batch["frames"])
+        logits, _ = encdec.decode_train(cfg, params, inputs, memory)
+        loss = cross_entropy(logits, targets)
+        return loss, {"ce": loss}
+    logits, aux, _, hidden = lm.forward(cfg, params, inputs,
+                                        vision=batch.get("vision"))
+    ce = cross_entropy(logits, targets)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        # predict t+2 from (hidden_t, emb(token_{t+1}))
+        mtp_lg = lm.mtp_logits(cfg, params, hidden[:, :-1], targets[:, :-1])
+        mtp_ce = cross_entropy(mtp_lg, targets[:, 1:])
+        loss = loss + cfg.mtp_loss_coef * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..columnar.device import torch_device
 
@@ -49,6 +50,18 @@ def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield path, v
 
 
+def tree_from_items(items):
+    """The nested dicts whose :func:`tree_items` are ``items``."""
+    out = {}
+    for path, v in items:
+        node = out
+        *head, last = path.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of nested dicts of one structure."""
     if isinstance(tree, dict):
@@ -63,9 +76,38 @@ def layer(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
+def layers(tree):
+    """Every layer's tree of a tree of stacked ``(L, ...)`` leaves, for a
+    pass over all of them.  The slices come from one ``unbind`` per leaf,
+    whose backward is one ``stack``: under autograd a slice ``a[i]`` per
+    layer would fill a zero gradient of the whole stacked leaf for every
+    layer.  Views, as :func:`layer`'s are."""
+    cols = tree_map(lambda a: a.unbind(0), tree)
+    n = len(next(c for _, c in tree_items(cols)))
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
+
+
 def stack(trees):
     """The per-layer trees stacked on a new leading axis."""
     return tree_map(lambda *a: torch.stack(a), *trees)
+
+
+def remat(cfg, fn):
+    """``fn`` as the reference's ``_maybe_remat`` gives it: under
+    ``cfg.remat`` and autograd its activations are not kept but recomputed
+    in the backward pass (``torch.utils.checkpoint``, non-reentrant), so a
+    layer holds only its inputs.  ``remat_policy="save_attn"`` recomputes
+    everything too: the results are the same, only the recompute's cost
+    differs.  Outside autograd ``fn`` runs as it is."""
+    if not cfg.remat:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
 
 
 def init_params(schema, seed: int = 0, device: str = "cuda"):
@@ -246,3 +288,20 @@ def decode_attention(q, k, v):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token CE in f32. logits (B, S, V); labels (B, S) int.
+
+    The gold logit is gathered (the reference takes it with an
+    iota-compare masked sum, to keep a vocab-sharded reduce; on one device
+    both give the same value).  Padded vocab columns come in at -1e30 and
+    add nothing to the log-sum-exp."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -5,12 +5,14 @@ and a REDUCED config of the same family for CPU smoke tests.  Input shapes
 (seq_len x global_batch cells) live here too.
 
 A copy of the reference package's ``models/config.py``, field for field, so
-a port config compares equal to the reference's.  The knobs that only the
-reference's XLA compilation and mesh read (``remat``, ``remat_policy``,
-``scan_layers``, ``moe_dense_analysis``, ``ep_over_data``, ``fsdp``,
-``seq_parallel_proj``, ``embed_fsdp``, ``grad_accum_dtype``, and the
-training knobs ``optimizer``, ``microbatch``) are kept and ignored here:
-the port runs each model on one device, layer by layer.
+a port config compares equal to the reference's.  The training knobs
+``remat`` (``remat_policy`` recomputes everything either way),
+``optimizer``, ``microbatch`` and ``grad_accum_dtype`` are read as the
+reference reads them.  The knobs that only the reference's XLA
+compilation and mesh read (``scan_layers``, ``moe_dense_analysis``,
+``ep_over_data``, ``fsdp``, ``seq_parallel_proj``, ``embed_fsdp``) are
+kept and ignored here: the port runs each model on one device, layer by
+layer.
 """
 from __future__ import annotations
 

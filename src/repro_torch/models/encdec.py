@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from . import attention as att
 from .common import (ParamDef, blockwise_attention, decode_attention, layer,
-                     layer_norm, sinusoid_positions, stack)
+                     layer_norm, layers, remat, sinusoid_positions, stack)
 from .config import LMConfig
 
 
@@ -107,11 +107,15 @@ def encode(cfg: LMConfig, params, frames):
     """frames: (B, enc_seq, d) precomputed embeddings (frontend stub)."""
     x = frames.to(torch.bfloat16) + sinusoid_positions(
         frames.shape[1], cfg.d_model, frames.device).to(torch.bfloat16)[None]
-    blocks = params["enc_blocks"]
-    for i in range(cfg.enc_layers):
-        lp = layer(blocks, i)
-        x = x + _mha(cfg, lp["attn"], _ln_apply(lp["ln1"], x, cfg.norm_eps))
-        x = x + _gelu_mlp(lp["mlp"], _ln_apply(lp["ln2"], x, cfg.norm_eps))
+
+    def body(lp, h):
+        h = h + _mha(cfg, lp["attn"], _ln_apply(lp["ln1"], h, cfg.norm_eps))
+        return h + _gelu_mlp(lp["mlp"], _ln_apply(lp["ln2"], h,
+                                                    cfg.norm_eps))
+
+    body = remat(cfg, body)
+    for lp in layers(params["enc_blocks"]):
+        x = body(lp, x)
     return _ln_apply(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -120,20 +124,27 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
     b, s = tokens.shape
     x = params["embed"][tokens].to(torch.bfloat16)
     x = x + params["pos_dec"][:s][None]
+
+    def body(lp, h):
+        hn = _ln_apply(lp["ln1"], h, cfg.norm_eps)
+        h = h + _mha(cfg, lp["self_attn"], hn, causal=True)
+        hc = _ln_apply(lp["ln2"], h, cfg.norm_eps)
+        h = h + _mha(cfg, lp["cross_attn"], hc, memory=memory)
+        hm = _ln_apply(lp["ln3"], h, cfg.norm_eps)
+        h = h + _gelu_mlp(lp["mlp"], hm)
+        if mode != "prefill":
+            return h, None
+        hd, hh = cfg.head_dim, cfg.n_heads
+        return h, {"k": (hn @ lp["self_attn"]["wk"]).reshape(b, s, hh, hd),
+                   "v": (hn @ lp["self_attn"]["wv"]).reshape(b, s, hh, hd)}
+
+    if mode == "train":
+        body = remat(cfg, body)
     caches = []
-    for i in range(cfg.n_layers):
-        lp = layer(params["dec_blocks"], i)
-        hn = _ln_apply(lp["ln1"], x, cfg.norm_eps)
-        x = x + _mha(cfg, lp["self_attn"], hn, causal=True)
-        hc = _ln_apply(lp["ln2"], x, cfg.norm_eps)
-        x = x + _mha(cfg, lp["cross_attn"], hc, memory=memory)
-        hm = _ln_apply(lp["ln3"], x, cfg.norm_eps)
-        x = x + _gelu_mlp(lp["mlp"], hm)
-        if mode == "prefill":
-            hd, hh = cfg.head_dim, cfg.n_heads
-            caches.append({
-                "k": (hn @ lp["self_attn"]["wk"]).reshape(b, s, hh, hd),
-                "v": (hn @ lp["self_attn"]["wv"]).reshape(b, s, hh, hd)})
+    for lp in layers(params["dec_blocks"]):
+        x, kv = body(lp, x)
+        if kv is not None:
+            caches.append(kv)
     x = _ln_apply(params["dec_ln"], x, cfg.norm_eps)
     logits = _mask_pad(cfg, x @ params["embed"].T)   # tied unembedding
     return logits, (stack(caches) if caches else None)

@@ -5,11 +5,14 @@ mla_moe (deepseek-v3 + MTP), vlm (llama-3.2-vision gated cross-attn),
 zamba (mamba2 + shared attn block), rwkv (rwkv6).
 
 Layers are stacked on a leading axis, as in the reference; its
-``lax.scan`` over them is a Python loop here that indexes the stacked
-``(L, ...)`` parameters (and caches) layer by layer.  Two entry points per
-family: ``forward`` (modes ``train`` and ``prefill``; prefill also returns
-the per-layer caches, stacked) and ``decode`` (one token; it updates the
-cache tensors it is given in place and returns them).
+``lax.scan`` over them is a Python loop here over the stacked ``(L, ...)``
+parameters' slices (``common.layers``: one ``unbind`` per leaf) and, in
+decode, the caches' (``common.layer``: views written in place).  Two
+entry points per family: ``forward`` (modes ``train`` and ``prefill``;
+prefill also returns the per-layer caches, stacked; under autograd each
+layer is rematerialized, ``common.remat``) and ``decode`` (one token; it
+updates the cache tensors it is given in place and returns them).
+``mtp_logits`` is DeepSeek-V3's multi-token-prediction head.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ import torch
 
 from . import attention as att
 from . import mamba2, moe, rwkv6
-from .common import (ParamDef, decode_attention, layer, layer_norm,
-                     promote_mm, rms_norm, stack, swiglu, tree_map)
+from .common import (ParamDef, decode_attention, layer, layer_norm, layers,
+                     promote_mm, remat, rms_norm, stack, swiglu, tree_map)
 from .config import LMConfig
 
 
@@ -242,27 +245,33 @@ def _logits(cfg, params, x):
 
 
 def _blocks(cfg, params, x, kind, mode):
-    """The stacked blocks ``params`` in order; returns (x, aux, the prefill
-    caches stacked or None)."""
+    """The stacked blocks ``params`` in order, each under :func:`remat`;
+    returns (x, aux, the prefill caches stacked or None)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = remat(cfg, lambda lp, h: attn_ff_block(cfg, lp, h, kind=kind,
+                                                  mode=mode))
     kvs = []
-    for i in range(n_layers_of(params)):
-        x, a, kv = attn_ff_block(cfg, layer(params, i), x, kind=kind,
-                                 mode=mode)
+    for lp in layers(params):
+        x, a, kv = body(lp, x)
         aux = aux + a
         kvs.append(kv)
     return x, aux, (stack(kvs) if mode == "prefill" else None)
 
 
-def _mamba_layers(cfg, params, h):
-    """Mamba layers over a full sequence; returns (h, states stacked)."""
+def _mamba_layer(cfg, lp, h):
+    out, (cs, ss) = mamba2.mamba_train(cfg, lp["mamba"],
+                                       rms_norm(h, lp["norm"], cfg.norm_eps))
+    return h + out, {"conv": cs, "ssm": ss}
+
+
+def _mamba_layers(cfg, params, h, body=None):
+    """Mamba layers over a full sequence, each through ``body`` (default
+    :func:`_mamba_layer`); returns (h, states stacked)."""
+    body = body or (lambda lp, x: _mamba_layer(cfg, lp, x))
     states = []
-    for i in range(n_layers_of(params)):
-        lp = layer(params, i)
-        out, (cs, ss) = mamba2.mamba_train(
-            cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps))
-        h = h + out
-        states.append({"conv": cs, "ssm": ss})
+    for lp in layers(params):
+        h, st = body(lp, h)
+        states.append(st)
     return h, stack(states)
 
 
@@ -272,6 +281,8 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
 
     ``vision``: (B, img_seq, d) stub embeddings for the vlm family.
     ``mode``: train | prefill (prefill also returns per-layer caches).
+    Each layer (a vlm or zamba group, as in the reference) runs under
+    :func:`remat`.
     """
     f = cfg.family
     x = _embed(cfg, params, tokens)
@@ -295,40 +306,56 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
     elif f == "vlm":
         ncross = cfg.n_layers // cfg.cross_every
         nself_per = cfg.cross_every - 1
-        kvs = []
-        for g in range(ncross):
-            for j in range(nself_per):
-                lp = layer(params["self_blocks"], g * nself_per + j)
-                x, a, kv = attn_ff_block(cfg, lp, x, kind="dense", mode=mode)
-                aux_total = aux_total + a
+        selfs = layers(params["self_blocks"])
+
+        def group(sps, cp, h):
+            aux, kvs = torch.zeros((), dtype=torch.float32,
+                                   device=h.device), []
+            for lp in sps:
+                h, a, kv = attn_ff_block(cfg, lp, h, kind="dense", mode=mode)
+                aux = aux + a
                 kvs.append(kv)
             # gated cross-attn layer
-            cp = layer(params["cross_blocks"], g)
-            hn = rms_norm(x, cp["attn_norm"], cfg.norm_eps)
+            hn = rms_norm(h, cp["attn_norm"], cfg.norm_eps)
             ca = att.cross_attn(cfg, cp["attn"], hn, vision)
-            x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * ca
-            hm = rms_norm(x, cp["mlp_norm"], cfg.norm_eps)
-            x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) \
+            h = h + torch.tanh(cp["gate_attn"]).to(h.dtype) * ca
+            hm = rms_norm(h, cp["mlp_norm"], cfg.norm_eps)
+            h = h + torch.tanh(cp["gate_mlp"]).to(h.dtype) \
                 * mlp_apply(cp["mlp"], hm)
+            return h, aux, kvs
+
+        body = remat(cfg, group)
+        kvs = []
+        for g, cp in enumerate(layers(params["cross_blocks"])):
+            x, a, kv = body(selfs[g * nself_per:(g + 1) * nself_per], cp, x)
+            aux_total = aux_total + a
+            kvs.extend(kv)
         if mode == "prefill":
             caches = {"kv": stack(kvs), "vision": vision}
 
     elif f == "zamba":
         shared = params["shared"]
-        kvs, mstates = [], []
-        for g in range(n_layers_of(params["mamba_groups"])):
+
+        def group(lps, h):
             # shared attention block (concat with the original embedding)
-            hin = torch.cat([x, emb0], dim=-1) @ shared["proj"]
+            hin = torch.cat([h, emb0], dim=-1) @ shared["proj"]
             hb, a, kv = attn_ff_block(cfg, shared, hin, kind="dense",
                                       mode=mode, window=cfg.window)
-            x, st = _mamba_layers(cfg, layer(params["mamba_groups"], g),
-                                  x + hb)
+            h, st = _mamba_layers(cfg, lps, h + hb)
+            return h, a, kv, st
+
+        body = remat(cfg, group)
+        kvs, mstates = [], []
+        for lps in layers(params["mamba_groups"]):
+            x, a, kv, st = body(lps, x)
             aux_total = aux_total + a
             kvs.append(kv)
             mstates.append(st)
         tail_states = None
         if "mamba_tail" in params:
-            x, tail_states = _mamba_layers(cfg, params["mamba_tail"], x)
+            x, tail_states = _mamba_layers(
+                cfg, params["mamba_tail"], x,
+                remat(cfg, lambda lp, h: _mamba_layer(cfg, lp, h)))
         if mode == "prefill":
             caches = {"mamba": stack(mstates), "attn": stack(kvs)}
             if tail_states is not None:
@@ -341,10 +368,10 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
             lambda d: torch.zeros(d.shape[1:], dtype=d.dtype,
                                   device=x.device),
             rwkv6.rwkv_state_schema(cfg, b))
+        body = remat(cfg, lambda lp, h: rwkv6.rwkv_block(cfg, lp, h, state0))
         states = []
-        for i in range(n_layers_of(params["blocks"])):
-            x, st = rwkv6.rwkv_block(cfg, layer(params["blocks"], i), x,
-                                     state0)
+        for lp in layers(params["blocks"]):
+            x, st = body(lp, x)
             states.append(st)
         caches = {"blocks": stack(states)} if mode == "prefill" else None
 
@@ -465,3 +492,18 @@ def vlm_cross_cache(cfg: LMConfig, params, vision):
         ks.append(promote_mm(vision, cp["wk"]).reshape(b, simg, h, hd))
         vs.append(promote_mm(vision, cp["wv"]).reshape(b, simg, h, hd))
     return torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# MTP head (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+def mtp_logits(cfg: LMConfig, params, hidden, tokens_next):
+    """hidden: (B, S, d) final hidden; tokens_next: (B, S) = token t+1.
+    Returns logits for predicting t+2 (one extra MLA block)."""
+    mp = params["mtp"]
+    e = _embed(cfg, params, tokens_next)
+    h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
+                   rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
+    h = h @ mp["proj"]
+    h, _, _ = attn_ff_block(cfg, mp, h, kind="mla_dense", mode="train")
+    return _logits(cfg, params, h)

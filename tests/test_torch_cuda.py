@@ -866,3 +866,95 @@ def test_serve_engine_on_the_card_matches_manual_decode(cuda_device, arch):
                 logits, cache = api.decode(cfg, params, tok, cache, plen + i)
     manual = torch.cat(manual, dim=1).cpu().numpy()
     assert (out == manual).mean() >= 0.8, (out, manual)
+
+
+# -- LM training ---------------------------------------------------------------
+
+def _train_batch(cfg, b=4, s=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (b, s + 1), generator=g)}
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b", "rwkv6-1.6b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """One SMOKE step (microbatch 2) from the same parameters and batch:
+    the loss and metrics within 5e-3 of the CPU's, the gradient norm
+    within 1 %, every parameter within 1e-2 (an Adam step at lr 1e-3
+    moves one by about lr; bf16 products sum in another order on each)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.train import make_train_step
+    cfg = get_smoke(arch).replace(microbatch=2)
+    cpu = api.init(cfg, 0, "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    batch = _train_batch(cfg)
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        step = make_train_step(cfg, lr=1e-3)
+        p, st, m = step(params, step.init_state(params),
+                        {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (dict(tree_items(p)), {k: float(v) for k, v in m.items()})
+        assert int(st["opt"]["step"]) == 1
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    for k in mc:
+        tol = 1e-2 * mc[k] if k == "grad_norm" else 5e-3
+        assert abs(mc[k] - mg[k]) < tol, (k, mc[k], mg[k])
+    for k, t in pc.items():
+        assert pg[k].is_cuda and pg[k].dtype == t.dtype
+        assert float((pg[k].cpu().float() - t.float()).abs().max()) < 1e-2
+
+
+def test_train_loop_restart_on_the_card_is_bit_exact(cuda_device, tmp_path):
+    """A crash at step 4 with checkpoints every 2 steps (the async writer):
+    the restore puts the tree back on the card and the run replays to the
+    same parameters, optimizer state and losses, bit for bit."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    from repro_torch.runtime import FailureInjector, TrainLoop
+    from repro_torch.train import make_train_step
+    cfg = get_smoke("granite-3-8b").replace(microbatch=1)
+    runs = []
+    for name, fail in (("a", ()), ("b", (4,))):
+        params = api.init(cfg, 0, "cuda")
+        step = make_train_step(cfg, lr=1e-3)
+        loop = TrainLoop(
+            step_fn=step,
+            data_fn=lambda i: {k: v.to(cuda_device) for k, v in
+                               _train_batch(cfg, 2, 32, 1000 + i).items()},
+            ckpt=CheckpointManager(str(tmp_path / name), keep=3),
+            ckpt_every=2, injector=FailureInjector(fail) if fail else None)
+        runs.append(loop.run(params, step.init_state(params), n_steps=6))
+        loop.ckpt.async_ckpt.close()
+    (p1, s1, h1), (p2, s2, h2) = runs
+    for (_, a), (_, b) in zip(tree_items({"p": p1, "s": s1}),
+                              tree_items({"p": p2, "s": s2})):
+        assert b.is_cuda and torch.equal(a, b)
+    assert [h["loss"] for h in h1] == [h["loss"] for h in h2]
+
+
+def test_card_checkpoint_loads_on_the_cpu(cuda_device, tmp_path):
+    from repro_torch.ckpt import load_pytree, save_pytree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import make_train_step
+    cfg = get_smoke("granite-3-8b").replace(optimizer="adafactor")
+    params = api.init(cfg, 0, "cuda")
+    step = make_train_step(cfg, lr=1e-3, grad_compression="int8")
+    params, state, _ = step(params, step.init_state(params),
+                            {k: v.to(cuda_device) for k, v in
+                             _train_batch(cfg).items()})
+    tree = {"params": params, "opt": state}
+    save_pytree(tree, str(tmp_path), 1)
+    back, _ = load_pytree(str(tmp_path))
+    got = dict(tree_items(back))
+    assert set(got) == set(dict(tree_items(tree)))
+    for k, v in tree_items(tree):
+        assert got[k].device.type == "cpu" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v.cpu()), k
+    on_card, _ = load_pytree(str(tmp_path), device="cuda")
+    assert all(t.is_cuda for _, t in tree_items(on_card))
