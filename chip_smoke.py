@@ -125,8 +125,21 @@ Phases:
    CPU bit for bit; the CLI ``--smoke --steps 4`` as a child process; one
    step of each of the ten SMOKE configs on the card against the CPU
    (``TRAIN_*`` tolerances)
+15. the dry-run and the H100 roofline: ``python -m
+   repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
+   --roofline`` and ``--shape decode_32k --roofline`` through its
+   ``main`` (FULL width and depth, the 16x16 production mesh, traced on
+   ``meta``); ``run_cell`` for the ten SMOKE configs over a small cell of
+   each kind; phases 13's and 14's steps traced on ``meta``: the code's
+   bound (traced FLOPs over the bf16 peak, arguments read and results
+   written once over the memory rate) beside their measured p50 and the
+   hand bounds, and the predicted memory (arguments + the trace's peak)
+   beside their measured peaks; granite-3-8b SMOKE's train, prefill and
+   decode steps from ``build_step(device="cuda")`` run once, their results'
+   shapes and dtypes the trace's, their peaks beside the prediction; no
+   port kernel launched
 
-Each path of phases 3-6 and 8-14 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-15 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -268,6 +281,9 @@ PATH_KERNELS = {
     # phase 14: LM training runs none of the port's kernels (its data
     # pipeline filters on the host engine, as the reference's does)
     "lm_train": (),
+    # phase 15: the dry-run traces on meta; its real SMOKE steps are LM
+    # steps, which launch none of the port's kernels
+    "lm_dryrun": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -4373,6 +4389,223 @@ def phase_train(dev, smi, start_path, end_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run and the H100 roofline (python -m
+# repro_torch.launch.dryrun): granite-3-8b's train_4k and decode_32k cells
+# at full width and depth on the production mesh, the ten SMOKE configs
+# over a small cell of each kind, the code's bound of the steps phases 13
+# and 14 ran beside their measured times and the hand bounds, and the
+# memory model against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = ROOT / "build" / "smoke_dryrun.jsonl"
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+#: the ten SMOKE configs' cells (name, seq_len, global_batch, kind)
+DRYRUN_SMOKE_CELLS = (("t", 64, 8, "train"), ("p", 64, 8, "prefill"),
+                      ("d", 64, 8, "decode"))
+#: the hand bounds PERF.md gave phases 13's and 14's steps (ms): decode
+#: reads every parameter but the embedding, the batch's embedding rows and
+#: the whole K/V cache; a train step takes the larger of 6 N D FLOPs over
+#: the bf16 peak (HAND_TRAIN_FLOPS_MS) and 22 B per parameter over the
+#: memory rate
+HAND_DECODE_MS = 11.289
+HAND_TRAIN_MS = 23.59
+HAND_TRAIN_FLOPS_MS = 22.31
+#: code and hand bounds further apart than this print what each counted
+HAND_GAP = 0.05
+#: the memory model's bands, fixed before its first run on the card:
+#: phases 13's and 14's measured peak over the predicted argument + temp
+#: bytes, and a real SMOKE step's peak above the memory allocated before
+#: it over its predicted temp bytes (the allocator's 512-byte rounding adds
+#: under 1 % at SMOKE; the card's kernels may allocate work space the
+#: trace cannot see)
+FULL_MEM_BAND = (0.95, 1.05)
+SMOKE_MEM_BAND = (0.95, 1.25)
+
+
+def leaf_shapes(tree, path=""):
+    """(path, shape, dtype) of every tensor in nested tuples and dicts."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [(path, tuple(tree.shape), tree.dtype)]
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return []
+    return [x for k, v in items for x in leaf_shapes(v, f"{path}.{k}")]
+
+
+def in_band(ratio, band) -> str:
+    return "held" if band[0] <= ratio <= band[1] else "MISSED"
+
+
+def dryrun_bound(smi, kind, cfg, cell, measured):
+    """The code's bound of a step phase 13 or 14 ran (traced on ``meta``
+    on a one-device mesh) beside its measured p50 and the hand bound, and
+    the predicted memory beside its measured peak."""
+    from repro_torch.launch import dryrun, make_host_mesh
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS, trace_step
+    from repro_torch.models import api
+    mesh = make_host_mesh()
+    t0 = time.perf_counter()
+    fn, args = dryrun.build_step(cfg, cell, mesh)
+    res, m = trace_step(fn, *args)
+    trace_s = time.perf_counter() - t0
+    read = dryrun.tree_bytes(args, fn.in_specs, mesh)
+    if kind == "decode":
+        cache = dryrun.tree_bytes(res[1], None, mesh)
+        written = dryrun.tree_bytes(res[0], None, mesh) + cache // cell.seq_len
+    else:
+        written = dryrun.tree_bytes(res, None, mesh)
+    compute_ms = m.flops / PEAK_FLOPS * 1e3
+    bytes_ms = (read + written) / HBM_BW * 1e3
+    bound = max(compute_ms, bytes_ms)
+    p50 = measured["step_p50_ms"]
+    hand = HAND_DECODE_MS if kind == "decode" else HAND_TRAIN_MS
+    n = api.n_params(cfg)
+    model_flops = 6 * n * cell.global_batch * cell.seq_len
+    out = {"trace_s": trace_s, "flops": m.flops, "bytes_read": read,
+           "bytes_written": written, "compute_ms": compute_ms,
+           "bytes_ms": bytes_ms, "bound_ms": bound,
+           "bound_by": "operations" if compute_ms >= bytes_ms else "bytes",
+           "eager_bytes": m.bytes_accessed,
+           "eager_memory_ms": m.bytes_accessed / HBM_BW * 1e3,
+           "p50_ms": p50, "p50_over_bound": p50 / bound,
+           "roofline_share": bound / p50, "hand_bound_ms": hand}
+    log(f"  [{smi}] {kind} step of phase {13 if kind == 'decode' else 14} "
+        f"({cfg.n_layers} layers, batch {cell.global_batch}, "
+        f"{'max_seq' if kind == 'decode' else 'seq'} {cell.seq_len}), "
+        f"traced on meta in {trace_s:.1f} s: compute_s "
+        f"{compute_ms / 1e3:.6f} ({m.flops:.6g} FLOPs over "
+        f"{PEAK_FLOPS:.4g}/s), bytes {bytes_ms / 1e3:.6f} s ({read} B "
+        f"read + {written} B written over {HBM_BW:.4g} B/s); bound "
+        f"{bound:.3f} ms ({out['bound_by']}); the eager port's traffic "
+        f"{m.bytes_accessed:.6g} B = {out['eager_memory_ms']:.3f} ms")
+    log(f"  [{smi}] measured p50 {p50:.3f} ms = {p50 / bound:.2f} x the "
+        f"bound (roofline share {bound / p50:.4f}); hand bound {hand} ms, "
+        f"code / hand {bound / hand:.4f}")
+    if abs(bound / hand - 1) > HAND_GAP:
+        if kind == "decode":
+            log(f"    why: the code reads every argument byte once ({n} "
+                f"parameters with the whole embedding table, the cache "
+                f"{cache} B, the token) and writes the logits and one "
+                f"cache position; the hand bound read every parameter but "
+                f"the embedding, the batch's embedding rows and the cache")
+        else:
+            log(f"    why: the code's {m.flops:.6g} FLOPs are every matrix "
+                f"product the step runs (forward, the remat recompute, "
+                f"backward, attention's products, the LM head) against the "
+                f"hand bound's 6 N D = {model_flops:.6g} "
+                f"({HAND_TRAIN_FLOPS_MS} ms); its bytes are parameters, "
+                f"optimizer state and batch read once and parameters, "
+                f"optimizer state and metrics written once "
+                f"({(read + written) / n:.2f} B per parameter) against "
+                f"the hand bound's 22 B per parameter (the gradient read "
+                f"too, {HAND_TRAIN_MS} ms)")
+    mem = dryrun.memory_record(fn, args, res, m.peak_bytes, mesh)
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    ratio = measured["peak_bytes"] / predicted
+    out.update(memory=mem, predicted_bytes=predicted,
+               measured_peak_bytes=measured["peak_bytes"],
+               peak_over_predicted=ratio,
+               band=in_band(ratio, FULL_MEM_BAND))
+    log(f"  [{smi}] memory: predicted argument {mem['argument_bytes']} B + "
+        f"temp {mem['temp_bytes']} B = {predicted} B; measured "
+        f"max_memory_allocated {measured['peak_bytes']} B; ratio "
+        f"{ratio:.4f}, band {FULL_MEM_BAND}: {out['band']}")
+    return out
+
+
+def dryrun_real_smoke(dev, smi):
+    """granite-3-8b SMOKE's train, prefill and decode steps from
+    ``build_step(device=cuda)``, run once: their results' shapes and dtypes
+    equal the meta trace's, their peak above the memory allocated before
+    the call beside the trace's temp bytes."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import dryrun, make_host_mesh
+    from repro_torch.launch.roofline import trace_step
+    from repro_torch.models.config import ShapeCell
+    cfg, mesh, out = get_smoke("granite-3-8b"), make_host_mesh(), {}
+    for name, seq, b, kind in DRYRUN_SMOKE_CELLS:
+        cell = ShapeCell(name, seq, b, kind)
+        fn, args = dryrun.build_step(cfg, cell, mesh)
+        want, m = trace_step(fn, *args)
+        fn, args = dryrun.build_step(cfg, cell, mesh, device=str(dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        check(leaf_shapes(got) == leaf_shapes(want), f"phase 15: {kind} "
+              f"on the card gave {leaf_shapes(got)}, the trace "
+              f"{leaf_shapes(want)}")
+        ratio = peak / m.peak_bytes
+        out[kind] = {"peak_above_before": peak, "predicted_temp":
+                     m.peak_bytes, "ratio": ratio,
+                     "band": in_band(ratio, SMOKE_MEM_BAND)}
+        log(f"  [{smi}] granite-3-8b SMOKE {kind} ({b} x {seq}) on the card: "
+            f"{len(leaf_shapes(got))} results, shapes and dtypes the "
+            f"trace's; peak above before {peak} B, predicted temp "
+            f"{m.peak_bytes:.0f} B, ratio {ratio:.4f}, band "
+            f"{SMOKE_MEM_BAND}: {out[kind]['band']}")
+        del got, args
+    return out
+
+
+def phase_dryrun(dev, smi, serve, train):
+    """Phase 15: (1) ``launch.dryrun.main`` for granite-3-8b FULL at
+    train_4k and decode_32k with ``--roofline`` on the production mesh;
+    (2) ``run_cell`` for the ten SMOKE configs over a small cell of each
+    kind; (3) the code's bound and memory of phases 13's and 14's steps
+    beside their measured p50 and peak (``serve`` and ``train``); (4)
+    granite-3-8b SMOKE's steps for real against the trace."""
+    from repro_torch.configs import ARCHS, get_config, get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.models.config import ShapeCell
+    check((PEAK_FLOPS, HBM_BW) == (BF16_OPS_PER_S, MEM_BYTES_PER_S),
+          "phase 15: the roofline's peaks are not the H100 data sheet's")
+    out = {}
+    DRYRUN_OUT.unlink(missing_ok=True)
+    try:
+        for shape in DRYRUN_SHAPES:
+            argv = ["--arch", "granite-3-8b", "--shape", shape,
+                    "--roofline", "--out", str(DRYRUN_OUT)]
+            rec = dryrun.main(argv)[0]
+            log(f"  [{smi}] python -m repro_torch.launch.dryrun "
+                + " ".join(argv[:5]) + ": " + json.dumps(
+                    {k: v for k, v in rec.items() if k != "traceback"}))
+            check(rec["status"] == "ok", f"phase 15: {shape}: {rec}")
+            out[shape] = rec
+    finally:
+        DRYRUN_OUT.unlink(missing_ok=True)
+    out["smoke"], t0 = {}, time.perf_counter()
+    for arch in ARCHS:
+        for name, seq, b, kind in DRYRUN_SMOKE_CELLS:
+            rec = dryrun.run_cell(arch, ShapeCell(name, seq, b, kind), False,
+                                  False, cfg_override=get_smoke(arch))
+            check(rec["status"] in ("ok", "skipped"),
+                  f"phase 15: {arch} SMOKE {kind}: {rec}")
+            out["smoke"][f"{arch}:{kind}"] = {
+                k: rec.get(k) for k in ("status", "time_s", "memory")}
+    statuses = sorted({r["status"] for r in out["smoke"].values()})
+    log(f"  [{smi}] the ten SMOKE configs x (train, prefill, decode) on the "
+        f"production mesh: {statuses} in {time.perf_counter() - t0:.1f} s")
+    full = get_config("granite-3-8b")
+    out["decode"] = dryrun_bound(smi, "decode", full, ShapeCell(
+        "phase13", full.max_seq, 4, "decode"), serve)
+    out["train"] = dryrun_bound(smi, "train", full.replace(
+        n_layers=TRAIN_LAYERS), ShapeCell("phase14", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train"), train)
+    out["real_smoke"] = dryrun_real_smoke(dev, smi)
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5019,6 +5252,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     lm_out = phase_lm(dev, smi, start_path, end_path)
     log(f"  phase 13 summary ({smi}): " + json.dumps(lm_out, default=str))
+    serve_measured = lm_out["serve"]
     del lm_out
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
@@ -5027,8 +5261,19 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     train_out = phase_train(dev, smi, start_path, end_path)
     log(f"  phase 14 summary ({smi}): " + json.dumps(train_out, default=str))
+    train_measured = train_out["full"]
     del train_out
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 15: the dry-run and the H100 roofline, python -m "
+        "repro_torch.launch.dryrun --arch granite-3-8b; " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    dry_out = phase_dryrun(dev, smi, serve_measured, train_measured)
+    end_path("lm_dryrun")
+    log(f"  phase 15 summary ({smi}): " + json.dumps(dry_out, default=str))
+    del dry_out
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -1,18 +1,61 @@
-"""Device meshes for block-sharded table execution.
+"""Device meshes: the LM side's production and host meshes, and the 1-D
+mesh of block-sharded table execution.
 
-A function, not a module-level constant, so importing this module never
+Functions, not module-level constants, so importing this module never
 touches CUDA state.  The port drives every device of a mesh from one
-process (single-controller, as the reference's JAX mesh is): a
-:class:`ShardMesh` is the 1-D list of devices the shards of a
-:class:`~repro_torch.columnar.shard.ShardedTapeBackend` live on.  The
-reference's ``make_production_mesh`` / ``make_host_mesh`` belong to its
-LM side and are not part of this package yet.
+process (single-controller, as the reference's JAX mesh is).
+
+- :func:`make_production_mesh` / :func:`make_host_mesh` give an n-D
+  :class:`Mesh` of named axes, what the logical-axis rules
+  (:func:`repro_torch.sharding.spec_for`) resolve against.  Single-pod:
+  (data=16, model=16) = 256 devices; multi-pod: (pod=2, data=16,
+  model=16) = 512, the "pod" axis carrying only data-parallel gradient
+  traffic.  The production mesh is made of ``meta`` placeholders, as the
+  reference's dry-run compiles on host placeholder devices: the port
+  places nothing on it, the dry-run (:mod:`.dryrun`) reads its shape.
+- A :class:`ShardMesh` is the 1-D list of devices the shards of a
+  :class:`~repro_torch.columnar.shard.ShardedTapeBackend` live on.
 """
 from __future__ import annotations
 
-from typing import Iterable, Tuple, Union
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+
+
+class Mesh:
+    """An n-D mesh of named axes: ``axis_names``, ``shape`` (axis name ->
+    size, in axis order) and ``devices``, a numpy object array of
+    ``torch.device`` in the mesh's shape (``devices.size`` is the device
+    count), as the reference's ``jax.sharding.Mesh`` has them."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device: Union[str, torch.device]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} vs axes "
+                             f"{tuple(axis_names)}")
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+        self.devices = np.empty(tuple(shape), dtype=object)
+        self.devices.fill(torch.device(device))
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, "
+                f"device={self.devices.flat[0].type!r})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, "meta")
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
+    """Small meshes of host (``cpu``) devices, for tests."""
+    if pod:
+        return Mesh((pod, data, model), ("pod", "data", "model"), "cpu")
+    return Mesh((data, model), ("data", "model"), "cpu")
 
 
 class ShardMesh:

@@ -1,0 +1,413 @@
+"""Roofline analysis of one step traced on the ``meta`` device, against the
+NVIDIA H100's published peaks.
+
+Hardware target: one NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense
+rates): 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s HBM3, and
+NVLink 4 at 900 GB/s per GPU in both directions together, 450 GB/s each
+way.
+
+Three terms per (arch, shape, mesh), all in seconds:
+    compute    = flops_per_device / PEAK_FLOPS
+    memory     = bytes_per_device / HBM_BW
+    collective = collective_bytes_per_device / LINK_BW
+
+Methodology:
+
+* :func:`measure_step` runs the step once on ``meta`` tensors (shapes and
+  dtypes, no data, no allocation) under one dispatch mode that sees every
+  aten op the eager port runs.  ``flops`` are those of the matrix
+  products and attention in ``torch.utils.flop_counter``'s registry;
+  elementwise work is not counted (XLA's ``cost_analysis`` counts it).
+  ``bytes_accessed`` is each op's tensor arguments read plus its tensor
+  results written, what the eager (unfused) port moves.  ``peak_bytes`` is
+  the peak of the storages the step creates that are alive at once, each
+  storage counted once across its views.
+* The port runs each LM step on one device (``sharding.shard`` is the
+  identity), so a step has no collective: ``coll`` is ``{"total": 0.0}``.
+  :func:`collective_bytes` (the reference's HLO-text parser) is kept for
+  parity and for reading the reference's HLO.
+* The port's layers are a Python loop, so a full-depth trace counts every
+  layer; nothing is counted once as XLA counts a ``lax.scan`` body.
+  :func:`analysis_variants` and :func:`solve_units` still give the
+  reference's unit solve over small variants.  rwkv's time loop is traced
+  too, so :func:`rwkv_scan_correction` is kept for parity and never added.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+import weakref
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from ..models.config import LMConfig, ShapeCell
+
+# --- hardware constants (one NVIDIA H100 SXM, NVIDIA's data sheet) ---
+PEAK_FLOPS = 989e12          # bf16 dense, tensor cores
+HBM_BW = 3.35e12             # bytes/s, HBM3
+LINK_BW = 450e9              # bytes/s, NVLink 4 one way (900 GB/s both);
+                             # the reference's ICI_BW
+
+_DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2,
+                "f16": 2, "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8,
+                "f64": 8, "c64": 8, "c128": 16}
+
+_COLL_RE = re.compile(
+    r"=\s*(?:\()?\s*([a-z0-9]+)\[([0-9,]*)\][^ ]*\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(?:-start)?\(")
+
+
+def collective_bytes(hlo_text: str) -> Dict[str, float]:
+    """Sum result bytes of collective ops in (post-optimization) HLO text."""
+    out: Dict[str, float] = {}
+    for line in hlo_text.splitlines():
+        m = _COLL_RE.search(line)
+        if not m:
+            continue
+        dtype, dims, op = m.groups()
+        if op.endswith("-done"):
+            continue
+        nbytes = _DTYPE_BYTES.get(dtype, 4)
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                n *= int(d)
+        wire = n * nbytes
+        if op == "all-reduce":
+            wire *= 2           # ring RS+AG wire bytes
+        out[op] = out.get(op, 0.0) + wire
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out
+
+
+@dataclass
+class Measurement:
+    """A step's work.  ``peak_bytes`` is the peak of one traced call: a sum
+    of measurements keeps the larger peak, a scaled one the same peak."""
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+    coll: Dict[str, float] = field(default_factory=dict)
+    peak_bytes: float = 0.0
+
+    def __add__(self, o):
+        c = dict(self.coll)
+        for k, v in o.coll.items():
+            c[k] = c.get(k, 0.0) + v
+        return Measurement(self.flops + o.flops,
+                           self.bytes_accessed + o.bytes_accessed, c,
+                           max(self.peak_bytes, o.peak_bytes))
+
+    def scale(self, f: float):
+        return Measurement(self.flops * f, self.bytes_accessed * f,
+                           {k: v * f for k, v in self.coll.items()},
+                           self.peak_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Measuring a traced step
+# ---------------------------------------------------------------------------
+#: ops that allocate without writing
+_ALLOC = {torch.ops.aten.empty.memory_format,
+          torch.ops.aten.empty_strided.default,
+          torch.ops.aten.new_empty.default,
+          torch.ops.aten.new_empty_strided.default}
+#: in-place ops that write their first argument without reading it
+_WRITE_ONLY = {torch.ops.aten.copy_.default, torch.ops.aten.fill_.Scalar,
+               torch.ops.aten.fill_.Tensor, torch.ops.aten.zero_.default}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    """The bytes a tensor view can touch: its elements, at most its
+    storage (an expanded view reads its storage once)."""
+    return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
+
+
+def _tensors(tree, out=None) -> List[torch.Tensor]:
+    """The tensors in nested lists, tuples and dicts."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
+class _StepCounter(TorchDispatchMode):
+    """FLOPs, bytes moved and the peak of live created storage of every
+    aten op run under it.
+
+    A storage is held by weak reference (``StorageWeakRef``, which keeps
+    its address from reuse) with the count of its op results still alive
+    in Python.  When that count drops to 0 the storage may still be held
+    from C++ (a tensor autograd saved), so it is only marked pending; the
+    live total is an upper bound until a sweep drops the pending storages
+    that expired.  A sweep runs whenever the bound passes the peak, so the
+    peak is exact."""
+
+    def __init__(self, args):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.peak = 0
+        self._known = {t.untyped_storage()._cdata for t in _tensors(args)}
+        # address -> [weak reference, bytes, op results alive in Python]
+        self._live: Dict[int, list] = {}
+        self._pending = set()
+        self._bound = 0
+
+    def _dropped(self, key: int):
+        entry = self._live.get(key)
+        if entry is not None:
+            entry[2] -= 1
+            if entry[2] == 0:
+                self._pending.add(key)
+
+    def _sweep(self):
+        for key in list(self._pending):
+            ref, n, held = self._live[key]
+            if ref.expired():
+                self._bound -= n
+                del self._live[key]
+            if held == 0 and key in self._live:
+                continue
+            self._pending.discard(key)
+
+    def _track(self, t: torch.Tensor):
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._known:
+            return
+        entry = self._live.get(key)
+        if entry is None:
+            entry = self._live[key] = [StorageWeakRef(st), st.nbytes(), 0]
+            self._bound += entry[1]
+            if self._bound > self.peak:
+                self._sweep()
+                self.peak = max(self.peak, self._bound)
+        entry[2] += 1
+        weakref.finalize(t, self._dropped, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        packet = func.overloadpacket
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        outs = _tensors(out)
+        if not (func.is_view or func in _ALLOC):
+            reads = _tensors((args[1:], kwargs) if func in _WRITE_ONLY
+                             else (args, kwargs))
+            self.bytes += sum(map(_nbytes, reads)) + sum(map(_nbytes, outs))
+        for t in outs:
+            self._track(t)
+        return out
+
+
+def trace_step(fn, *args):
+    """``fn(*args)`` once under the counter: ``(its output, Measurement)``.
+    On ``meta`` arguments nothing is allocated and no data is read."""
+    counter = _StepCounter(args)
+    with counter:
+        out = fn(*args)
+    return out, Measurement(float(counter.flops), float(counter.bytes),
+                            {"total": 0.0}, float(counter.peak))
+
+
+def measure_step(fn, *args) -> Measurement:
+    """The port's counterpart of the reference's ``measure_compiled``: one
+    call of ``fn(*args)`` (``meta`` arguments: no allocation) counted op by
+    op.  ``flops``: matrix products and attention only; elementwise work is
+    not counted, unlike XLA's ``cost_analysis``.  ``bytes_accessed``:
+    every op's tensor arguments read and results written (an in-place
+    op's destination both; views and allocations move nothing).
+    ``peak_bytes``: the peak of storage the step creates that is alive at
+    once.  ``coll``: ``{"total": 0.0}``, the step runs on one device."""
+    return trace_step(fn, *args)[1]
+
+
+# ---------------------------------------------------------------------------
+# Unit-solve variants per family
+# ---------------------------------------------------------------------------
+def analysis_variants(cfg: LMConfig,
+                      cell: Optional[ShapeCell] = None
+                      ) -> Tuple[List[Tuple[LMConfig, Dict]], Dict]:
+    """Returns ([(variant_cfg, unit_counts)], full_counts).
+
+    Every variant is full-width, microbatch=1, with the MoE layer's dense
+    surrogate and single-block attention / single-chunk SSD (the
+    reference's settings; ``scan_layers`` is kept and ignored by the
+    port).  The solver fits measured = base + sum_r counts_r * unit_r.
+    """
+    base = dict(scan_layers=False, microbatch=1, moe_dense_analysis=True)
+    if cell is not None and cell.kind in ("train", "prefill"):
+        s = cell.seq_len
+        base.update(attn_block_q=s, attn_block_kv=s,
+                    ssm_chunk=max(s, cfg.ssm_chunk))
+    f = cfg.family
+    if f in ("dense", "moe", "mla", "rwkv"):
+        v = [(cfg.replace(n_layers=1, **base), {"layer": 1}),
+             (cfg.replace(n_layers=2, **base), {"layer": 2})]
+        return v, {"layer": cfg.n_layers}
+    if f == "mla_moe":
+        v = [(cfg.replace(n_layers=2, first_dense_layers=1, **base),
+              {"dense": 1, "moe": 1}),
+             (cfg.replace(n_layers=3, first_dense_layers=2, **base),
+              {"dense": 2, "moe": 1}),
+             (cfg.replace(n_layers=3, first_dense_layers=1, **base),
+              {"dense": 1, "moe": 2})]
+        return v, {"dense": cfg.first_dense_layers,
+                   "moe": cfg.n_layers - cfg.first_dense_layers}
+    if f == "vlm":
+        v = [(cfg.replace(n_layers=2, cross_every=2, **base),
+              {"self": 1, "cross": 1}),
+             (cfg.replace(n_layers=4, cross_every=4, **base),
+              {"self": 3, "cross": 1}),
+             (cfg.replace(n_layers=4, cross_every=2, **base),
+              {"self": 2, "cross": 2})]
+        ncross = cfg.n_layers // cfg.cross_every
+        return v, {"self": cfg.n_layers - ncross, "cross": ncross}
+    if f == "zamba":
+        v = [(cfg.replace(n_layers=1, attn_every=1, **base),
+              {"mamba": 1, "attn": 1}),
+             (cfg.replace(n_layers=2, attn_every=2, **base),
+              {"mamba": 2, "attn": 1}),
+             (cfg.replace(n_layers=2, attn_every=1, **base),
+              {"mamba": 2, "attn": 2})]
+        return v, {"mamba": cfg.n_layers,
+                   "attn": cfg.n_layers // cfg.attn_every}
+    if f == "encdec":
+        v = [(cfg.replace(n_layers=1, enc_layers=1, **base),
+              {"enc": 1, "dec": 1}),
+             (cfg.replace(n_layers=1, enc_layers=2, **base),
+              {"enc": 2, "dec": 1}),
+             (cfg.replace(n_layers=2, enc_layers=1, **base),
+              {"enc": 1, "dec": 2})]
+        return v, {"enc": cfg.enc_layers, "dec": cfg.n_layers}
+    raise ValueError(f)
+
+
+def solve_units(variants: List[Tuple[Dict, Measurement]],
+                full_counts: Dict) -> Measurement:
+    """Least-squares solve base+units, extrapolate to full_counts."""
+    unit_names = sorted(full_counts)
+    a = np.array([[1.0] + [float(c.get(u, 0)) for u in unit_names]
+                  for c, _ in variants])
+    x_full = np.array([1.0] + [float(full_counts[u]) for u in unit_names])
+
+    def extrapolate(vals: np.ndarray) -> float:
+        coef, *_ = np.linalg.lstsq(a, vals, rcond=None)
+        coef = np.maximum(coef, 0.0)        # guard tiny negative solves
+        return float(x_full @ coef)
+
+    flops = extrapolate(np.array([m.flops for _, m in variants]))
+    byts = extrapolate(np.array([m.bytes_accessed for _, m in variants]))
+    keys = sorted({k for _, m in variants for k in m.coll})
+    coll = {k: extrapolate(np.array([m.coll.get(k, 0.0)
+                                     for _, m in variants])) for k in keys}
+    return Measurement(flops, byts, coll)
+
+
+# ---------------------------------------------------------------------------
+# Analytic model FLOPs (per step, GLOBAL not per-device)
+# ---------------------------------------------------------------------------
+def model_params_active(cfg: LMConfig) -> Tuple[float, float]:
+    """(total params N, active params N_active) excluding embeddings."""
+    from ..models import api
+    total = api.n_params(cfg)
+    emb = cfg.vocab * cfg.d_model * (1 if cfg.family == "encdec" else 2)
+    n = total - emb
+    if cfg.n_experts:
+        expert_p = (cfg.n_layers - cfg.first_dense_layers) * cfg.n_experts \
+            * 3 * cfg.d_model * cfg.moe_d_ff
+        active_share = expert_p * (cfg.top_k / cfg.n_experts - 1.0)
+        n_active = n + active_share
+    else:
+        n_active = n
+    return float(n), float(n_active)
+
+
+def model_flops(cfg: LMConfig, cell: ShapeCell) -> float:
+    """6·N_active·D for train; 2·N_active·D for inference tokens."""
+    _, n_active = model_params_active(cfg)
+    tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode" else 1)
+    mult = 6.0 if cell.kind == "train" else 2.0
+    return mult * n_active * tokens
+
+
+def rwkv_scan_correction(cfg: LMConfig, cell: ShapeCell,
+                         n_devices: int) -> float:
+    """Per-device FLOPs hidden inside the reference's rwkv time scan (wkv
+    recurrence), which XLA counts once.  The port traces its time loop
+    step by step, so this is never added to a port measurement.
+
+    Per token per layer: ~6·H·P² mults (kv outer, u·kv, r·(S+..), w·S, +adds).
+    """
+    if cfg.family != "rwkv":
+        return 0.0
+    h = cfg.n_heads
+    p = cfg.d_model // h
+    toks = cell.global_batch * (cell.seq_len if cell.kind != "decode" else 1)
+    per_tok = 6.0 * h * p * p * cfg.n_layers
+    mult = 3.0 if cell.kind == "train" else 1.0     # fwd+bwd ~3x fwd
+    return mult * per_tok * toks / n_devices
+
+
+# ---------------------------------------------------------------------------
+# Terms
+# ---------------------------------------------------------------------------
+@dataclass
+class Roofline:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    model_flops: float
+    hlo_total_flops: float
+    useful_ratio: float
+    bottleneck: str
+    coll_breakdown: Dict[str, float] = field(default_factory=dict)
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def roofline_terms(m: Measurement, cfg: LMConfig, cell: ShapeCell,
+                   n_devices: int, microbatch_scale: int = 1) -> Roofline:
+    """m: per-device measurement of one full step.  Unlike the
+    reference's, no rwkv scan correction is added: the trace counted the
+    time loop.  ``hlo_total_flops`` keeps the reference's name: the
+    traced FLOPs of all devices."""
+    scale = microbatch_scale
+    flops = m.flops * scale
+    byts = m.bytes_accessed * scale
+    coll = {k: v * scale for k, v in m.coll.items()}
+    coll_total = coll.get("total", 0.0)
+    compute_s = flops / PEAK_FLOPS
+    memory_s = byts / HBM_BW
+    collective_s = coll_total / LINK_BW
+    mf = model_flops(cfg, cell)
+    hlo_total = flops * n_devices
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    return Roofline(
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        flops_per_dev=flops, bytes_per_dev=byts,
+        coll_bytes_per_dev=coll_total,
+        model_flops=mf, hlo_total_flops=hlo_total,
+        useful_ratio=mf / hlo_total if hlo_total else 0.0,
+        bottleneck=max(terms, key=terms.get),
+        coll_breakdown=coll,
+    )

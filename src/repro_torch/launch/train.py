@@ -106,7 +106,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         raise ValueError(f"--mesh {args.mesh}: the port trains on one "
-                         "device; device meshes for training are slice 12e")
+                         "device; sharded training is not ported")
 
     from ..configs import get_config, get_smoke
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)

@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from . import encdec, lm
-from .common import abstract_params, count_params, cross_entropy, init_params
+from .common import (abstract_params, count_params, cross_entropy,
+                     init_params, param_pspecs)
 from .config import LMConfig
 
 
@@ -38,6 +39,10 @@ def init(cfg: LMConfig, seed: int = 0, device: str = "cuda"):
 
 def abstract(cfg: LMConfig):
     return abstract_params(schema(cfg))
+
+
+def pspecs(cfg: LMConfig, mesh=None, rules=None):
+    return param_pspecs(schema(cfg), mesh, rules)
 
 
 def n_params(cfg: LMConfig) -> int:
@@ -57,6 +62,11 @@ def abstract_cache(cfg: LMConfig, batch: int, max_seq: int):
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                device: str = "cuda"):
     return init_params(cache_schema(cfg, batch, max_seq), 0, device)
+
+
+def cache_pspecs(cfg: LMConfig, batch: int, max_seq: int, mesh=None,
+                 rules=None):
+    return param_pspecs(cache_schema(cfg, batch, max_seq), mesh, rules)
 
 
 # ---------------------------------------------------------------------------

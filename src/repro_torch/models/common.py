@@ -2,11 +2,12 @@
 
 Parameters are declared as a nested dict of :class:`ParamDef` (shape +
 logical axes + init + dtype); from one schema we derive real
-initialization and abstract (meta) tensors; ``sharding.spec_for`` gives
-a leaf's partition from its axes.  Every function here is the reference's ``models/common.py`` on
-torch tensors, one implementation for both devices: each product the
-reference accumulates in f32 (``preferred_element_type=jnp.float32``) runs
-on inputs upcast to f32, so a bf16 product never rounds its output.
+initialization, abstract (meta) tensors and each leaf's partition from
+its axes (:func:`param_pspecs`).  Every function here is the
+reference's ``models/common.py`` on torch tensors, one implementation for
+both devices: each product the reference accumulates in f32
+(``preferred_element_type=jnp.float32``) runs on inputs upcast to f32, so
+a bf16 product never rounds its output.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..columnar.device import torch_device
+from ..sharding import spec_for
 
 
 # ---------------------------------------------------------------------------
@@ -36,6 +38,10 @@ class ParamDef:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
 
 
 def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -139,6 +145,12 @@ def abstract_params(schema):
     """Meta tensors of each leaf's shape and dtype: no allocation."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                           device="meta"), schema)
+
+
+def param_pspecs(schema, mesh=None, rules=None):
+    """The tree of ``spec_for`` tuples from the logical axes (the
+    reference's ``PartitionSpec`` tree)."""
+    return tree_map(lambda d: spec_for(d.shape, d.axes, mesh, rules), schema)
 
 
 def count_params(schema) -> int:

@@ -8,11 +8,12 @@ A copy of the reference package's ``models/config.py``, field for field, so
 a port config compares equal to the reference's.  The training knobs
 ``remat`` (``remat_policy`` recomputes everything either way),
 ``optimizer``, ``microbatch`` and ``grad_accum_dtype`` are read as the
-reference reads them.  The knobs that only the reference's XLA
-compilation and mesh read (``scan_layers``, ``moe_dense_analysis``,
-``ep_over_data``, ``fsdp``, ``seq_parallel_proj``, ``embed_fsdp``) are
-kept and ignored here: the port runs each model on one device, layer by
-layer.
+reference reads them, and so is ``moe_dense_analysis`` (the MoE layer's
+same-work dense surrogate, which the roofline's analysis variants and the
+dry-run select).  The knobs that only the reference's XLA compilation and
+mesh read (``scan_layers``, ``ep_over_data``, ``fsdp``,
+``seq_parallel_proj``, ``embed_fsdp``) are kept and ignored here: the port
+runs each model on one device, layer by layer.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@ The reference's local path, on one device: tokens sort by expert (a stable
 sort, as ``jnp.argsort``), and each expert's rows run through its two
 matrices.  ``jax.lax.ragged_dot`` becomes one ``torch.matmul`` per expert
 over its slice of the sorted rows, plain products, so the expert group
-sizes are read on the host: one host sync per MoE layer.  The reference's
-expert-parallel ``shard_map`` path over a "model" mesh axis is not ported:
-under a mesh with a "model" axis wider than 1, :func:`moe_apply` raises.
+sizes are read on the host: one host sync per MoE layer (none under
+``cfg.moe_dense_analysis``, the same-work dense surrogate).  The
+reference's expert-parallel ``shard_map`` path over a "model" mesh axis is
+not ported: under a mesh with a "model" axis wider than 1,
+:func:`moe_apply` raises.
 """
 from __future__ import annotations
 
@@ -53,11 +55,16 @@ def _grouped_mm(rows, w, sizes):
 
 
 def _expert_rows(xf, top_i, top_p, w_in, w_out, *, n_local: int,
-                 first_expert: int, cap: int, k: int):
+                 first_expert: int, cap: int, k: int,
+                 dense_surrogate: bool = False):
     """Grouped products over one shard's experts.
 
     xf: (N, d) tokens; top_i/top_p: (N, K); w_in: (El, d, 2h); w_out: (El, h, d).
-    Returns (N, d) contribution of local experts.
+    Returns (N, d) contribution of local experts.  ``dense_surrogate``
+    (``cfg.moe_dense_analysis``, the roofline's analysis variants and the
+    dry-run's trace on ``meta``): every selected row through expert 0's
+    matrices, one dense product each, with the grouped products' rows x d x
+    h work and no host read of the group sizes (not the model's output).
     """
     n, d = xf.shape
     flat_i = top_i.reshape(-1)                     # (N*K,)
@@ -70,16 +77,21 @@ def _expert_rows(xf, top_i, top_p, w_in, w_out, *, n_local: int,
     sel_valid = sel_eid < n_local
     token_idx = torch.div(sel, k, rounding_mode="floor")
     rows = torch.where(sel_valid[:, None], xf[token_idx], 0)
-    # the group sizes by a scatter-add (bincount would sync for its size)
-    eids = torch.where(sel_valid, sel_eid, n_local)
-    group_sizes = torch.zeros(n_local + 1, dtype=eids.dtype,
-                              device=eids.device).index_add_(
-        0, eids, torch.ones_like(eids))[:n_local]
-    sizes = group_sizes.tolist()                   # the host sync
-    hidden = _grouped_mm(rows, w_in, sizes)
-    gate, up = hidden.chunk(2, dim=-1)
-    act = swiglu(gate, up)
-    out_rows = _grouped_mm(act, w_out, sizes)
+    if dense_surrogate:
+        hidden = rows @ w_in[0]
+        gate, up = hidden.chunk(2, dim=-1)
+        out_rows = swiglu(gate, up) @ w_out[0]
+    else:
+        # the group sizes by a scatter-add (bincount would sync for its size)
+        eids = torch.where(sel_valid, sel_eid, n_local)
+        group_sizes = torch.zeros(n_local + 1, dtype=eids.dtype,
+                                  device=eids.device).index_add_(
+            0, eids, torch.ones_like(eids))[:n_local]
+        sizes = group_sizes.tolist()               # the host sync
+        hidden = _grouped_mm(rows, w_in, sizes)
+        gate, up = hidden.chunk(2, dim=-1)
+        act = swiglu(gate, up)
+        out_rows = _grouped_mm(act, w_out, sizes)
     w = torch.where(sel_valid, flat_p[sel], 0.0).to(out_rows.dtype)
     y = out_rows.new_zeros((n, d))
     y.index_add_(0, token_idx, out_rows * w[:, None])
@@ -113,7 +125,8 @@ def moe_apply(cfg: LMConfig, p, x):
             "the expert-parallel MoE path (experts sharded over a 'model' "
             "mesh axis) is not ported; run without a mesh")
     y = _expert_rows(xf, top_i, top_p.to(xf.dtype), p["w_in"], p["w_out"],
-                     n_local=e, first_expert=0, cap=n * k, k=k)
+                     n_local=e, first_expert=0, cap=n * k, k=k,
+                     dense_surrogate=cfg.moe_dense_analysis)
 
     out = y.reshape(b, s, d).to(x.dtype)
     if cfg.n_shared_experts:

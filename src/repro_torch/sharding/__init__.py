@@ -5,7 +5,8 @@ Parameter schemas carry logical axis names (``"embed"``, ``"q_dim"``,
 each model on one device, so nothing here moves data: :func:`shard`
 returns its input, and :func:`spec_for` only *computes* the partition the
 reference would give an array on a mesh (its ``PartitionSpec`` entries as
-a plain tuple), for checking and for the later multi-device slice.
+a plain tuple), for checking, for the dry-run's per-device bytes
+(:mod:`repro_torch.launch.dryrun`) and for the later multi-device slice.
 
 A mesh here is any object with ``axis_names`` and a ``shape`` mapping of
 axis name to size, as the reference's ``spec_for`` reads it.  Resolution is
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -109,6 +111,24 @@ def shard(x, *axes):
     """The reference's sharding constraint by logical axis names: the port
     runs on one device, so ``x`` comes back unchanged."""
     return x
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """The reference's ``NamedSharding``: a mesh and the :func:`spec_for`
+    tuple of an array on it.  Recorded, never applied: the port places
+    nothing on a mesh."""
+    mesh: Any
+    spec: Tuple
+
+
+def named_sharding(shape: Sequence[int], axes: Sequence[Optional[str]],
+                   mesh=None, rules: Optional[Dict[str, Axes]] = None
+                   ) -> NamedSharding:
+    m, r = _get()
+    mesh = mesh or m
+    rules = rules or r or DEFAULT_RULES
+    return NamedSharding(mesh, spec_for(shape, axes, mesh, rules))
 
 
 def batch_axes(mesh=None) -> Tuple[str, ...]:

@@ -26,7 +26,13 @@ from .optimizer import make_optimizer
 
 
 def make_train_step(cfg: LMConfig, lr: float = 3e-4,
-                    grad_compression: Optional[str] = None) -> Callable:
+                    grad_compression: Optional[str] = None,
+                    params_pspecs=None) -> Callable:
+    """``params_pspecs``: the parameters' partition tree (``api.pspecs``),
+    which the reference uses to pin its f32 gradient accumulator to the
+    parameters' sharding.  Accepted and not applied: the port runs the step
+    on one device, as :func:`repro_torch.sharding.shard` is the identity,
+    so the step is the same with it or without."""
     opt_init, opt_update = make_optimizer(cfg.optimizer)
     acc_dtype = torch.bfloat16 if cfg.grad_accum_dtype == "bf16" \
         else torch.float32
