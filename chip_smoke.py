@@ -138,8 +138,20 @@ Phases:
    decode steps from ``build_step(device="cuda")`` run once, their results'
    shapes and dtypes the trace's, their peaks beside the prediction; no
    port kernel launched
+16. LM training across a (data x model) mesh (``launch.train.train`` with
+   ``mesh="DxM"``, what ``python -m repro_torch.launch.train --mesh DxM``
+   runs): one NCCL rank per card, each a process of its own, the world
+   size and each rank's card and power limit printed.  On one card a 1x1
+   mesh of phase 14's cell for 6 steps, its losses, gradient norms and
+   final state bit-equal to phase 14's; on four cards a 2x2 mesh at 16
+   layers (step 0 against one device's loss, ``MESH_LOSS_TOL``), all 40
+   layers for 6 steps (per rank: step p50, tokens/s, peak, host syncs,
+   the collectives of one step by kind and mesh dim), and at full width
+   cut to 1 layer a crash-and-restore replay bit-exact on every rank and
+   its checkpoint restored onto 1x4 for one step.  No rank launches a
+   port kernel
 
-Each path of phases 3-6 and 8-15 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-16 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -168,7 +180,9 @@ batch and the device time of a batch with the atom cache off), three
 stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
 directory of another checkout).  ``--child MODE ARGS`` is phase 10's
-child process, started by the script itself.
+child process, started by the script itself.  ``python3 chip_smoke.py
+--mesh-only`` runs phase 16 alone (a host with four cards runs its 2x2
+cases), after one device's 16-layer step as the loss's reference.
 """
 from __future__ import annotations
 
@@ -284,6 +298,10 @@ PATH_KERNELS = {
     # phase 15: the dry-run traces on meta; its real SMOKE steps are LM
     # steps, which launch none of the port's kernels
     "lm_dryrun": (),
+    # phase 16: LM training on a mesh, in rank processes of its own; this
+    # process launches nothing meanwhile, and each rank reports its own
+    # launches (held at 0)
+    "lm_mesh": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -4119,6 +4137,8 @@ def train_full(dev, smi, ckpt_root):
     log(f"  [{smi}] losses {[round(x, 4) for x in out['losses']]}; host "
         f"syncs per step (sync debug mode) {out['host_syncs_per_step']:.2f}")
     params, opt_state = res["params"], res["opt_state"]
+    # phase 16's 1x1 mesh is held to these bits
+    out["fingerprint"] = fingerprint({"params": params, "opt": opt_state})
     del res
     step = make_train_step(cfg, lr=TRAIN_LR)
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
@@ -4606,10 +4626,370 @@ def phase_dryrun(dev, smi, serve, train):
     return out
 
 
-def smi_line() -> str:
+# ---------------------------------------------------------------------------
+# phase 16: dense LM training across a (data x model) mesh (python -m
+# repro_torch.launch.train --mesh DxM): one NCCL rank per card, each a
+# process of its own (a file:// rendezvous under build/).  On one card a
+# 1x1 mesh of phase 14's cell, held to phase 14's steps bit for bit; on
+# four cards a 2x2 mesh at phase 14's 16 layers against its step-0 loss,
+# all 40 layers for MESH_STEPS steps (per rank: step p50, tokens/s, peak,
+# host syncs, the collectives of one step), a crash-and-restore replay
+# and its checkpoint restored onto 1x4 for one step
+# ---------------------------------------------------------------------------
+MESH_STEPS = 6
+#: a 2x2 step's loss against one device's: the CPU tests' LOSS_TOL
+#: (tests/test_torch_mesh_train.py), fixed before the first run on cards
+MESH_LOSS_TOL = 1e-3
+#: the replay and the restore onto 1x4 run at full width with this many
+#: layers (a checkpoint holds 10 B per parameter: 6 GB at one layer)
+MESH_REPLAY_LAYERS = 1
+MESH_REPLAY_STEPS, MESH_REPLAY_CRASH, MESH_REPLAY_EVERY = 4, 3, 2
+#: ranks on a host with at least this many cards (a 2x2 mesh); one below
+MESH_RANKS = 4
+#: every rank must be done within this
+MESH_TIMEOUT_S = 600
+#: where the ranks run (NCCL on the cards)
+MESH_DEVICE = "cuda"
+
+
+def fingerprint(tree) -> str:
+    """sha256 of {path: [int64 sum of the bit patterns of each layer
+    slice]} of a tree (a DTensor leaf's local block): equal fingerprints
+    are equal bits, short of a cancellation."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.models.common import tree_items
+    from repro_torch.sharding import placed
+    out = {}
+    for path, t in tree_items(tree):
+        t = t.to_local() if placed(t) else t
+        bits = t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+        out[path] = [int(torch.sum(x, dtype=torch.int64))
+                     for x in (bits if bits.dim() >= 3 else [bits])]
+    return hashlib.sha256(json.dumps(out, sort_keys=True).encode()) \
+        .hexdigest()
+
+
+def mesh_batch(cfg, i):
+    """Step ``i``'s global batch, the same on every rank."""
+    import torch
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(1000 + i)
+    return {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH,
+                                                   TRAIN_SEQ + 1),
+                                    generator=g, device=MESH_DEVICE)}
+
+
+def mesh_train(cfg, mesh, steps, root):
+    """``launch.train.train`` on ``mesh`` in sync debug mode: its result
+    and this rank's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, syncs = train_host_syncs(lambda: train(
+        cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+        ckpt_dir=str(root), device=MESH_DEVICE, mesh=mesh))
+    torch.cuda.synchronize()
+    ms = res["timings"]["step_ms"]
+    p50 = float(np.median(ms[1:] if len(ms) > 1 else ms))
+    return res, {
+        "layers": cfg.n_layers, "losses": [h["loss"] for h in res["history"]],
+        "grad_norms": [h["grad_norm"] for h in res["history"]],
+        "step_ms": ms, "step_p50_ms": p50,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "host_syncs_per_step": syncs / steps,
+        "init_s": res["timings"]["init_s"]}
+
+
+def mesh_collectives(cfg, res):
+    """One more step of ``train``'s result under the collective counter:
+    calls and bytes by kind and by mesh dim, and its wall."""
+    import torch
+
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import make_train_step
+    mesh = res["mesh"]
+    with use_mesh(mesh):
+        step = make_train_step(cfg, lr=TRAIN_LR,
+                               params_pspecs=api.pspecs(cfg, mesh))
+        counter = CollectiveCounter(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counter:
+            step(res["params"], res["opt_state"], mesh_batch(cfg, 99))
+        torch.cuda.synchronize()
+    return {"calls": counter.calls, "bytes": counter.coll_bytes,
+            "by_dim": counter.by_dim,
+            "counted_step_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def mesh_replay(mesh, root):
+    """Full width, MESH_REPLAY_LAYERS layers on ``mesh``: the TrainLoop
+    uninterrupted, then with a crash at MESH_REPLAY_CRASH (checkpoints
+    every MESH_REPLAY_EVERY steps, async writer); fingerprints, losses,
+    and the uninterrupted run's next loss (for the restore onto 1x4)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import FailureInjector, TrainLoop
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import make_train_step
+    cfg = get_config("granite-3-8b").replace(n_layers=MESH_REPLAY_LAYERS)
+    out = {}
+    with use_mesh(mesh):
+        for name, crash in (("uninterrupted", None),
+                            ("crashed", MESH_REPLAY_CRASH)):
+            params = api.init(cfg, 0, MESH_DEVICE, mesh=mesh)
+            step = make_train_step(cfg, lr=TRAIN_LR,
+                                   params_pspecs=api.pspecs(cfg, mesh))
+            loop = TrainLoop(
+                step_fn=step, data_fn=lambda i: mesh_batch(cfg, i),
+                ckpt=CheckpointManager(str(root / name), keep=1),
+                ckpt_every=MESH_REPLAY_EVERY if crash else 10 ** 9,
+                injector=FailureInjector([crash]) if crash else None)
+            t0 = time.perf_counter()
+            p, s, hist = loop.run(params, step.init_state(params),
+                                  MESH_REPLAY_STEPS)
+            loop.ckpt.async_ckpt.close()
+            out[name] = {"fingerprint": fingerprint({"params": p, "opt": s}),
+                         "losses": [h["loss"] for h in hist],
+                         "steps": [h["step"] for h in hist],
+                         "wall_s": time.perf_counter() - t0}
+            if crash is None:
+                _, _, m = step(p, s, mesh_batch(cfg, MESH_REPLAY_STEPS))
+                out["next_loss"] = float(m["loss"])
+            del p, s, params
+    return cfg, out
+
+
+def mesh_elastic(cfg, src, want_loss):
+    """The replay's last checkpoint (written on 2x2) restored onto a 1x4
+    mesh of the same ranks, then one step."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding import NamedSharding, use_mesh
+    from repro_torch.train import make_train_step, opt_state_pspecs
+    mesh = make_device_mesh(1, 4, MESH_DEVICE)
+    named = lambda specs: tree_map(lambda x: NamedSharding(mesh, x), specs)
+    with use_mesh(mesh):
+        ps = api.pspecs(cfg, mesh)
+        t0 = time.perf_counter()
+        # restore() waits for rank 0's writer to finish, on every rank
+        tree, manifest = CheckpointManager(str(src), use_async=False) \
+            .restore(shardings={"params": named(ps),
+                                "opt": named(opt_state_pspecs(cfg, ps))})
+        load_s = time.perf_counter() - t0
+        step = make_train_step(cfg, lr=TRAIN_LR, params_pspecs=ps)
+        _, _, m = step(tree["params"], tree["opt"],
+                       mesh_batch(cfg, manifest["step"]))
+        torch.cuda.synchronize()
+    loss = float(m["loss"])
+    return {"restored_step": manifest["step"], "load_s": load_s,
+            "loss": loss, "want_loss": want_loss,
+            "loss_diff": abs(loss - want_loss)}
+
+
+def mesh_rank(plan, root, device):
+    """One rank of phase 16 (its group joined by ``launch.train.spawn``):
+    runs ``plan``'s cases; rank 0 returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_device_mesh
+    full = get_config("granite-3-8b")
+    root, rank = Path(root), dist.get_rank()
+    out = {"rank": rank, "smi": smi_line(rank)}
+    if "one_card" in plan:
+        res, out["one_card"] = mesh_train(full.replace(
+            n_layers=TRAIN_LAYERS), "1x1", MESH_STEPS, root / "c1")
+        out["one_card"]["fingerprint"] = fingerprint(
+            {"params": res["params"], "opt": res["opt_state"]})
+        del res
+    if "loss16" in plan:
+        res, out["loss16"] = mesh_train(full.replace(n_layers=TRAIN_LAYERS),
+                                        "2x2", 1, root / "c16")
+        del res
+    if "full40" in plan:
+        torch.cuda.empty_cache()
+        res, out["full40"] = mesh_train(full, "2x2", MESH_STEPS,
+                                        root / "c40")
+        out["full40"]["collectives"] = mesh_collectives(full, res)
+        del res
+    if "replay" in plan:
+        torch.cuda.empty_cache()
+        cfg, out["replay"] = mesh_replay(make_device_mesh(2, 2, device),
+                                         root / "replay")
+        out["elastic"] = mesh_elastic(cfg, root / "replay" / "crashed",
+                                      out["replay"]["next_loss"])
+    out["launches"] = sum(LAUNCHES.values())
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, out)
+    return got
+
+
+def run_mesh_ranks(world, plan):
+    """``world`` phase-16 ranks, one per card (``launch.train.spawn``):
+    every rank's numbers, or the phase failed (a rank's non-zero exit or
+    the timeout)."""
+    import shutil
+
+    from repro_torch.launch.train import spawn
+    root = ROOT / "build" / "smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        return spawn(world, mesh_rank, timeout=MESH_TIMEOUT_S, plan=plan,
+                     root=str(root), device=MESH_DEVICE)
+    except RuntimeError as e:
+        check(False, f"phase 16: {plan}: {e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_mesh(smi, reference):
+    """Phase 16.  ``reference``: phase 14's (or, alone, a one-device
+    step's) ``losses``, ``grad_norms`` and ``fingerprint`` at 16 layers."""
+    import torch
+    cards = torch.cuda.device_count()
+    world = MESH_RANKS if cards >= MESH_RANKS else 1
+    plan = ("loss16", "full40", "replay") if world > 1 else ("one_card",)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] {cards} card(s) visible: {world} NCCL rank(s), one per "
+        f"card, running {plan}; this process holds "
+        f"{torch.cuda.memory_allocated()} B on cuda:0")
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(world, plan)
+    wall = time.perf_counter() - t0
+    out = {"world": world, "wall_s": wall, "ranks": []}
+    log(f"  world size {world}; ranks done in {wall:.1f} s")
+    for r in ranks:
+        log(f"  rank {r['rank']}: {r['smi']}")
+        check(r["launches"] == 0, f"phase 16: rank {r['rank']} launched "
+              f"{r['launches']} port kernels")
+    if world == 1:
+        got = ranks[0]["one_card"]
+        same = got["fingerprint"] == reference["fingerprint"]
+        losses = got["losses"] == reference["losses"]
+        norms = got["grad_norms"] == reference["grad_norms"]
+        log(f"  [{smi}] 1x1 mesh, granite-3-8b full width, {TRAIN_LAYERS} "
+            f"layers, {MESH_STEPS} steps: losses "
+            f"{[round(x, 6) for x in got['losses']]}; equal to phase 14's "
+            f"bit for bit: losses {losses}, grad norms {norms}, parameters "
+            f"and optimizer state after step {MESH_STEPS} {same}")
+        log(f"  [{smi}] 1x1 step: first {got['step_ms'][0]:.1f} ms, p50 "
+            f"{got['step_p50_ms']:.1f} ms, {got['tokens_per_s']:.1f} tokens/s,"
+            f" peak {got['peak_bytes']} B, host syncs per step "
+            f"{got['host_syncs_per_step']:.2f}, init {got['init_s']:.1f} s")
+        check(same and losses and norms, "phase 16: the 1x1 mesh is not "
+              "phase 14's one-device training bit for bit")
+        got.pop("fingerprint")
+        out["one_card"] = got
+        return out
+    l16 = [r["loss16"]["losses"][0] for r in ranks]
+    diff = abs(l16[0] - reference["losses"][0])
+    log(f"  2x2 mesh, {TRAIN_LAYERS} layers, step 0: loss {l16[0]:.6f} vs "
+        f"one device {reference['losses'][0]:.6f}, |diff| {diff:.3g} "
+        f"(< {MESH_LOSS_TOL}); every rank's loss equal: "
+        f"{len(set(l16)) == 1}")
+    check(diff < MESH_LOSS_TOL and len(set(l16)) == 1,
+          f"phase 16: the 2x2 step-0 loss {l16} is not one device's "
+          f"{reference['losses'][0]}")
+    for r in ranks:
+        f40 = r["full40"]
+        c = f40["collectives"]
+        log(f"  rank {r['rank']} [{r['smi']}] 2x2, 40 layers, "
+            f"{MESH_STEPS} steps: p50 {f40['step_p50_ms']:.1f} ms (first "
+            f"{f40['step_ms'][0]:.1f}), {f40['tokens_per_s']:.1f} tokens/s "
+            f"(the global batch), peak {f40['peak_bytes']} B, host syncs per "
+            f"step {f40['host_syncs_per_step']:.2f}, init {f40['init_s']:.1f}"
+            f" s; losses {[round(x, 4) for x in f40['losses']]}")
+        log(f"  rank {r['rank']} collectives of one step: calls "
+            f"{c['calls']}, bytes {c['bytes']}, by mesh dim {c['by_dim']} "
+            f"(the counted step {c['counted_step_ms']:.1f} ms)")
+        out["ranks"].append({k: r[k] for k in ("rank", "smi", "full40")})
+    rep, el = ranks[0]["replay"], ranks[0]["elastic"]
+    same = all(r["replay"]["uninterrupted"]["fingerprint"]
+               == r["replay"]["crashed"]["fingerprint"] for r in ranks)
+    # the crashed run's history holds the steps before the crash and the
+    # replayed ones: each step's last loss
+    losses = rep["uninterrupted"]["losses"] == list(dict(zip(
+        rep["crashed"]["steps"], rep["crashed"]["losses"])).values())
+    log(f"  2x2, full width, {MESH_REPLAY_LAYERS} layer(s): a crash at step "
+        f"{MESH_REPLAY_CRASH} (checkpoints every {MESH_REPLAY_EVERY}) "
+        f"replays steps {rep['crashed']['steps']}; every rank's blocks "
+        f"bit-equal to the uninterrupted run's: {same}; losses equal: "
+        f"{losses} ({rep['crashed']['wall_s']:.1f} s against "
+        f"{rep['uninterrupted']['wall_s']:.1f} s)")
+    check(same and losses, "phase 16: the replay on 2x2 is not bit-exact")
+    log(f"  the 2x2 checkpoint of step {el['restored_step']} restored onto "
+        f"1x4 in {el['load_s']:.1f} s, one step there: loss "
+        f"{el['loss']:.6f} vs the 2x2 run's {el['want_loss']:.6f} "
+        f"(|diff| {el['loss_diff']:.3g} < {MESH_LOSS_TOL})")
+    check(el["loss_diff"] < MESH_LOSS_TOL, "phase 16: the step after the "
+          "restore onto 1x4 is not the 2x2 run's")
+    for r in ranks:
+        r["replay"]["uninterrupted"].pop("fingerprint")
+        r["replay"]["crashed"].pop("fingerprint")
+    out.update(loss16=l16, replay=rep, elastic=el)
+    return out
+
+
+def one_device_reference(dev, smi):
+    """Alone (``--mesh-only``): phase 14's cell for one step on one card,
+    the 2x2 step-0 loss's reference."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    cfg = get_config("granite-3-8b").replace(n_layers=TRAIN_LAYERS)
+    res = train(cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                ckpt_dir=str(ROOT / "build" / "smoke_mesh_ref"),
+                device=str(dev))
+    out = {"losses": [h["loss"] for h in res["history"]]}
+    log(f"  [{smi}] one device, {TRAIN_LAYERS} layers, step 0: loss "
+        f"{out['losses'][0]:.6f}")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def main_mesh(dev) -> int:
+    """``--mesh-only``: phase 16 alone, for a host with four cards."""
+    import torch
+    smi = smi_line()
+    log(smi)
+    log("phase 16 alone: LM training across a (data x model) mesh")
+    ranks_out = phase_mesh(smi, one_device_reference(dev, smi))
+    log(f"  phase 16 summary ({smi}): " + json.dumps(ranks_out, default=str))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def smi_line(index=None) -> str:
+    """``nvidia-smi``'s name and power limit of the first card (or of card
+    ``index``)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
+                          "--format=csv,noheader"]
+                         + ([] if index is None else ["-i", str(index)]),
+                         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         "nvidia-smi: no output"
 
@@ -4919,8 +5299,9 @@ def main(argv) -> int:
         src = Path(argv[1]).resolve()
     elif len(argv) == 3 and argv[0] == "--child":
         pass
-    elif argv:
-        print("usage: chip_smoke.py [--compare SRC]", file=sys.stderr)
+    elif argv != ["--mesh-only"] and argv:
+        print("usage: chip_smoke.py [--compare SRC | --mesh-only]",
+              file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py needs the repository beside it "
@@ -4930,6 +5311,8 @@ def main(argv) -> int:
     import numpy as np
     if argv and argv[0] == "--child":
         return main_child(argv[1], json.loads(argv[2]))
+    if argv == ["--mesh-only"]:
+        return main_mesh(torch.device("cuda", torch.cuda.current_device()))
     if argv:
         return main_compare(src)
     from repro_torch.kernels import (LAUNCHES, LAUNCHES_BY_Q, _build,
@@ -5274,6 +5657,16 @@ def main(argv) -> int:
     log(f"  phase 15 summary ({smi}): " + json.dumps(dry_out, default=str))
     del dry_out
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 16: LM training across a (data x model) mesh, python -m "
+        "repro_torch.launch.train --arch granite-3-8b --mesh DxM; " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    mesh_out = phase_mesh(smi, train_measured)
+    end_path("lm_mesh")
+    log(f"  phase 16 summary ({smi}): " + json.dumps(mesh_out, default=str))
+    del mesh_out
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..columnar.device import torch_device
+from ..sharding import NamedSharding, distribute, placed
 
 _SEP = "/"
 
@@ -78,14 +79,42 @@ def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of an initialised
+    process group, or a process without one."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+def _gathered(x):
+    """A placed leaf whole on the host, gathered one layer slice at a time
+    (every rank joins each gather; only the writer keeps the result), or
+    the leaf as it is."""
+    if not placed(x):
+        return x
+    keep = _writer()
+    out = torch.empty(x.shape, dtype=x.dtype) if keep else None
+    for i in (range(x.shape[0]) if x.dim() >= 3 else [None]):
+        part = (x if i is None else x[i]).full_tensor()
+        if keep:
+            (out if i is None else out[i]).copy_(part)
+    return out
+
+
 def save_pytree(tree, directory: str, step: int, extra: Optional[dict] = None):
-    """Atomic save: write to <dir>/.tmp-<step>, rename to <dir>/step_<step>."""
+    """Atomic save: write to <dir>/.tmp-<step>, rename to <dir>/step_<step>.
+    Placed leaves are gathered whole (a collective every rank joins); only
+    the writer (:func:`_writer`) writes."""
+    flat = {k: _gathered(v) for k, v in _flatten(tree).items()}
+    final = os.path.join(directory, f"step_{step:08d}")
+    if not _writer():
+        return final
     encoded, dtypes = {}, {}
-    for k, v in _flatten(tree).items():
+    for k, v in flat.items():
         encoded[k], dtypes[k] = _encode(v)
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp-{step}-{os.getpid()}")
-    final = os.path.join(directory, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -113,11 +142,27 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _place(t, sharding):
+    """``t`` placed as ``sharding`` says: a ``NamedSharding``, or a live
+    leaf to place it like (a DTensor's mesh and placements, a plain
+    tensor's device)."""
+    if placed(sharding) or isinstance(sharding, NamedSharding):
+        return distribute(t, sharding)
+    if isinstance(sharding, torch.Tensor):
+        return t.to(sharding.device)
+    return t
+
+
 def load_pytree(directory: str, step: Optional[int] = None,
-                device: Optional[str] = None):
+                device: Optional[str] = None, shardings=None):
     """Load a checkpoint as a tree of tensors, on the CPU or on
     ``device``, and its manifest.  Leaves are stored whole, so a tree
-    saved from any device (or by the reference package) loads anywhere."""
+    saved from any device (or by the reference package) loads anywhere.
+    ``shardings``: a tree of the saved structure whose leaves say where
+    each leaf goes, the reference's elastic restore onto any mesh: a
+    ``NamedSharding`` (``sharding.distribute``), or the live leaf it
+    replaces (placed as that DTensor is, or moved to that tensor's
+    device); each rank keeps only its own blocks."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -126,17 +171,23 @@ def load_pytree(directory: str, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dev = torch_device(device) if device is not None else None
+    where = _flatten(shardings) if shardings is not None else {}
     with np.load(os.path.join(path, "state.npz")) as data:
         flat = {}
         for k in data.files:
             t = _decode(data[k], manifest["keys"][k]["dtype"])
+            if k in where:
+                t = _place(t, where[k])
             flat[k] = t.to(dev) if dev is not None else t
     return _unflatten(flat), manifest
 
 
 def _host_copy(x):
     """A host copy of a leaf that later in-place updates cannot reach
-    (``Tensor.cpu()`` of a CPU tensor is the tensor itself)."""
+    (``Tensor.cpu()`` of a CPU tensor is the tensor itself); a placed leaf
+    gathered whole (:func:`_gathered`, None off the writer)."""
+    if placed(x):
+        return _gathered(x)
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x, copy=True)
@@ -167,10 +218,12 @@ class AsyncCheckpointer:
     def save(self, tree, directory: str, step: int,
              extra: Optional[dict] = None):
         # copy to the host now, so the step loop can update its tensors
-        # in place while the writer runs
+        # in place while the writer runs; placed leaves are gathered here,
+        # on the caller's thread, by every rank
         host = _unflatten({k: _host_copy(v)
                            for k, v in _flatten(tree).items()})
-        self._q.put((host, directory, step, extra))
+        if _writer():
+            self._q.put((host, directory, step, extra))
 
     def wait(self):
         self._q.join()
@@ -200,17 +253,22 @@ class CheckpointManager:
         self._gc()
 
     def restore(self, step: Optional[int] = None,
-                device: Optional[str] = None):
+                device: Optional[str] = None, shardings=None):
+        """The latest (or ``step``'s) checkpoint, once the writer is done;
+        in a process group every rank waits for rank 0's writes."""
+        import torch.distributed as dist
         if self.async_ckpt:
             self.async_ckpt.wait()
-        return load_pytree(self.directory, step, device)
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()
+        return load_pytree(self.directory, step, device, shardings)
 
     def wait(self):
         if self.async_ckpt:
             self.async_ckpt.wait()
 
     def _gc(self):
-        if not os.path.isdir(self.directory):
+        if not _writer() or not os.path.isdir(self.directory):
             return
         steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)
                        if d.startswith("step_"))

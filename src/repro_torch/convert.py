@@ -49,15 +49,19 @@ def tensor_from_array(arr: np.ndarray, device="cpu") -> torch.Tensor:
     return t.to(torch_device(str(device)))
 
 
-def lm_params_from_arrays(cfg, tree, device="cuda"):
+def lm_params_from_arrays(cfg, tree, device="cuda", mesh=None):
     """The port's parameter tree for ``cfg`` from the reference's
     parameters ``tree`` (nested dicts of numpy arrays, the reference's
     schema layout).  Each leaf must have the port schema's shape and
-    dtype; a missing, extra or mismatched leaf raises ``ValueError``."""
+    dtype; a missing, extra or mismatched leaf raises ``ValueError``.
+    With a ``mesh`` that carries a ``device_mesh`` each leaf is placed by
+    its partition (``api.pspecs``), each rank keeping its own blocks."""
     from .models import api
     from .models.common import tree_items
     want = {p: (d.shape, d.dtype) for p, d in tree_items(api.schema(cfg))}
-    return _tree_from_arrays(cfg, want, tree, device)
+    specs = None if mesh is None else dict(tree_items(api.pspecs(cfg,
+                                                                  mesh)))
+    return _tree_from_arrays(cfg, want, tree, device, specs, mesh)
 
 
 def opt_state_from_arrays(cfg, tree, device="cuda"):
@@ -85,10 +89,12 @@ def opt_state_from_arrays(cfg, tree, device="cuda"):
     return _tree_from_arrays(cfg, want, tree, device)
 
 
-def _tree_from_arrays(cfg, want, tree, device):
+def _tree_from_arrays(cfg, want, tree, device, specs=None, mesh=None):
     """Nested dicts of tensors on ``device`` from ``tree``'s leaves, each
-    of the (shape, dtype) ``want`` gives its dotted path."""
+    of the (shape, dtype) ``want`` gives its dotted path; with ``mesh``,
+    each placed by its ``specs`` entry from a host copy."""
     from .models.common import tree_from_items, tree_items
+    from .sharding import NamedSharding, distribute
     got = dict(tree_items(tree))
     if set(want) != set(got):
         raise ValueError(f"{cfg.name}: missing leaves "
@@ -96,10 +102,13 @@ def _tree_from_arrays(cfg, want, tree, device):
                          f"{sorted(set(got) - set(want))}")
     out = []
     for path, (shape, dtype) in want.items():
-        t = tensor_from_array(np.asarray(got[path]), device)
+        t = tensor_from_array(np.asarray(got[path]),
+                              device if mesh is None else "cpu")
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{cfg.name}: {path} is {t.dtype}"
                              f"{tuple(t.shape)}, the schema wants "
                              f"{dtype}{tuple(shape)}")
+        if mesh is not None:
+            t = distribute(t, NamedSharding(mesh, specs[path]))
         out.append((path, t))
     return tree_from_items(out)

@@ -1,9 +1,12 @@
-"""Device meshes: the LM side's production and host meshes, and the 1-D
-mesh of block-sharded table execution.
+"""Device meshes: the LM side's production, host and device meshes, and
+the 1-D mesh of block-sharded table execution.
 
 Functions, not module-level constants, so importing this module never
-touches CUDA state.  The port drives every device of a mesh from one
-process (single-controller, as the reference's JAX mesh is).
+touches CUDA state.  Block-sharded table execution drives every device
+of its mesh from one process (single-controller, as the reference's JAX
+mesh is); LM training across devices runs one process per device
+(:func:`init_distributed`, :func:`make_device_mesh`), as the reference's
+launcher runs one per host.
 
 - :func:`make_production_mesh` / :func:`make_host_mesh` give an n-D
   :class:`Mesh` of named axes, what the logical-axis rules
@@ -13,12 +16,18 @@ process (single-controller, as the reference's JAX mesh is).
   traffic.  The production mesh is made of ``meta`` placeholders, as the
   reference's dry-run compiles on host placeholder devices: the port
   places nothing on it, the dry-run (:mod:`.dryrun`) reads its shape.
+- :func:`make_device_mesh` gives a (data, model) :class:`Mesh` that
+  carries the ``torch.distributed`` ``DeviceMesh`` of this process's
+  group (after :func:`init_distributed`): under it
+  (:func:`repro_torch.sharding.use_mesh`) parameters, optimizer state,
+  batches and activations are DTensors placed by their partitions.
 - A :class:`ShardMesh` is the 1-D list of devices the shards of a
   :class:`~repro_torch.columnar.shard.ShardedTapeBackend` live on.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence, Tuple, Union
+import os
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,10 +37,12 @@ class Mesh:
     """An n-D mesh of named axes: ``axis_names``, ``shape`` (axis name ->
     size, in axis order) and ``devices``, a numpy object array of
     ``torch.device`` in the mesh's shape (``devices.size`` is the device
-    count), as the reference's ``jax.sharding.Mesh`` has them."""
+    count), as the reference's ``jax.sharding.Mesh`` has them.
+    ``device_mesh``: the ``DeviceMesh`` that places data on it, or None
+    (a mesh only resolved against)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], device_mesh=None):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} vs axes "
                              f"{tuple(axis_names)}")
@@ -39,6 +50,7 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
         self.devices = np.empty(tuple(shape), dtype=object)
         self.devices.fill(torch.device(device))
+        self.device_mesh = device_mesh
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, "
@@ -56,6 +68,68 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
     if pod:
         return Mesh((pod, data, model), ("pod", "data", "model"), "cpu")
     return Mesh((data, model), ("data", "model"), "cpu")
+
+
+def init_distributed(device: str = "cuda",
+                     init_method: Optional[str] = None) -> torch.device:
+    """Join this process's ``torch.distributed`` group as ``RANK`` of
+    ``WORLD_SIZE`` (``torchrun``'s variables; ``LOCAL_RANK`` picks the
+    card) and return the device it runs on: NCCL on ``cuda:LOCAL_RANK``,
+    gloo on the CPU (``device="cpu"``).  ``init_method`` defaults to
+    ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``); tests pass a
+    ``file://`` rendezvous.  Raises when this host has fewer cards than
+    its ranks; a group already joined is kept."""
+    import torch.distributed as dist
+
+    def env(name, default=None):
+        value = os.environ.get(name, default)
+        if value is None:
+            raise RuntimeError(f"{name} is not set: run each rank under "
+                               "torchrun, or launch.train --mesh")
+        return int(value)
+
+    rank, world = env("RANK"), env("WORLD_SIZE")
+    local = env("LOCAL_RANK", rank)
+    kind = torch.device(device).type
+    if kind == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        local_world = env("LOCAL_WORLD_SIZE", world)
+        if max(local + 1, local_world) > cards:
+            raise RuntimeError(
+                f"{local_world} rank(s) on this host but {cards} CUDA "
+                "device(s) visible: one rank per card (NCCL cannot put two "
+                "ranks on one card); pass device='cpu' for gloo ranks")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    elif kind == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        raise ValueError(f"device {device!r}: ranks run on 'cuda' or 'cpu'")
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world)
+    return dev
+
+
+def make_device_mesh(data: int = 1, model: int = 1,
+                     device: str = "cuda") -> Mesh:
+    """A (data, model) :class:`Mesh` over this process's initialised group
+    (:func:`init_distributed`), carrying its ``DeviceMesh`` (dims named
+    ``"data"`` and ``"model"``, ranks in row-major order).  Raises unless
+    ``data * model`` is the group's world size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_distributed first")
+    world = dist.get_world_size()
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} has {data * model} devices "
+                         f"but the process group has {world} ranks")
+    kind = torch.device(device).type
+    dm = init_device_mesh(kind, (data, model),
+                          mesh_dim_names=("data", "model"))
+    return Mesh((data, model), ("data", "model"), kind, device_mesh=dm)
 
 
 class ShardMesh:

@@ -22,8 +22,12 @@ Methodology:
   results written, what the eager (unfused) port moves.  ``peak_bytes`` is
   the peak of the storages the step creates that are alive at once, each
   storage counted once across its views.
-* The port runs each LM step on one device (``sharding.shard`` is the
-  identity), so a step has no collective: ``coll`` is ``{"total": 0.0}``.
+* Collectives are counted where they are called: :class:`CollectiveCounter`
+  sees every ``_c10d_functional`` op DTensor's redistributions issue on a
+  real mesh (calls and bytes by kind and by mesh dim; ``CommDebugMode``
+  counts only calls), and ``coll`` holds its bytes by kind.  A step traced
+  on ``meta`` runs on one device, so its ``coll`` is ``{"total": 0.0}``
+  (the dry-run records ``"collectives": "one device"``).
   :func:`collective_bytes` (the reference's HLO-text parser) is kept for
   parity and for reading the reference's HLO.
 * The port's layers are a Python loop, so a full-depth trace counts every
@@ -129,10 +133,22 @@ def _nbytes(t: torch.Tensor) -> int:
     return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
 
 
+def _dtensor_type():
+    """DTensor's class once ``torch.distributed.tensor`` is imported (no
+    DTensor exists before), else None."""
+    import sys
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                   None)
+
+
 def _tensors(tree, out=None) -> List[torch.Tensor]:
-    """The tensors in nested lists, tuples and dicts."""
+    """The tensors in nested lists, tuples and dicts (a DTensor's local
+    block)."""
     out = [] if out is None else out
-    if isinstance(tree, torch.Tensor):
+    dt = _dtensor_type()
+    if dt is not None and isinstance(tree, dt):
+        out.append(tree.to_local())
+    elif isinstance(tree, torch.Tensor):
         out.append(tree)
     elif isinstance(tree, (list, tuple)):
         for x in tree:
@@ -143,9 +159,88 @@ def _tensors(tree, out=None) -> List[torch.Tensor]:
     return out
 
 
-class _StepCounter(TorchDispatchMode):
+#: the functional collectives DTensor issues, by the reference's HLO names
+_COLL_KINDS = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_to_all_single": "all-to-all"}
+
+
+def _ranks(group) -> Tuple[int, ...]:
+    import torch.distributed as dist
+    return tuple(sorted(dist.get_process_group_ranks(group)))
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Calls and bytes of the collectives run under it: every
+    ``_c10d_functional`` op, by kind (the reference's names) and by the
+    mesh dim whose group it runs on (``mesh``: a ``Mesh`` with a
+    ``device_mesh``, or a ``DeviceMesh``: a group is that dim's when it
+    holds the same ranks, as DTensor may run a dim's collectives on the
+    groups of an equal mesh made earlier; other groups by name).  Bytes as
+    the reference's :func:`collective_bytes` counts them: each result's
+    bytes, twice for an all-reduce (a ring's reduce-scatter and
+    all-gather).  An op on DTensors is let through (``NotImplemented``) so
+    that DTensor runs it and its local ops and collectives come back here.
+    """
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.calls: Dict[str, int] = {}
+        self.coll_bytes: Dict[str, float] = {}
+        self.by_dim: Dict[str, Dict[str, float]] = {}
+        dm = getattr(mesh, "device_mesh", mesh)
+        self._dims: Dict[str, str] = {}
+        self._by_ranks = {} if dm is None else {
+            _ranks(dm.get_group(i)): name
+            for i, name in enumerate(dm.mesh_dim_names)}
+        self._dtensor = _dtensor_type()
+
+    def _dim(self, group: str) -> str:
+        if group not in self._dims:
+            from torch.distributed import distributed_c10d as c10d
+            try:
+                ranks = _ranks(c10d._resolve_process_group(group))
+            except (AttributeError, ValueError, RuntimeError):
+                ranks = None
+            self._dims[group] = self._by_ranks.get(ranks, group)
+        return self._dims[group]
+
+    def _defer(self, types) -> bool:
+        return self._dtensor is not None and any(
+            issubclass(t, self._dtensor) for t in types)
+
+    def _count(self, func, args, out) -> None:
+        if func.namespace != "_c10d_functional":
+            return
+        kind = _COLL_KINDS.get(func._schema.name.split("::")[-1])
+        if kind is None:
+            return
+        n = sum(map(_nbytes, _tensors(out))) * (2 if kind == "all-reduce"
+                                                 else 1)
+        dim = self._dim(next((a for a in reversed(args)
+                              if isinstance(a, str)), ""))
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0.0) + n
+        per = self.by_dim.setdefault(dim, {})
+        per[kind] = per.get(kind, 0.0) + n
+
+    def coll(self) -> Dict[str, float]:
+        """Bytes by kind and their ``"total"`` (``Measurement.coll``)."""
+        return dict(self.coll_bytes,
+                    total=float(sum(self.coll_bytes.values())))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._defer(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        self._count(func, args, out)
+        return out
+
+
+class _StepCounter(CollectiveCounter):
     """FLOPs, bytes moved and the peak of live created storage of every
-    aten op run under it.
+    aten op run under it, and its collectives (:class:`CollectiveCounter`).
 
     A storage is held by weak reference (``StorageWeakRef``, which keeps
     its address from reuse) with the count of its op results still alive
@@ -155,8 +250,8 @@ class _StepCounter(TorchDispatchMode):
     that expired.  A sweep runs whenever the bound passes the peak, so the
     peak is exact."""
 
-    def __init__(self, args):
-        super().__init__()
+    def __init__(self, args, mesh=None):
+        super().__init__(mesh)
         self.flops = 0
         self.bytes = 0
         self.peak = 0
@@ -199,8 +294,11 @@ class _StepCounter(TorchDispatchMode):
         weakref.finalize(t, self._dropped, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._defer(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self._count(func, args, out)
         packet = func.overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
@@ -214,17 +312,19 @@ class _StepCounter(TorchDispatchMode):
         return out
 
 
-def trace_step(fn, *args):
+def trace_step(fn, *args, mesh=None):
     """``fn(*args)`` once under the counter: ``(its output, Measurement)``.
-    On ``meta`` arguments nothing is allocated and no data is read."""
-    counter = _StepCounter(args)
+    On ``meta`` arguments nothing is allocated and no data is read; on a
+    real ``mesh`` the counts are this rank's (its local ops) and ``coll``
+    holds the collectives' bytes by kind."""
+    counter = _StepCounter(args, mesh)
     with counter:
         out = fn(*args)
     return out, Measurement(float(counter.flops), float(counter.bytes),
-                            {"total": 0.0}, float(counter.peak))
+                            counter.coll(), float(counter.peak))
 
 
-def measure_step(fn, *args) -> Measurement:
+def measure_step(fn, *args, mesh=None) -> Measurement:
     """The port's counterpart of the reference's ``measure_compiled``: one
     call of ``fn(*args)`` (``meta`` arguments: no allocation) counted op by
     op.  ``flops``: matrix products and attention only; elementwise work is
@@ -232,8 +332,10 @@ def measure_step(fn, *args) -> Measurement:
     every op's tensor arguments read and results written (an in-place
     op's destination both; views and allocations move nothing).
     ``peak_bytes``: the peak of storage the step creates that is alive at
-    once.  ``coll``: ``{"total": 0.0}``, the step runs on one device."""
-    return trace_step(fn, *args)[1]
+    once.  ``coll``: the collectives' bytes by kind and their total
+    (``{"total": 0.0}`` on one device); ``mesh`` names their mesh dims
+    (:class:`CollectiveCounter`)."""
+    return trace_step(fn, *args, mesh=mesh)[1]
 
 
 # ---------------------------------------------------------------------------

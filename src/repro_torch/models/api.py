@@ -33,8 +33,38 @@ def schema(cfg: LMConfig):
     return lm.lm_schema(cfg)
 
 
-def init(cfg: LMConfig, seed: int = 0, device: str = "cuda"):
-    return init_params(schema(cfg), seed, device)
+def init(cfg: LMConfig, seed: int = 0, device: str = "cuda", mesh=None):
+    """Seeded parameters on ``device``; with a ``mesh`` that carries a
+    ``device_mesh``, DTensors placed by :func:`pspecs` (the same values,
+    each rank holding its blocks: ``common.init_params``)."""
+    check_mesh(cfg, mesh)
+    return init_params(schema(cfg), seed, device, mesh)
+
+
+#: the families that train on a mesh of more than one device, and the
+#: ROADMAP item that brings each other one
+MESH_FAMILIES = ("dense",)
+_MESH_TODO = {"moe": "the expert-parallel MoE path (B2.11)",
+              "mla_moe": "the expert-parallel MoE path (B2.11)"}
+
+
+def check_mesh(cfg: LMConfig, mesh) -> None:
+    """Raise NotImplementedError for a family this port does not yet
+    place on a mesh of more than one device."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None or dm.size() == 1:
+        return
+    if cfg.seq_parallel_proj:
+        raise NotImplementedError(
+            f"{cfg.name}: sequence-parallel projections on a mesh (DTensor "
+            "does not fold a sharded sequence into a product's rows)")
+    if cfg.family in MESH_FAMILIES:
+        return
+    todo = _MESH_TODO.get(cfg.family, "the other families on a mesh")
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family}) on a {dm.size()}-device mesh: only the "
+        f"{'/'.join(MESH_FAMILIES)} family trains on a mesh; ROADMAP "
+        f"'Next' lists {todo}")
 
 
 def abstract(cfg: LMConfig):

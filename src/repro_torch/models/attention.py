@@ -14,8 +14,9 @@ from typing import Dict, Optional
 
 import torch
 
-from .common import (ParamDef, apply_rope, blockwise_attention, promote_mm,
-                     rms_norm)
+from ..sharding import placed, shard
+from .common import (ParamDef, apply_rope, blockwise_attention, matmul,
+                     promote_mm, rms_norm)
 from .config import LMConfig
 
 
@@ -46,9 +47,17 @@ def gqa_schema(cfg: LMConfig, layers: Optional[int] = None) -> Dict:
 def _qkv(cfg: LMConfig, p, x, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q2, k2, v2 = (matmul(x, p["wq"]), matmul(x, p["wk"]),
+                  matmul(x, p["wv"]))
+    if cfg.seq_parallel_proj:
+        # projections kept sequence-parallel: the (small) weights are
+        # gathered over "model", not the activations
+        q2 = shard(q2, "batch", "act_seq", None)
+        k2 = shard(k2, "batch", "act_seq", None)
+        v2 = shard(v2, "batch", "act_seq", None)
+    q = q2.reshape(b, s, h, hd)
+    k = k2.reshape(b, s, kv, hd)
+    v = v2.reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -61,14 +70,50 @@ def _positions(x, s):
     return torch.arange(s, device=x.device)[None, :]
 
 
+def _attend(q, k, v, **kw):
+    """:func:`blockwise_attention` of q (B, S, Hq, D) over k, v (B, S,
+    Hkv, D).  Placed on a mesh (q sharded over batch and heads, as the
+    reference's sites put it), each rank attends its own batch rows and
+    heads on its local blocks: k and v take q's batch placement, and of
+    their heads only those that q's local heads read (a GQA group never
+    straddles two blocks when the head counts are powers of two).  Their
+    gradients come back ``Partial`` over the head-sharded mesh dim, where
+    every rank read the same k and v.  The attention itself moves no
+    data."""
+    if not placed(q):
+        return blockwise_attention(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dm, qp = q.device_mesh, tuple(q.placements)
+    kvp = tuple(p if p.is_shard(0) else Replicate() for p in qp)
+    grad = tuple(Partial() if p.is_shard(2) else p for p in kvp)
+    kl = k.redistribute(dm, kvp).to_local(grad_placements=grad)
+    vl = v.redistribute(dm, kvp).to_local(grad_placements=grad)
+    ql = q.to_local()
+    hq, hkv, hl = q.shape[2], k.shape[2], ql.shape[2]
+    if hl != hq:                              # heads sharded: their kv heads
+        j = next(dm.get_local_rank(i) for i, p in enumerate(qp)
+                 if p.is_shard(2))
+        group = hq // hkv
+        lo, n = j * hl // group, max(1, hl // group)
+        kl, vl = kl.narrow(2, lo, n), vl.narrow(2, lo, n)
+    o = blockwise_attention(ql, kl, vl, **kw).contiguous()
+    return DTensor.from_local(o, dm, qp, run_check=False,
+                              shape=q.shape[:3] + v.shape[3:],
+                              stride=torch.empty(q.shape[:3] + v.shape[3:],
+                                                 device="meta").stride())
+
+
 def gqa_train(cfg: LMConfig, p, x, *, window: int = 0):
     """Causal self-attention over the full sequence. x: (B, S, d)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, _positions(x, s))
-    o = blockwise_attention(q, k, v, causal=True, window=window,
-                            block_q=cfg.attn_block_q,
-                            block_kv=cfg.attn_block_kv)
-    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", None, None)
+    v = shard(v, "batch", "seq", None, None)
+    o = _attend(q, k, v, causal=True, window=window,
+                block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
+    o = shard(o, "batch", "seq", "heads", None)
+    return matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim), p["wo"])
 
 
 def gqa_cache_schema(cfg: LMConfig, batch: int, max_seq: int,
@@ -95,6 +140,8 @@ def gqa_decode(cfg: LMConfig, p, x, cache, index: int, *, window: int = 0):
     ck, cv = cache["k"], cache["v"]
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
+    ck = shard(ck, "batch", "kv_seq", None, None)
+    cv = shard(cv, "batch", "kv_seq", None, None)
     s_max = ck.shape[1]
     valid = torch.arange(s_max, device=x.device) <= (
         min(index, s_max - 1) if window else index)
@@ -172,6 +219,9 @@ def mla_train(cfg: LMConfig, p, x):
     k_nope, v = _mla_expand_kv(cfg, p, c)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, cfg.n_heads, cfg.qk_rope)], dim=-1)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "heads", None)
+    v = shard(v, "batch", "seq", "heads", None)
     o = blockwise_attention(q, k, v, causal=True,
                             block_q=cfg.attn_block_q,
                             block_kv=cfg.attn_block_kv)
@@ -207,6 +257,8 @@ def mla_decode(cfg: LMConfig, p, x, cache, index: int):
     cc, ckr = cache["c"], cache["k_rope"]
     cc[:, index] = c_new[:, 0].to(cc.dtype)
     ckr[:, index] = kr_new[:, 0].to(ckr.dtype)
+    cc = shard(cc, "batch", "kv_seq", None)
+    ckr = shard(ckr, "batch", "kv_seq", None)
     s_max = cc.shape[1]
     valid = torch.arange(s_max, device=x.device) <= index
 

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..columnar.device import torch_device
-from ..sharding import spec_for
+from ..sharding import local_part, placed, placements, spec_for
 
 
 # ---------------------------------------------------------------------------
@@ -116,26 +116,52 @@ def remat(cfg, fn):
     return run
 
 
-def init_params(schema, seed: int = 0, device: str = "cuda"):
+def init_params(schema, seed: int = 0, device: str = "cuda", mesh=None):
     """Materialize a schema into real tensors on ``device``, drawn from one
     ``torch.Generator`` seeded with ``seed`` on that device.  A stacked
     leaf fills slice by slice along its leading axis, so no f32 copy of a
     whole leaf is ever held (granite-3-8b's ``blocks.mlp.w_in`` is 16.8 GB
-    in f32)."""
+    in f32).
+
+    With a ``mesh`` that carries a ``device_mesh`` each leaf is a DTensor
+    placed by its partition (:func:`param_pspecs`): every rank draws the
+    same numbers in the same order as one device does and keeps only its
+    own block of each slice, so the values are one device's and no rank
+    ever holds a whole leaf."""
     dev = torch_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    dm = getattr(mesh, "device_mesh", None)
 
     def make(d: ParamDef):
+        if dm is None:
+            return fill(d, lambda x: x, d.shape)
+        from torch.distributed.tensor import DTensor
+        places = placements(spec_for(d.shape, d.axes, mesh), mesh)
+        # the leading (layer) axis is never sharded: a slice's placements
+        # are the leaf's one dim down
+        sub = places if len(d.shape) < 3 else tuple(
+            type(p)(p.dim - 1) if p.is_shard() else p for p in places)
+        local = local_part(torch.empty(d.shape, device="meta"), dm,
+                           places).shape
+        out = fill(d, lambda x: local_part(x, dm, sub), local)
+        return DTensor.from_local(out, dm, places, run_check=False,
+                                  shape=torch.Size(d.shape),
+                                  stride=torch.empty(d.shape, device="meta")
+                                  .stride())
+
+    def fill(d: ParamDef, keep, shape):
+        """A leaf of ``shape``: ``keep`` of each whole slice drawn."""
         if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+            return torch.zeros(shape, dtype=d.dtype, device=dev)
         if d.init == "ones":
-            return torch.ones(d.shape, dtype=d.dtype, device=dev)
-        out = torch.empty(d.shape, dtype=d.dtype, device=dev)
+            return torch.ones(shape, dtype=d.dtype, device=dev)
+        out = torch.empty(shape, dtype=d.dtype, device=dev)
         parts = out if out.dim() >= 3 else [out]
+        whole = d.shape[1:] if out.dim() >= 3 else d.shape
         for part in parts:
-            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
-                                   dtype=torch.float32) * d.scale)
+            part.copy_(keep(torch.randn(whole, generator=gen, device=dev,
+                                        dtype=torch.float32) * d.scale))
         return out
 
     return tree_map(make, schema)
@@ -155,6 +181,43 @@ def param_pspecs(schema, mesh=None, rules=None):
 
 def count_params(schema) -> int:
     return int(sum(np.prod(d.shape) for _, d in tree_items(schema)))
+
+
+def matmul(x, w):
+    """``x @ w`` for a dense projection: x (..., K), w (K, N).
+
+    Placed on a mesh, the layout is fixed here rather than left to
+    DTensor's cost model (whose choice depends on the sizes and, at full
+    width, can shard a product's rows over "model", which its view rules
+    then refuse to fold back).  On each mesh dim, in the reference's
+    GSPMD pattern: where x is batch-sharded, w is gathered over that dim
+    (FSDP) and y keeps x's rows; else where w is sharded on its output
+    dim, x is gathered and y sharded on its last dim (column-parallel);
+    else where w is sharded on its input dim, x is sharded on its last
+    dim and y is partial (row-parallel); else all three are replicated.
+    Each rank then multiplies its local blocks."""
+    if not placed(x):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm, last = x.device_mesh, x.dim() - 1
+    want_x, want_w, out, grad_x, grad_w = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px.is_shard(0):                       # FSDP: rows stay put
+            plan = (Shard(0), Replicate(), Shard(0), Shard(0), Partial())
+        elif pw.is_shard(1):                     # column-parallel
+            plan = (Replicate(), Shard(1), Shard(last), Partial(), Shard(1))
+        elif pw.is_shard(0):                     # row-parallel
+            plan = (Shard(last), Shard(0), Partial(), Shard(last), Shard(0))
+        else:
+            plan = (Replicate(),) * 5
+        for acc, p in zip((want_x, want_w, out, grad_x, grad_w), plan):
+            acc.append(p)
+    xl = x.redistribute(dm, want_x).to_local(grad_placements=grad_x)
+    wl = w.redistribute(dm, want_w).to_local(grad_placements=grad_w)
+    shape = x.shape[:-1] + w.shape[-1:]
+    return DTensor.from_local(xl @ wl, dm, out, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
 
 
 def promote_mm(a, b):
@@ -305,13 +368,19 @@ def decode_attention(q, k, v):
 def cross_entropy(logits, labels, mask=None):
     """Mean token CE in f32. logits (B, S, V); labels (B, S) int.
 
-    The gold logit is gathered (the reference takes it with an
-    iota-compare masked sum, to keep a vocab-sharded reduce; on one device
-    both give the same value).  Padded vocab columns come in at -1e30 and
-    add nothing to the log-sum-exp."""
+    On one device the gold logit is gathered.  Placed on a mesh (a
+    DTensor, vocab-sharded) it is the reference's iota-compare masked sum,
+    so the reduction stays vocab-sharded and the (B, S, V) f32 logits are
+    never gathered.  Padded vocab columns come in at -1e30 and add nothing
+    to the log-sum-exp."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if placed(logits):
+        vidx = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vidx == labels.long()[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

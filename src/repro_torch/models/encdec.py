@@ -12,6 +12,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import shard
 from . import attention as att
 from .common import (ParamDef, blockwise_attention, decode_attention, layer,
                      layer_norm, layers, remat, sinusoid_positions, stack)
@@ -42,6 +43,7 @@ def _gelu_mlp(p, x):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu((x @ p["w1"] + p["b1"]).float(),
                approximate="tanh").to(x.dtype)
+    h = shard(h, "batch", "seq", "ff")
     return h @ p["w2"] + p["b2"]
 
 
@@ -107,6 +109,7 @@ def encode(cfg: LMConfig, params, frames):
     """frames: (B, enc_seq, d) precomputed embeddings (frontend stub)."""
     x = frames.to(torch.bfloat16) + sinusoid_positions(
         frames.shape[1], cfg.d_model, frames.device).to(torch.bfloat16)[None]
+    x = shard(x, "batch", "act_seq", None)
 
     def body(lp, h):
         h = h + _mha(cfg, lp["attn"], _ln_apply(lp["ln1"], h, cfg.norm_eps))
@@ -124,6 +127,7 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
     b, s = tokens.shape
     x = params["embed"][tokens].to(torch.bfloat16)
     x = x + params["pos_dec"][:s][None]
+    x = shard(x, "batch", "act_seq", None)
 
     def body(lp, h):
         hn = _ln_apply(lp["ln1"], h, cfg.norm_eps)
@@ -147,7 +151,8 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
             caches.append(kv)
     x = _ln_apply(params["dec_ln"], x, cfg.norm_eps)
     logits = _mask_pad(cfg, x @ params["embed"].T)   # tied unembedding
-    return logits, (stack(caches) if caches else None)
+    return (shard(logits, "batch", "seq", "vocab"),
+            stack(caches) if caches else None)
 
 
 def encdec_cache_schema(cfg: LMConfig, batch: int, max_seq: int) -> Dict:
@@ -195,6 +200,8 @@ def decode_step(cfg: LMConfig, params, token, cache, index: int):
             .to(ck.dtype)
         cv[:, index] = (hn @ lp["self_attn"]["wv"]).reshape(b, h, hd) \
             .to(cv.dtype)
+        ck = shard(ck, "batch", "kv_seq", None, None)
+        cv = shard(cv, "batch", "kv_seq", None, None)
         valid = torch.arange(ck.shape[1], device=x.device) <= index
         o = att._masked_decode_attn(q, ck, cv, valid)
         x = x + o.reshape(b, 1, h * hd) @ lp["self_attn"]["wo"]

@@ -19,11 +19,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..sharding import placed, shard
 from . import attention as att
 from . import mamba2, moe, rwkv6
 from .common import (ParamDef, decode_attention, layer, layer_norm, layers,
-                     promote_mm, remat, rms_norm, stack, swiglu, tree_map)
+                     matmul, promote_mm, remat, rms_norm, stack, swiglu,
+                     tree_map)
 from .config import LMConfig
 
 
@@ -41,9 +44,14 @@ def mlp_schema(cfg: LMConfig, d_ff: int, layers: Optional[int] = None) -> Dict:
     }
 
 
-def mlp_apply(p, x):
-    gate, up = (x @ p["w_in"]).chunk(2, dim=-1)
-    return swiglu(gate, up) @ p["w_out"]
+def mlp_apply(p, x, seq_par: bool = False):
+    hidden = matmul(x, p["w_in"])
+    if seq_par:
+        hidden = shard(hidden, "batch", "act_seq", None)
+    gate, up = hidden.chunk(2, dim=-1)
+    h = shard(swiglu(gate, up), "batch", "act_seq" if seq_par else "seq",
+              None if seq_par else "ff")
+    return matmul(h, p["w_out"])
 
 
 def norm_def(cfg: LMConfig, layers: Optional[int] = None) -> ParamDef:
@@ -59,9 +67,16 @@ def norm_def(cfg: LMConfig, layers: Optional[int] = None) -> ParamDef:
 def attn_ff_block(cfg: LMConfig, p, x, *, kind: str, mode: str,
                   cache=None, index=None, window: int = 0):
     """One transformer block; kind in {dense, moe, mla_dense, mla_moe}.
-    Returns (x, aux, new_cache)."""
+    Returns (x, aux, new_cache).
+
+    Under a mesh the residual stream ``x`` is sequence-sharded between
+    blocks (``act_seq``, the reference's sites).  DTensor does not fold a
+    sharded sequence into a product's rows, forward or backward, so the
+    norms' outputs going into the projections and the sublayers' outputs
+    coming out of them hold the whole sequence (``_whole_seq``), as GSPMD
+    gathers them for the reference."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = _whole_seq(cfg, rms_norm(x, p["attn_norm"], cfg.norm_eps))
     new_cache = None
     if kind.startswith("mla"):
         if mode == "decode":
@@ -82,13 +97,21 @@ def attn_ff_block(cfg: LMConfig, p, x, *, kind: str, mode: str,
                 positions = torch.arange(h.shape[1], device=h.device)[None]
                 _, k, v = att._qkv(cfg, p["attn"], h, positions)
                 new_cache = {"k": k, "v": v}
-    x = x + a
-    h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    x = shard(x + _whole_seq(cfg, a), "batch", "act_seq", None)
+    h2 = _whole_seq(cfg, rms_norm(x, p["mlp_norm"], cfg.norm_eps))
     if kind.endswith("moe"):
         m, aux = moe.moe_apply(cfg, p["moe"], h2)
     else:
-        m = mlp_apply(p["mlp"], h2)
-    return x + m, aux, new_cache
+        m = mlp_apply(p["mlp"], h2, seq_par=cfg.seq_parallel_proj)
+    return (shard(x + _whole_seq(cfg, m), "batch", "act_seq", None), aux,
+            new_cache)
+
+
+def _whole_seq(cfg, h):
+    """``h`` with its sequence whole (a product reads or writes it as
+    rows), unless ``cfg.seq_parallel_proj`` keeps the projections
+    sequence-parallel."""
+    return h if cfg.seq_parallel_proj else shard(h, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +256,30 @@ def n_layers_of(tree) -> int:
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens].to(torch.bfloat16)
+    table = params["embed"]
+    if placed(table) and table.device_mesh.size() > 1:
+        # the table whole on each rank (its gradient comes back partial):
+        # DTensor's vocab-parallel lookup does not survive the act_seq
+        # redistribution, and an index's backward has no DTensor rule; a
+        # one-device mesh keeps the index, bit for bit
+        from torch.distributed.tensor import Replicate
+        dm = table.device_mesh
+        x = F.embedding(tokens, table.redistribute(
+            dm, (Replicate(),) * dm.ndim))
+    else:
+        x = table[tokens]
+    return shard(x.to(torch.bfloat16), "batch", "act_seq", None)
 
 
 def _logits(cfg, params, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["unembed"]
+    x = _whole_seq(cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    logits = shard(matmul(x, params["unembed"]), "batch", "seq", "vocab")
     if logits.shape[-1] != cfg.vocab:     # mask vocab padding
+        if placed(logits):
+            # vocab-sharded: the reference's iota compare, no slice of
+            # the sharded dim
+            vidx = torch.arange(logits.shape[-1], device=logits.device)
+            return torch.where(vidx < cfg.vocab, logits, -1e30)
         logits[..., cfg.vocab:] = -1e30
     return logits
 

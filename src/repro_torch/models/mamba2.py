@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import shard
 from .common import ParamDef, rms_norm
 from .config import LMConfig
 
@@ -117,10 +118,16 @@ def mamba_train(cfg: LMConfig, p, u, conv_state=None, ssm_state=None):
     """u: (B, S, d) -> (out (B, S, d), (conv_state, ssm_state))."""
     b, s, _ = u.shape
     hh, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    z, x, Bm, Cm, dt = _split_proj(cfg, u @ p["in_proj"])
+    zxbcdt = u @ p["in_proj"]
+    if cfg.seq_parallel_proj:
+        # the in-projection kept sequence-parallel (weights gathered, not
+        # activations); the recurrence needs full-sequence channel shards
+        zxbcdt = shard(zxbcdt, "batch", "act_seq", None)
+    z, x, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, Bm, Cm], dim=-1)
     xbc, conv_new = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     x, Bm, Cm = xbc.split([cfg.d_inner, n, n], dim=-1)
+    x = shard(x, "batch", "seq", "ff")
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = x.reshape(b, s, hh, pdim)

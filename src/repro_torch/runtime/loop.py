@@ -6,8 +6,10 @@
   CPU and on the card).
 * straggler watchdog: EWMA of step times; a step slower than
   ``threshold x ewma`` is flagged (surfaced in metrics and logs).
-* restore onto any device: without a ``restore_fn`` the restored tree goes
-  to the device the parameters were on (see ckpt.manager).
+* restore onto any device or mesh: without a ``restore_fn`` each restored
+  leaf is placed as the live leaf it replaces was (its device, or its
+  mesh and placements: ``ckpt.load_pytree(shardings=...)``), so a crash on
+  a mesh replays bit-exactly too.
 """
 from __future__ import annotations
 
@@ -16,10 +18,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
-import torch
-
 from ..ckpt import CheckpointManager
-from ..models.common import tree_items
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -70,13 +69,6 @@ class FailureInjector:
             raise RuntimeError(f"injected worker failure at step {step}")
 
 
-def _device_of(params) -> Optional[torch.device]:
-    for _, leaf in tree_items(params):
-        if isinstance(leaf, torch.Tensor):
-            return leaf.device
-    return None
-
-
 @dataclass
 class TrainLoop:
     """Drives (step_fn, data_fn) with checkpointing + fault tolerance.
@@ -100,12 +92,11 @@ class TrainLoop:
             restore_fn: Optional[Callable] = None):
         """Returns (params, opt_state, history).  On failure, restores the
         latest checkpoint (via restore_fn(tree) -> (params, opt_state), or
-        onto the parameters' device) and continues; gives up after
+        placed as the live tree is) and continues; gives up after
         max_restarts."""
         history: List[Dict] = []
         step = start_step
         restarts = 0
-        device = _device_of(params)
         while step < n_steps:
             try:
                 while step < n_steps:
@@ -133,8 +124,8 @@ class TrainLoop:
                     tree, manifest = self.ckpt.restore()
                     params, opt_state = restore_fn(tree)
                 else:
-                    tree, manifest = self.ckpt.restore(
-                        device=None if device is None else str(device))
+                    tree, manifest = self.ckpt.restore(shardings={
+                        "params": params, "opt": opt_state})
                     params, opt_state = tree["params"], tree["opt"]
                 step = manifest["extra"]["step"]
         self.ckpt.wait()

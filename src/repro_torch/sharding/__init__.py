@@ -1,17 +1,28 @@
-"""Logical-axis sharding rules, as the reference names them.
+"""Logical-axis sharding rules, as the reference names them, and their
+placements on a device mesh.
 
 Parameter schemas carry logical axis names (``"embed"``, ``"q_dim"``,
-``"kv_seq"``, ...); one rules table maps each to mesh axes.  The port runs
-each model on one device, so nothing here moves data: :func:`shard`
-returns its input, and :func:`spec_for` only *computes* the partition the
-reference would give an array on a mesh (its ``PartitionSpec`` entries as
-a plain tuple), for checking, for the dry-run's per-device bytes
-(:mod:`repro_torch.launch.dryrun`) and for the later multi-device slice.
+``"kv_seq"``, ...); one rules table maps each to mesh axes.
+:func:`spec_for` computes the partition the reference gives an array on
+a mesh (its ``PartitionSpec`` entries as a plain tuple) and
+:func:`placements` turns it into DTensor placements: a mesh axis named in
+dim *d*'s entry is ``Shard(d)`` on that mesh dim, every other mesh dim
+``Replicate()``.
 
 A mesh here is any object with ``axis_names`` and a ``shape`` mapping of
-axis name to size, as the reference's ``spec_for`` reads it.  Resolution is
-divisibility-aware: a mesh axis is dropped from a dim whose size it does
-not divide (the dim is then replicated).
+axis name to size, as the reference's ``spec_for`` reads it; one that
+also carries a ``device_mesh`` (a ``torch.distributed`` ``DeviceMesh``
+of an initialised process group, one process per device:
+:func:`repro_torch.launch.mesh.make_device_mesh`) places data.  Under
+such a mesh (:func:`use_mesh`) :func:`shard` redistributes a DTensor to
+its partition, as the reference's ``with_sharding_constraint`` does, and
+:func:`distribute` places a whole tensor, as ``device_put`` with a
+``NamedSharding`` does.  Without one (no mesh, the ``meta`` production
+mesh, a host mesh for checking) nothing moves: :func:`shard` returns its
+input.
+
+Resolution is divisibility-aware: a mesh axis is dropped from a dim whose
+size it does not divide (the dim is then replicated).
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -107,17 +120,68 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
     return tuple(entries)
 
 
+def placed(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def placements(spec: Tuple, mesh) -> Tuple:
+    """The DTensor placements (one per mesh axis, in the mesh's order) of
+    a :func:`spec_for` tuple: ``Shard(d)`` on a mesh axis that dim *d*'s
+    entry names, ``Replicate()`` on every other and on an axis of size 1
+    (one block is the whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.axis_names:
+        dim = next((d for d, ent in enumerate(spec) if ent == name or (
+            isinstance(ent, tuple) and name in ent)), None)
+        out.append(Replicate() if dim is None or mesh.shape[name] == 1
+                   else Shard(dim))
+    return tuple(out)
+
+
+def _device_mesh():
+    mesh, rules = _get()
+    return getattr(mesh, "device_mesh", None), mesh, rules
+
+
 def shard(x, *axes):
-    """The reference's sharding constraint by logical axis names: the port
-    runs on one device, so ``x`` comes back unchanged."""
-    return x
+    """The reference's sharding constraint by logical axis names: a
+    DTensor under a mesh with a ``device_mesh`` is redistributed to the
+    partition ``spec_for`` gives it; anything else comes back unchanged."""
+    dm, mesh, rules = _device_mesh()
+    if dm is None or not placed(x):
+        return x
+    want = placements(spec_for(x.shape, axes, mesh, rules), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(dm, want)
+
+
+def replicate_plain():
+    """Under a mesh with a ``device_mesh``, a context in which a plain
+    tensor meeting a DTensor in an op counts as replicated (DTensor's
+    ``implicit_replication``); elsewhere a context that does nothing.
+
+    The models make some tensors themselves (positions, RoPE angles, the
+    vocab iota, the aux loss's zeros) as plain tensors, the same on every
+    rank.  The context is entered around a loss and its gradient
+    (``train.step``), not around the block body alone: the backward of
+    those ops (the RoPE products, a masked ``where``) meets the same plain
+    tensors, and the
+    flag travels to autograd's device threads with the thread-local
+    state ``autograd.grad`` captures."""
+    if _device_mesh()[0] is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 @dataclass(frozen=True)
 class NamedSharding:
     """The reference's ``NamedSharding``: a mesh and the :func:`spec_for`
-    tuple of an array on it.  Recorded, never applied: the port places
-    nothing on a mesh."""
+    tuple of an array on it; :func:`distribute` applies it."""
     mesh: Any
     spec: Tuple
 
@@ -129,6 +193,48 @@ def named_sharding(shape: Sequence[int], axes: Sequence[Optional[str]],
     mesh = mesh or m
     rules = rules or r or DEFAULT_RULES
     return NamedSharding(mesh, spec_for(shape, axes, mesh, rules))
+
+
+def local_part(x, device_mesh, places):
+    """This rank's block of a whole tensor ``x`` under ``places`` on
+    ``device_mesh`` (a view): each ``Shard(d)`` takes the rank's equal
+    share of dim ``d`` along that mesh dim, in mesh-dim order, as DTensor
+    splits it."""
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(places):
+        if p.is_shard():
+            n, size = device_mesh.size(i), x.shape[p.dim]
+            if size % n:
+                raise ValueError(f"dim {p.dim} of {tuple(x.shape)} does not "
+                                 f"split into {n} equal parts")
+            x = x.narrow(p.dim, coord[i] * (size // n), size // n)
+    return x
+
+
+def distribute(x, sharding):
+    """``x``, the same whole tensor on every rank, as a DTensor placed by
+    ``sharding``: a :class:`NamedSharding` on a mesh with a
+    ``device_mesh``, or a DTensor whose mesh and placements ``x`` takes.
+    Each rank copies its own block to its device; nothing moves between
+    ranks.  A :class:`NamedSharding` on a mesh without a ``device_mesh``
+    returns ``x`` as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(sharding, NamedSharding):
+        dm = getattr(sharding.mesh, "device_mesh", None)
+        if dm is None:
+            return x
+        places = placements(sharding.spec, sharding.mesh)
+    else:
+        dm, places = sharding.device_mesh, tuple(sharding.placements)
+    part = local_part(x, dm, places)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dm.device_type == "cuda" else torch.device(dm.device_type))
+    local = torch.empty(part.shape, dtype=x.dtype, device=dev)
+    local.copy_(part)
+    return DTensor.from_local(local, dm, places, run_check=False,
+                              shape=x.shape,
+                              stride=torch.empty(x.shape, device="meta")
+                              .stride())
 
 
 def batch_axes(mesh=None) -> Tuple[str, ...]:

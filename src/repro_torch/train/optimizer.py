@@ -17,6 +17,13 @@ the global norm is taken, so the result does not change.  Adafactor's RMS
 clip is per slice when it slices, so it slices only where the reference
 does: leaves of ``ndim >= 3`` above ``_CHUNK_THRESHOLD`` elements (the
 reference's ``lax.map``).
+
+Placed on a mesh (DTensor leaves, each gradient, moment and parameter of
+one placement), the global norm sums each leaf's squares on its blocks
+and takes the leaf's sum whole (one all-reduce per leaf) before adding
+it in, and AdamW then updates every rank's blocks where they lie (its
+math is elementwise).  Adafactor's factored moments reduce over sharded
+dims and are not placed yet.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.common import tree_items, tree_map
+from ..sharding import placed
 
 
 @dataclass(frozen=True)
@@ -45,13 +53,19 @@ def _leaves(tree):
     return [t for _, t in tree_items(tree)]
 
 
+def _local(t):
+    """A DTensor's block on this rank (its storage), or ``t``."""
+    return t.to_local() if placed(t) else t
+
+
 def _global_norm(tree):
     """sqrt of the sum of squares of every leaf in f32, leaves in the
-    reference's order, a stacked leaf summed slice by slice."""
+    reference's order, a stacked leaf summed slice by slice (a placed
+    leaf's sum taken whole before it is added)."""
     total = 0.0
     for g in _leaves(tree):
-        total = total + sum(torch.sum(torch.square(s.float()))
-                            for s in _slices(g))
+        part = sum(torch.sum(torch.square(s.float())) for s in _slices(g))
+        total = total + (part.full_tensor() if placed(part) else part)
     return torch.sqrt(total)
 
 
@@ -68,8 +82,7 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     dev = _leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -79,7 +92,7 @@ def adamw_init(params):
 def adamw_update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
     gnorm = _global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
@@ -100,7 +113,7 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
 
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(state["m"]), _leaves(state["v"])):
-        for args in zip(*map(_slices, (p, g, m, v))):
+        for args in zip(*map(_slices, map(_local, (p, g, m, v)))):
             upd(*args, decay=p.dim() >= 2)
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
 
@@ -139,6 +152,10 @@ _CHUNK_THRESHOLD = 1 << 27      # leaves above ~134M elements update chunked
 @torch.no_grad()
 def adafactor_update(grads, state, params, lr,
                      cfg: AdafactorConfig = AdafactorConfig()):
+    if any(placed(p) for p in _leaves(params)):
+        raise NotImplementedError(
+            "Adafactor on a mesh: ROADMAP 'Next' lists the other families "
+            "on a mesh; AdamW trains there")
     step = state["step"] + 1
     t = step.float()
     beta2 = 1.0 - t ** (-cfg.decay)

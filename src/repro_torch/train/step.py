@@ -10,6 +10,16 @@ without gradients) stay as they are until the optimizer writes them.  The
 step takes ``params`` and ``opt_state`` over and updates them in place, as
 the reference's launcher jits it with ``donate_argnums=(0, 1)`` (see
 ``optimizer``).
+
+Under a mesh that carries a ``device_mesh`` (``sharding.use_mesh``; the
+parameters and optimizer state DTensors placed by their partitions) the
+step takes the same global batch on every rank: each microbatch is cut
+from it as on one device and placed ``Shard(0)`` over the batch axes, the
+loss and its gradient run with the models' own plain tensors counted as
+replicated (``sharding.replicate_plain``), each gradient is redistributed
+to its parameter's placements before it is accumulated, as the
+reference's ``_pin`` constrains its f32 accumulator, and the loss and
+metrics come back whole (replicated, plain tensors).
 """
 from __future__ import annotations
 
@@ -20,7 +30,8 @@ import torch
 from ..models import api
 from ..models.common import tree_from_items, tree_items, tree_map
 from ..models.config import LMConfig
-from ..sharding import spec_for
+from ..sharding import (current_mesh, distribute, named_sharding, placed,
+                        placements, replicate_plain, spec_for)
 from . import compress
 from .optimizer import make_optimizer
 
@@ -28,27 +39,45 @@ from .optimizer import make_optimizer
 def make_train_step(cfg: LMConfig, lr: float = 3e-4,
                     grad_compression: Optional[str] = None,
                     params_pspecs=None) -> Callable:
-    """``params_pspecs``: the parameters' partition tree (``api.pspecs``),
-    which the reference uses to pin its f32 gradient accumulator to the
-    parameters' sharding.  Accepted and not applied: the port runs the step
-    on one device, as :func:`repro_torch.sharding.shard` is the identity,
-    so the step is the same with it or without."""
+    """``params_pspecs``: the parameters' partition tree (``api.pspecs``):
+    under a mesh each gradient is redistributed to these partitions before
+    it is accumulated (to the parameter's own placements without it), as
+    the reference pins its f32 accumulator; without a mesh nothing
+    moves."""
     opt_init, opt_update = make_optimizer(cfg.optimizer)
     acc_dtype = torch.bfloat16 if cfg.grad_accum_dtype == "bf16" \
         else torch.float32
+    pspecs = None if params_pspecs is None else dict(
+        tree_items(params_pspecs))
+
+    def pin(path, g, p):
+        if not placed(g):
+            return g
+        want = (p.placements if pspecs is None
+                else placements(pspecs[path], current_mesh()))
+        return g.redistribute(p.device_mesh, want)
+
+    def whole(t):
+        return t.full_tensor() if placed(t) else t
 
     def grads_of(params, batch):
         """(loss, metrics, grads) of one (micro)batch; a leaf the loss
         does not reach gets a zero gradient, as ``jax.grad`` gives."""
         paths, leaves = zip(*[(p, t.detach().requires_grad_())
                               for p, t in tree_items(params)])
-        with torch.enable_grad():
+        if current_mesh() is not None:
+            batch = {n: distribute(x, named_sharding(
+                x.shape, ("batch",) + (None,) * (x.dim() - 1)))
+                for n, x in batch.items()}
+        with torch.enable_grad(), replicate_plain():
             loss, metrics = api.loss_fn(
                 cfg, tree_from_items(zip(paths, leaves)), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_from_items(zip(paths, grads))
+        metrics = {k: whole(v.detach()) for k, v in metrics.items()}
+        grads = [pin(path, g, p) for path, g, p in zip(paths, grads, leaves)]
+        return whole(loss.detach()), metrics, tree_from_items(
+            zip(paths, grads))
 
     def compute_grads(params, batch):
         k = cfg.microbatch
@@ -73,6 +102,11 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4,
         return loss_sum / k, metrics, grads
 
     def step(params, opt_state, batch):
+        if grad_compression and any(placed(t) for _, t in
+                                    tree_items(params)):
+            raise NotImplementedError(
+                "int8 gradient compression on a mesh: ROADMAP 'Next' lists "
+                "the int8 all-reduce over a process group")
         loss, metrics, grads = compute_grads(params, batch)
         if grad_compression == "int8":
             grads, new_resid = compress.compress_tree_with_feedback(

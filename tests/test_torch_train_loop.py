@@ -207,9 +207,12 @@ def test_launcher_main_returns_what_it_ran(tmp_path):
     assert int(res["opt_state"]["opt"]["step"]) == 3
 
 
-def test_launcher_refuses_a_mesh():
+def test_launcher_refuses_a_mesh(monkeypatch):
+    """A mesh whose device count is not the process group's world size
+    (torchrun's ``WORLD_SIZE``) is refused before any rank trains."""
     from repro_torch.launch.train import main
-    with pytest.raises(ValueError, match="sharded training is not ported"):
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="process group has 1 ranks"):
         main(["--arch", "granite-3-8b", "--smoke", "--mesh", "2x2",
               "--device", "cpu"])
 
