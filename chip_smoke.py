@@ -150,8 +150,34 @@ Phases:
    cut to 1 layer a crash-and-restore replay bit-exact on every rank and
    its checkpoint restored onto 1x4 for one step.  No rank launches a
    port kernel
+17. every family without experts on a (data x model) mesh: prefill and
+   decode on placed parameters and a placed cache (``ServeEngine`` on
+   parameters from ``api.init(mesh=)``, the cache on ``kv_seq``), and the
+   five other families' training, in NCCL ranks as phase 16's, the world
+   size and each rank's card and power limit printed.  On one card a 1x1
+   mesh: granite-3-8b FULL, phase 13's cell, its 16 tokens and each
+   step's logits bit-equal to one device's in the same rank (run first
+   and freed), and minicpm3-4b, zamba2-1.2b, rwkv6-1.6b,
+   llama-3.2-vision-11b and whisper-base at FULL width cut in depth to
+   the fewest layers that run each block kind (``FAMILY_CUTS``): one
+   AdamW step, a prefill and ``FAMILY_STEPS`` decode steps, bit-equal to
+   one device.  On four cards a 2x2 mesh: granite-3-8b FULL, 40 layers,
+   phase 13's cell (per rank: prefill and decode ms, p50, min and max of
+   15 steps, tokens/s, peak, host syncs per decode step, the collectives
+   of one decode step by kind and mesh dim), every step's logits against
+   one device's (computed first on one card, written to disk and freed;
+   at 40 layers ``LM_FWD_TOL_FULL`` and argmax agreement ``LM_AGREE``, as
+   phase 13 holds full depth; cut to 2 layers ``LM_FWD_TOL``), and the
+   five families' loss (``TRAIN_LOSS_TOL``) and logits (``LM_FWD_TOL``)
+   against one device.  Then the f32 witness (``f32_witness``): the same
+   code on f32 parameters and caches, where rounding no longer hides a
+   fault: granite-3-8b FULL's 40-layer prefill and 15 decode steps
+   (``WITNESS_SEQ`` positions) and 16-layer loss, and the five families'
+   loss, each rank against one device on its own card
+   (``MESH_F32_TOL``, ``MESH_F32_LOSS_TOL``).  No rank launches a port
+   kernel
 
-Each path of phases 3-6 and 8-16 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-17 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -181,11 +207,13 @@ stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
 directory of another checkout).  ``--child MODE ARGS`` is phase 10's
 child process, started by the script itself.  ``python3 chip_smoke.py
---mesh-only`` runs phase 16 alone (a host with four cards runs its 2x2
-cases), after one device's 16-layer step as the loss's reference.
+--mesh-only`` runs phases 16 and 17 alone (a host with four cards runs
+their 2x2 cases), after one device's 16-layer step as phase 16's loss's
+reference; ``--mesh-only 16`` or ``--mesh-only 17`` runs one of them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -302,6 +330,8 @@ PATH_KERNELS = {
     # process launches nothing meanwhile, and each rank reports its own
     # launches (held at 0)
     "lm_mesh": (),
+    # phase 17: every family without experts on a mesh, likewise
+    "lm_mesh_serve": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -4949,6 +4979,574 @@ def phase_mesh(smi, reference):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: every family without experts on a (data x model) mesh: prefill
+# and decode on placed parameters and a placed cache, and each family's
+# training.  One NCCL rank per card, as phase 16.  On one card a 1x1 mesh:
+# granite-3-8b FULL through ServeEngine (phase 13's cell) and the five
+# other families at FULL width cut in depth (one AdamW step, a prefill and
+# FAMILY_STEPS decode steps), each bit-equal to one device in the same
+# rank.  On four cards (--mesh-only) a 2x2 mesh: granite-3-8b FULL, 40
+# layers, its cache on kv_seq (per rank: prefill and decode ms, tokens/s,
+# peak, host syncs, the collectives of one decode step), every step's
+# logits against one device's within LM_FWD_TOL_FULL (LM_FWD_TOL cut to 2
+# layers); the five families' loss against one device within
+# TRAIN_LOSS_TOL and their logits within LM_FWD_TOL; then the f32
+# witness (f32_witness), held to MESH_F32_TOL and MESH_F32_LOSS_TOL
+# ---------------------------------------------------------------------------
+#: phase 13's serving cell (LM_ARGV): batch, prompt length, greedy tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+#: the five other families at their FULL widths, cut in depth to the
+#: fewest layers that run every block kind each has: zamba's shared
+#: attention block with its mamba group (and one tail layer), the vlm's
+#: four self-attention layers and its gated cross layer, whisper's
+#: encoder and decoder
+FAMILY_CUTS = {"minicpm3-4b": {"n_layers": 1},
+               "zamba2-1.2b": {"n_layers": 7},
+               "rwkv6-1.6b": {"n_layers": 1},
+               "llama-3.2-vision-11b": {"n_layers": 5},
+               "whisper-base": {"n_layers": 1, "enc_layers": 1}}
+#: the families' decode steps, and their AdamW step's batch
+FAMILY_STEPS = 4
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 64
+#: the vlm's gates at init are zero (its cross layer then adds nothing):
+#: phase 17 sets its gate_attn to this, as tests/test_torch_mesh_families.py
+VLM_GATE = 0.5
+#: where the four-card run finds one device's granite-3-8b logits
+SERVE_REF = ROOT / "build" / "smoke_mesh_serve_ref.npz"
+#: a 2x2 decode step's all-gathers over "model" per rank stay under this:
+#: the split softmax moves under about 10 MB, a gathered K/V cache about
+#: 5.4 GB (half of each rank's 10.7 GB batch rows of it)
+MESH_SERVE_GATHER_BYTES = 1e9
+
+
+def _placed_inputs(arrays, mesh, dev):
+    """numpy arrays on ``dev``, placed by their batch partition on
+    ``mesh`` (plain without one)."""
+    import torch
+
+    from repro_torch.convert import tensor_from_array
+    from repro_torch.sharding import distribute, named_sharding
+    out = {}
+    for k, v in arrays.items():
+        t = tensor_from_array(v, dev)
+        if t.dtype == torch.int32:
+            t = t.long()
+        out[k] = t if mesh is None else distribute(t, named_sharding(
+            t.shape, ("batch",) + (None,) * (t.dim() - 1), mesh))
+    return out
+
+
+def _host(t):
+    """A logits tensor (placed or plain) as a float32 numpy array."""
+    from repro_torch.sharding import placed
+    return (t.full_tensor() if placed(t) else t).float().cpu().numpy()
+
+
+def serve_case(cfg, params, prompts, extras, n_gen, dev, mesh=None,
+               force=None, profile=False):
+    """ServeEngine's ``n_gen`` greedy tokens on ``params`` (placed on
+    ``mesh`` or not), then the manual loop: the prefill, the engine's own
+    buffer growth and ``n_gen - 1`` decode steps fed ``force`` (by default
+    the engine's tokens), each step's logits kept on the host.  With
+    ``profile``: the engine's timings, the peak, the host syncs per decode
+    step of the loop (sync debug mode) and the collectives of one more
+    decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, batch_size=prompts.shape[0],
+                      max_seq=cfg.max_seq, device=dev.type)
+    gen = eng.generate(prompts, n_gen, batch_extras=extras)
+    out = {"gen": gen, "timings": eng.timings,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    feed = gen if force is None else force
+    plen = prompts.shape[1]
+    logits, syncs = [], 0
+    with (torch.no_grad() if mesh is not None else torch.inference_mode()):
+        lg, cache = api.prefill(cfg, params, _placed_inputs(
+            dict(tokens=prompts, **(extras or {})), mesh, dev))
+        logits.append(_host(lg))
+        cache = eng._grow_cache(cache, plen)
+        for i in range(n_gen - 1):
+            tok = _placed_inputs({"t": feed[:, i:i + 1]}, mesh, dev)["t"]
+            if profile:
+                (lg, cache), n = train_host_syncs(
+                    lambda: engine_step(cfg, params, tok, cache, plen + i))
+                syncs += n
+            else:
+                lg, cache = api.decode(cfg, params, tok, cache, plen + i)
+            logits.append(_host(lg[:, -1]))
+        if profile:
+            counter = CollectiveCounter(mesh)
+            with counter:
+                api.decode(cfg, params, tok, cache, plen + n_gen - 1)
+            torch.cuda.synchronize()
+            out.update(host_syncs_per_step=syncs / (n_gen - 1),
+                       collectives={"calls": counter.calls,
+                                    "bytes": counter.coll_bytes,
+                                    "by_dim": counter.by_dim})
+    del cache, eng
+    out["logits"] = np.stack(logits, 1)[..., :cfg.vocab]
+    return out
+
+
+def engine_step(cfg, params, tok, cache, index):
+    """A decode step as ``ServeEngine`` takes it: ``api.decode``, then the
+    greedy token's argmax."""
+    import torch
+
+    from repro_torch.models import api
+    logits, cache = api.decode(cfg, params, tok, cache, index)
+    torch.argmax(logits[:, -1], dim=-1)
+    return logits, cache
+
+
+def family_batch(cfg, dev):
+    """The families' AdamW step batch: seeded tokens on the card and the
+    stub frontend inputs as tests/test_models_smoke.py makes them."""
+    import torch
+
+    from repro_torch.convert import tensor_from_array
+    g = torch.Generator(device=dev).manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (
+        FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ + 1), generator=g, device=dev)}
+    for k, v in (lm_extras(cfg, FAMILY_TRAIN_BATCH) or {}).items():
+        batch[k] = tensor_from_array(v, dev)
+    return batch
+
+
+def family_params(cfg, dev, mesh=None):
+    """Seed-0 parameters (placed on ``mesh``), the vlm's gate_attn at
+    VLM_GATE."""
+    from repro_torch.models import api
+    from repro_torch.sharding import placed
+    params = api.init(cfg, 0, str(dev), mesh=mesh)
+    if cfg.family == "vlm":
+        g = params["cross_blocks"]["gate_attn"]
+        (g.to_local() if placed(g) else g).fill_(VLM_GATE)
+    return params
+
+
+def family_case(arch, dev, mesh, shape):
+    """One of the five families on one device, then on ``mesh``: one
+    AdamW step (loss, and the state's fingerprint), then a prefill and
+    FAMILY_STEPS decode steps (the mesh fed one device's tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import make_train_step
+    cfg = get_config(arch).replace(**FAMILY_CUTS[arch])
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    extras = lm_extras(cfg, SERVE_BATCH)
+    got = {}
+    for where in ("one", shape):
+        on = None if where == "one" else mesh
+        t0 = time.perf_counter()
+        with use_mesh(on) if on is not None else contextlib.nullcontext():
+            params = family_params(cfg, dev, on)
+            step = make_train_step(cfg, lr=TRAIN_LR, params_pspecs=None
+                                   if on is None else api.pspecs(cfg, on))
+            state = step.init_state(params)
+            params, state, m = step(params, state, family_batch(cfg, dev))
+            r = {"loss": float(m["loss"]),
+                 "fingerprint": fingerprint({"params": params,
+                                             "opt": state})}
+            del params, state, step
+            torch.cuda.empty_cache()
+            s = serve_case(cfg, family_params(cfg, dev, on), prompts, extras,
+                           FAMILY_STEPS + 1, dev, mesh=on,
+                           force=None if on is None else got["one"]["gen"])
+            r.update(gen=s["gen"], logits=s["logits"],
+                     peak_bytes=s["peak_bytes"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r["wall_s"] = time.perf_counter() - t0
+        got[where] = r
+    one, on = got["one"], got[shape]
+    return {"arch": arch, "layers": cfg.n_layers,
+            "loss_one": one["loss"], "loss": on["loss"],
+            "loss_diff": abs(on["loss"] - one["loss"]),
+            "state_equal": one["fingerprint"] == on["fingerprint"],
+            "logits_equal": bool(np.array_equal(one["logits"],
+                                                on["logits"])),
+            "logit_diff": float(np.abs(one["logits"]
+                                       - on["logits"]).max()),
+            "tokens_agree": float((one["gen"] == on["gen"]).mean()),
+            "peak_bytes": on["peak_bytes"], "wall_s": on["wall_s"],
+            "wall_one_s": one["wall_s"]}
+
+
+def serve_prompts(cfg):
+    """phase 13's prompts: the launcher's (seed 0)."""
+    import numpy as np
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+
+
+def granite_cells():
+    """granite-3-8b FULL (40 layers) and its first LM_CPU_LAYERS layers at
+    full width, by name."""
+    from repro_torch.configs import get_config
+    full = get_config("granite-3-8b")
+    return {"full": full,
+            f"{LM_CPU_LAYERS}_layers": full.replace(n_layers=LM_CPU_LAYERS)}
+
+
+def granite_serve_reference(dev, smi, path=SERVE_REF):
+    """granite-3-8b on one card, phase 13's cell, at full depth and cut to
+    LM_CPU_LAYERS layers: the engine's tokens and the logits of the manual
+    loop fed them, written to ``path`` (the four-card run's reference) and
+    freed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    out = {}
+    for name, cfg in granite_cells().items():
+        s = serve_case(cfg, api.init(cfg, 0, str(dev)), serve_prompts(cfg),
+                       None, SERVE_GEN, dev)
+        out[f"gen_{name}"], out[f"logits_{name}"] = s["gen"], s["logits"]
+        log(f"  [{smi}] one device, granite-3-8b {name}, phase 13's cell: "
+            f"decode p50 {float(np.median(s['timings']['step_ms'])):.3f} "
+            f"ms")
+        del s
+        torch.cuda.empty_cache()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **out)
+    log(f"  tokens and logits written to {path.name}")
+
+
+def serve_rank(plan, root, device):
+    """One rank of phase 17 (its group joined by ``launch.train.spawn``);
+    rank 0 returns every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shape = "1x1" if world == 1 else "2x2"
+    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)), device)
+    dev = torch.device(device, torch.cuda.current_device())
+    launches0 = sum(LAUNCHES.values())
+    out = {"rank": rank, "smi": smi_line(rank), "shape": shape,
+           "granite": {}}
+    ref = None if world == 1 else np.load(root)
+    # one card: the full depth only (the 1x1 mesh must be exact at any)
+    cells = granite_cells() if world > 1 else {"full": granite_cells()[
+        "full"]}
+    for name, cfg in cells.items():
+        prompts = serve_prompts(cfg)
+        if ref is None:
+            one = serve_case(cfg, api.init(cfg, 0, str(dev)), prompts, None,
+                             SERVE_GEN, dev)
+            force, want = one["gen"], one["logits"]
+            del one
+            torch.cuda.empty_cache()
+        else:
+            force, want = ref[f"gen_{name}"], ref[f"logits_{name}"]
+        with use_mesh(mesh):
+            s = serve_case(cfg, api.init(cfg, 0, str(dev), mesh=mesh),
+                           prompts, None, SERVE_GEN, dev, mesh=mesh,
+                           force=force, profile=True)
+        torch.cuda.empty_cache()
+        steps = np.asarray(s["timings"]["step_ms"])
+        v = cfg.vocab
+        out["granite"][name] = {
+            "layers": cfg.n_layers, "prefill_ms": s["timings"]["prefill_ms"],
+            "step_ms": steps.tolist(),
+            "step_p50_ms": float(np.median(steps)),
+            "step_min_ms": float(steps.min()),
+            "step_max_ms": float(steps.max()),
+            "tokens_per_s": float(SERVE_BATCH * len(steps)
+                                  / (steps.sum() / 1e3)),
+            "peak_bytes": s["peak_bytes"],
+            "host_syncs_per_step": s["host_syncs_per_step"],
+            "collectives": s["collectives"],
+            "tokens_agree": float((s["gen"] == force).mean()),
+            "tokens_equal": bool(np.array_equal(s["gen"], force)),
+            "logits_equal": bool(np.array_equal(s["logits"], want)),
+            "logit_diff": float(np.abs(s["logits"] - want).max()),
+            "argmax_agree": float((s["logits"][..., :v].argmax(-1)
+                                   == want[..., :v].argmax(-1)).mean())}
+        del s
+    out["families"] = [family_case(arch, dev, mesh, shape)
+                       for arch in FAMILY_CUTS]
+    if world > 1:
+        out["f32"] = f32_witness(dev, mesh, ref["gen_full"][:, :SERVE_GEN
+                                                             - 1])
+    out["launches"] = sum(LAUNCHES.values()) - launches0
+    got = [None] * world
+    dist.all_gather_object(got, out)
+    return got
+
+
+#: the f32 witness's decode buffers: all 40 layers' f32 K/V at batch 4
+#: (5.4 GB) beside granite-3-8b's 32.7 GB of f32 weights on one card,
+#: their positions split over "model" as phase 13's 32,768 are (the
+#: prompt and the new positions in the first block)
+WITNESS_SEQ = 4096
+#: the f32 witness's logits on the 2x2 mesh against one device's: f32
+#: rounding grown over 40 layers stays far under this, while a lost or
+#: misplaced cache write or a wrong softmax combine moves logits by 0.1 or
+#: more (0.157-0.319 at SMOKE for the lost write)
+MESH_F32_TOL = 1e-2
+#: ... and its losses against one device's
+MESH_F32_LOSS_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def f32_leaves():
+    """Every parameter and cache leaf made inside in f32 (the schemas'
+    ``ParamDef`` default dtype), so the port's own code runs its products
+    and caches in f32; a token's embedding still rounds to bf16, the same
+    on every side."""
+    import torch
+
+    from repro_torch.models.common import ParamDef
+    saved = ParamDef.__init__.__defaults__
+    ParamDef.__init__.__defaults__ = saved[:-1] + (torch.float32,)
+    try:
+        yield
+    finally:
+        ParamDef.__init__.__defaults__ = saved
+
+
+def witness_logits(cfg, params, prompts, feed, dev, mesh=None):
+    """The prefill's last logits and one decode step's per column of
+    ``feed`` (the tokens fed), as ``serve_case``'s manual loop takes them,
+    on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, batch_size=prompts.shape[0],
+                      max_seq=cfg.max_seq, device=dev.type)
+    plen = prompts.shape[1]
+    with torch.no_grad():
+        lg, cache = api.prefill(cfg, params, _placed_inputs(
+            {"tokens": prompts}, mesh, dev))
+        out = [_host(lg)]
+        cache = eng._grow_cache(cache, plen)
+        for i in range(feed.shape[1]):
+            tok = _placed_inputs({"t": feed[:, i:i + 1]}, mesh, dev)["t"]
+            lg, cache = api.decode(cfg, params, tok, cache, plen + i)
+            out.append(_host(lg[:, -1]))
+    del cache, eng
+    return np.stack(out, 1)[..., :cfg.vocab]
+
+
+def witness_loss(cfg, batch, dev, mesh=None):
+    """``api.loss_fn`` of ``batch`` (numpy arrays) on seed-0 parameters
+    (``family_params``), without autograd."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.sharding import replicate_plain
+    with torch.no_grad(), replicate_plain():
+        params = family_params(cfg, dev, mesh)
+        loss = float(_host(api.loss_fn(cfg, params, _placed_inputs(
+            batch, mesh, dev))[0]))
+    del params
+    torch.cuda.empty_cache()
+    return loss
+
+
+def f32_witness(dev, mesh, feed):
+    """This rank's side of the f32 witness: each case on one device (on
+    this rank's own card, first, then freed) and on ``mesh``, with bf16
+    leaves and with f32 ones.  Granite-3-8b FULL's 40-layer prefill and
+    decode steps fed ``feed`` (logits; f32 only), its 16-layer loss and
+    the five families' loss (each in both)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    full = get_config("granite-3-8b")
+    rng = np.random.default_rng(17)
+    cases = {"granite-3-8b": full.replace(n_layers=TRAIN_LAYERS)}
+    cases.update({arch: get_config(arch).replace(**cut)
+                  for arch, cut in FAMILY_CUTS.items()})
+    out = {"losses": {}}
+    for arch, cfg in cases.items():
+        batch = {"tokens": rng.integers(0, cfg.vocab, (
+            FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ + 1)).astype(np.int32),
+            **(lm_extras(cfg, FAMILY_TRAIN_BATCH) or {})}
+        got = {}
+        for dt in ("bf16", "f32"):
+            with (f32_leaves() if dt == "f32"
+                  else contextlib.nullcontext()):
+                got[f"one_{dt}"] = witness_loss(cfg, batch, dev)
+                with use_mesh(mesh):
+                    got[f"mesh_{dt}"] = witness_loss(cfg, batch, dev, mesh)
+        got.update(layers=cfg.n_layers,
+                   bf16_diff=abs(got["mesh_bf16"] - got["one_bf16"]),
+                   f32_diff=abs(got["mesh_f32"] - got["one_f32"]),
+                   bf16_error=abs(got["one_bf16"] - got["one_f32"]))
+        out["losses"][arch] = got
+    cfg = full.replace(max_seq=WITNESS_SEQ)
+    prompts = serve_prompts(cfg)
+    with f32_leaves():
+        one = witness_logits(cfg, api.init(cfg, 0, str(dev)), prompts, feed,
+                             dev)
+        torch.cuda.empty_cache()
+        with use_mesh(mesh):
+            got = witness_logits(cfg, api.init(cfg, 0, str(dev), mesh=mesh),
+                                 prompts, feed, dev, mesh)
+        torch.cuda.empty_cache()
+    diff = np.abs(got - one)
+    out["granite_decode"] = {
+        "layers": cfg.n_layers, "max_seq": cfg.max_seq,
+        "steps": int(feed.shape[1]), "logit_diff": float(diff.max()),
+        "mean_diff": float(diff.mean()),
+        "step_diff": [float(x) for x in diff.max((0, 2))],
+        "argmax_agree": float((got.argmax(-1) == one.argmax(-1)).mean())}
+    return out
+
+
+def phase_mesh_serve(smi, dev):
+    """Phase 17: one rank on one card (1x1), four on four cards (2x2, after
+    one device's granite-3-8b logits are written by this process).  Every
+    rank's numbers are printed before any is held."""
+    import torch
+
+    from repro_torch.launch.train import spawn
+    cards = torch.cuda.device_count()
+    world = MESH_RANKS if cards >= MESH_RANKS else 1
+    if world > 1:
+        granite_serve_reference(dev, smi)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] {cards} card(s) visible: {world} NCCL rank(s), one per "
+        f"card; this process holds {torch.cuda.memory_allocated()} B on "
+        "cuda:0")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(world, serve_rank, timeout=MESH_TIMEOUT_S,
+                      plan="serve", root=str(SERVE_REF),
+                      device=MESH_DEVICE)
+    except RuntimeError as e:
+        check(False, f"phase 17: {e}")
+    finally:
+        if world > 1:
+            SERVE_REF.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    log(f"  world size {world}; ranks done in {wall:.1f} s")
+    held = []
+    for r in ranks:
+        log(f"  rank {r['rank']}: {r['smi']}")
+        held.append((r["launches"] == 0, f"rank {r['rank']} launched "
+                     f"{r['launches']} port kernels"))
+        for name, g in r["granite"].items():
+            c = g["collectives"]
+            tag = f"  rank {r['rank']} {r['shape']} granite-3-8b {name}"
+            log(f"{tag} [{r['smi']}], phase 13's cell: prefill "
+                f"{g['prefill_ms']:.2f} ms; decode p50 "
+                f"{g['step_p50_ms']:.3f} ms (min {g['step_min_ms']:.3f}, "
+                f"max {g['step_max_ms']:.3f}, {len(g['step_ms'])} steps), "
+                f"{g['tokens_per_s']:.1f} decode tokens/s, peak "
+                f"{g['peak_bytes']} B, host syncs per decode step "
+                f"{g['host_syncs_per_step']:.2f}")
+            log(f"{tag}: collectives of one decode step: calls "
+                f"{c['calls']}, bytes {c['bytes']}, by mesh dim "
+                f"{c['by_dim']}")
+            log(f"{tag}: logits against one device's (fed its tokens): max "
+                f"|diff| {g['logit_diff']:.4f}, argmax agreement "
+                f"{g['argmax_agree']:.3f}, bit-equal {g['logits_equal']}; "
+                f"the engine's free-running tokens agree "
+                f"{g['tokens_agree']:.3f}")
+            held.append((g["host_syncs_per_step"] == 0,
+                         f"{tag}: {g['host_syncs_per_step']} host syncs per "
+                         "decode step"))
+            if world == 1:
+                held.append((g["logits_equal"] and g["tokens_equal"],
+                             f"{tag}: the 1x1 mesh is not one device bit "
+                             "for bit"))
+                continue
+            # two bf16 evaluation orders of one function part as depth
+            # grows (the f32 witness below shows the code agrees); full
+            # depth is held as phase 13 holds one device's decode to its
+            # forward there
+            tol = LM_FWD_TOL_FULL if g["layers"] > LM_CPU_LAYERS \
+                else LM_FWD_TOL
+            held.append((g["logit_diff"] < tol, f"{tag}: logits "
+                         f"{g['logit_diff']} from one device's (>= {tol})"))
+            held.append((g["argmax_agree"] >= LM_AGREE, f"{tag}: argmax "
+                         f"agreement {g['argmax_agree']} < {LM_AGREE}"))
+            gathered = c["by_dim"].get("model", {}).get("all-gather", 0.0)
+            held.append((gathered < MESH_SERVE_GATHER_BYTES, f"{tag}: "
+                         f"all-gathers {gathered} B over 'model' per decode "
+                         "step"))
+        for f in r["families"]:
+            tag = f"  rank {r['rank']} {r['shape']} {f['arch']}"
+            log(f"{tag} FULL width, {f['layers']} layer(s): AdamW step loss "
+                f"{f['loss']:.6f} vs one device {f['loss_one']:.6f} (|diff| "
+                f"{f['loss_diff']:.3g}), state bit-equal "
+                f"{f['state_equal']}; prefill + {FAMILY_STEPS} decode "
+                f"steps' logits max |diff| {f['logit_diff']:.4f}, bit-equal "
+                f"{f['logits_equal']}, tokens agree {f['tokens_agree']:.3f};"
+                f" peak {f['peak_bytes']} B; {f['wall_s']:.1f} s (one "
+                f"device {f['wall_one_s']:.1f} s)")
+            if world == 1:
+                held.append((f["loss_diff"] == 0 and f["state_equal"]
+                             and f["logits_equal"]
+                             and f["tokens_agree"] == 1.0,
+                             f"{tag}: the 1x1 mesh is not one device bit "
+                             "for bit"))
+            else:
+                held.append((f["loss_diff"] < TRAIN_LOSS_TOL, f"{tag}: "
+                             f"loss {f['loss_diff']} from one device's"))
+                held.append((f["logit_diff"] < LM_FWD_TOL, f"{tag}: logits "
+                             f"{f['logit_diff']} from one device's"))
+        w = r.get("f32")
+        if w is None:
+            continue
+        g = w["granite_decode"]
+        tag = f"  rank {r['rank']} {r['shape']} f32 witness"
+        log(f"{tag}: granite-3-8b FULL, {g['layers']} layers, f32 "
+            f"parameters and cache ({g['max_seq']} positions), prefill and "
+            f"{g['steps']} decode steps against one device's: max |diff| "
+            f"{g['logit_diff']:.3g} (mean {g['mean_diff']:.3g}; per step "
+            f"{[float(f'{x:.3g}') for x in g['step_diff']]}), argmax "
+            f"agreement {g['argmax_agree']:.3f}")
+        held.append((g["logit_diff"] < MESH_F32_TOL, f"{tag}: granite-3-8b "
+                     f"logits {g['logit_diff']} from one device's (>= "
+                     f"{MESH_F32_TOL})"))
+        for arch, c in w["losses"].items():
+            log(f"{tag}: {arch}, {c['layers']} layer(s), loss against one "
+                f"device's: f32 {c['mesh_f32']:.7f} vs {c['one_f32']:.7f} "
+                f"(|diff| {c['f32_diff']:.3g}); bf16 {c['mesh_bf16']:.7f} vs"
+                f" {c['one_bf16']:.7f} (|diff| {c['bf16_diff']:.3g}); one "
+                f"device's bf16 against its f32 {c['bf16_error']:.3g}")
+            held.append((c["f32_diff"] < MESH_F32_LOSS_TOL, f"{tag}: {arch} "
+                         f"f32 loss {c['f32_diff']} from one device's (>= "
+                         f"{MESH_F32_LOSS_TOL})"))
+    for ok, msg in held:
+        check(ok, "phase 17: " + msg)
+    out = {"world": world, "wall_s": wall, "ranks": []}
+    for r in ranks:
+        for g in r["granite"].values():
+            g.pop("step_ms")
+        out["ranks"].append({k: r[k] for k in ("rank", "smi", "granite",
+                                               "families", "f32") if k in r})
+    return out
+
 def one_device_reference(dev, smi):
     """Alone (``--mesh-only``): phase 14's cell for one step on one card,
     the 2x2 step-0 loss's reference."""
@@ -4968,14 +5566,27 @@ def one_device_reference(dev, smi):
     return out
 
 
-def main_mesh(dev) -> int:
-    """``--mesh-only``: phase 16 alone, for a host with four cards."""
+def main_mesh(dev, phases) -> int:
+    """``--mesh-only``: phases 16 and 17 (or those of ``phases``) alone,
+    for a host with four cards."""
     import torch
     smi = smi_line()
     log(smi)
-    log("phase 16 alone: LM training across a (data x model) mesh")
-    ranks_out = phase_mesh(smi, one_device_reference(dev, smi))
-    log(f"  phase 16 summary ({smi}): " + json.dumps(ranks_out, default=str))
+    if "16" in phases:
+        log("phase 16 alone: LM training across a (data x model) mesh")
+        t0 = time.perf_counter()
+        ranks_out = phase_mesh(smi, one_device_reference(dev, smi))
+        log(f"  phase 16 summary ({smi}): "
+            + json.dumps(ranks_out, default=str))
+        log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    if "17" in phases:
+        log("phase 17 alone: every family without experts on a (data x "
+            "model) mesh")
+        t0 = time.perf_counter()
+        serve_out = phase_mesh_serve(smi, dev)
+        log(f"  phase 17 summary ({smi}): "
+            + json.dumps(serve_out, default=str))
+        log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5299,8 +5910,11 @@ def main(argv) -> int:
         src = Path(argv[1]).resolve()
     elif len(argv) == 3 and argv[0] == "--child":
         pass
-    elif argv != ["--mesh-only"] and argv:
-        print("usage: chip_smoke.py [--compare SRC | --mesh-only]",
+    elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= {"16",
+                                                                "17"}:
+        pass
+    elif argv:
+        print("usage: chip_smoke.py [--compare SRC | --mesh-only [16|17]]",
               file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
@@ -5311,8 +5925,9 @@ def main(argv) -> int:
     import numpy as np
     if argv and argv[0] == "--child":
         return main_child(argv[1], json.loads(argv[2]))
-    if argv == ["--mesh-only"]:
-        return main_mesh(torch.device("cuda", torch.cuda.current_device()))
+    if argv and argv[0] == "--mesh-only":
+        return main_mesh(torch.device("cuda", torch.cuda.current_device()),
+                         set(argv[1:]) or {"16", "17"})
     if argv:
         return main_compare(src)
     from repro_torch.kernels import (LAUNCHES, LAUNCHES_BY_Q, _build,
@@ -5667,6 +6282,18 @@ def main(argv) -> int:
     log(f"  phase 16 summary ({smi}): " + json.dumps(mesh_out, default=str))
     del mesh_out
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 17: every family without experts on a (data x model) mesh: "
+        "prefill and decode on placed parameters and a placed cache, and "
+        "training; " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    serve_mesh_out = phase_mesh_serve(smi, dev)
+    end_path("lm_mesh_serve")
+    log(f"  phase 17 summary ({smi}): "
+        + json.dumps(serve_mesh_out, default=str))
+    del serve_mesh_out
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

@@ -10,7 +10,8 @@ allocated, no CUDA context starts) under the counter of
      ``meta`` placeholders,
   2. builds the cell's step (train_step / prefill / decode) over abstract
      parameters and inputs, with the partition of every argument from the
-     logical-axis rules, recorded and not applied,
+     logical-axis rules, recorded (applied only to real arguments on a
+     mesh that carries a ``device_mesh``: :func:`build_step`),
   3. traces it once: success is the deliverable,
   4. records the memory per device (arguments, outputs and donated
      aliases by their partitions; temporaries the traced step's peak of
@@ -57,7 +58,7 @@ from ..configs import ARCHS, get_config
 from ..models import SHAPES, api, supports_shape
 from ..models.common import tree_from_items, tree_items, tree_map
 from ..models.config import LMConfig, ShapeCell
-from ..sharding import spec_for, use_mesh
+from ..sharding import distribute, spec_for, use_mesh
 from ..train import make_train_step, opt_state_pspecs
 from .mesh import make_production_mesh
 from .roofline import (Measurement, analysis_variants, roofline_terms,
@@ -73,19 +74,26 @@ INDEX_BYTES = 4
 class Step:
     """A cell's step function with what the reference's ``jax.jit`` is
     given: each argument's partition tree (``in_specs``), the result's
-    (``out_specs(result)``) and the donated arguments.  The partitions are
-    recorded, not applied; ``None`` in a partition tree replicates the
-    whole subtree.  A donated argument is updated in place and returned
-    as (part of) the result."""
+    (``out_specs(result)``) and the donated arguments; ``None`` in a
+    partition tree replicates the whole subtree.  A donated argument is
+    updated in place and returned as (part of) the result.  The
+    partitions are recorded; :func:`build_step` applies them to the
+    arguments it makes on a mesh with a ``device_mesh``, and the step then
+    runs under that mesh (``mesh``)."""
 
-    def __init__(self, fn, in_specs, out_specs, donate_argnums=()):
+    def __init__(self, fn, in_specs, out_specs, donate_argnums=(),
+                 mesh=None):
         self.fn = fn
         self.in_specs = in_specs
         self.out_specs = out_specs
         self.donate_argnums = donate_argnums
+        self.mesh = mesh
 
     def __call__(self, *args):
-        return self.fn(*args)
+        if getattr(self.mesh, "device_mesh", None) is None:
+            return self.fn(*args)
+        with use_mesh(self.mesh):
+            return self.fn(*args)
 
 
 def _specs(shardings):
@@ -122,24 +130,37 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
     """Returns (step, example args tuple): abstract (``meta``) arguments,
     or with ``device="cuda"`` / ``"cpu"`` real ones of the same shapes
     made from ``seed``.  The partitions come from the rules of the active
-    ``use_mesh`` (or the defaults) on ``mesh``."""
+    ``use_mesh`` (or the defaults) on ``mesh``.  Real arguments on a mesh
+    that carries a ``device_mesh`` are placed by them, as the reference's
+    ``in_shardings`` place its arguments: parameters and the decode cache
+    by ``api.init(mesh=)`` / ``api.init_cache(mesh=)``, the optimizer state
+    as its parameters, the batch and the token by ``sharding.distribute``;
+    the step then runs on DTensors, under ``mesh``."""
     meta = torch.device(device).type == "meta"
-    params = api.abstract(cfg) if meta else api.init(cfg, seed, device)
+    on = None if meta or getattr(mesh, "device_mesh", None) is None \
+        else mesh
+    params = api.abstract(cfg) if meta else api.init(cfg, seed, device,
+                                                     mesh=on)
     pspec = api.pspecs(cfg, mesh)
     b, s = cell.global_batch, cell.seq_len
 
     if cell.kind in ("train", "prefill"):
         batch = input_specs(cfg, cell)["batch"]
+        shards = input_shardings(cfg, cell, mesh)["batch"]
         if not meta:
             batch = _real_batch(cfg, batch, device, seed)
-        batch_spec = _specs(input_shardings(cfg, cell, mesh)["batch"])
+            if on is not None:
+                batch = {k: distribute(v, shards[k])
+                         for k, v in batch.items()}
+        batch_spec = _specs(shards)
 
     if cell.kind == "train":
         step = make_train_step(cfg, params_pspecs=pspec)
         opt = step.init_state(params)
         opt_spec = opt_state_pspecs(cfg, pspec)
         fn = Step(step, (pspec, opt_spec, batch_spec),
-                  lambda out: (pspec, opt_spec, None), donate_argnums=(0, 1))
+                  lambda out: (pspec, opt_spec, None), donate_argnums=(0, 1),
+                  mesh=on)
         return fn, (params, opt, batch)
 
     if cell.kind == "prefill":
@@ -147,7 +168,8 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
         fn = Step(lambda p, bt: api.prefill(cfg, p, bt), (pspec, batch_spec),
                   lambda out: (spec_for(out[0].shape, ("batch", "vocab"),
                                         mesh),
-                               _like_schema(out[1], cache_schema, mesh)))
+                               _like_schema(out[1], cache_schema, mesh)),
+                  mesh=on)
         return fn, (params, batch)
 
     # decode: the port's index is a host int (api.decode); the last
@@ -158,13 +180,15 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
         token, cache = spec["token"], spec["cache"]
     else:
         token = _real_batch(cfg, {"t": spec["token"]}, device, seed)["t"]
-        cache = api.init_cache(cfg, b, s, device)
+        if on is not None:
+            token = distribute(token, shards["token"])
+        cache = api.init_cache(cfg, b, s, device, mesh=on)
     fn = Step(lambda p, t, c, i: api.decode(cfg, p, t, c, i),
               (pspec, shards["token"].spec, shards["cache"],
                shards["index"].spec),
               lambda out: (spec_for(out[0].shape, ("batch", None, "vocab"),
                                     mesh), shards["cache"]),
-              donate_argnums=(2,))
+              donate_argnums=(2,), mesh=on)
     return fn, (params, token, cache, s - 1)
 
 

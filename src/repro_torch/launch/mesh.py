@@ -132,6 +132,13 @@ def make_device_mesh(data: int = 1, model: int = 1,
     return Mesh((data, model), ("data", "model"), kind, device_mesh=dm)
 
 
+def mesh_of(device_mesh) -> Mesh:
+    """The :class:`Mesh` that carries ``device_mesh`` (a DTensor's): its
+    dims' names and sizes, what the logical-axis rules resolve against."""
+    return Mesh(tuple(device_mesh.shape), device_mesh.mesh_dim_names,
+                device_mesh.device_type, device_mesh=device_mesh)
+
+
 class ShardMesh:
     """A 1-D ``("shards",)`` mesh: the device of each shard, in block order.
 

@@ -21,9 +21,10 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..sharding import replicate_plain, shard
 from . import encdec, lm
 from .common import (abstract_params, count_params, cross_entropy,
-                     init_params, param_pspecs)
+                     init_params, param_pspecs, tree_from_items, tree_items)
 from .config import LMConfig
 
 
@@ -41,9 +42,9 @@ def init(cfg: LMConfig, seed: int = 0, device: str = "cuda", mesh=None):
     return init_params(schema(cfg), seed, device, mesh)
 
 
-#: the families that train on a mesh of more than one device, and the
-#: ROADMAP item that brings each other one
-MESH_FAMILIES = ("dense",)
+#: the families that train, prefill and decode on a mesh of more than one
+#: device, and the ROADMAP item that brings each other one
+MESH_FAMILIES = ("dense", "mla", "zamba", "rwkv", "vlm", "encdec")
 _MESH_TODO = {"moe": "the expert-parallel MoE path (B2.11)",
               "mla_moe": "the expert-parallel MoE path (B2.11)"}
 
@@ -63,7 +64,7 @@ def check_mesh(cfg: LMConfig, mesh) -> None:
     todo = _MESH_TODO.get(cfg.family, "the other families on a mesh")
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}) on a {dm.size()}-device mesh: only the "
-        f"{'/'.join(MESH_FAMILIES)} family trains on a mesh; ROADMAP "
+        f"{'/'.join(MESH_FAMILIES)} families run on a mesh; ROADMAP "
         f"'Next' lists {todo}")
 
 
@@ -90,8 +91,11 @@ def abstract_cache(cfg: LMConfig, batch: int, max_seq: int):
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
-               device: str = "cuda"):
-    return init_params(cache_schema(cfg, batch, max_seq), 0, device)
+               device: str = "cuda", mesh=None):
+    """Zero decode buffers on ``device``; with a ``mesh`` that carries a
+    ``device_mesh``, DTensors placed by :func:`cache_pspecs`."""
+    check_mesh(cfg, mesh)
+    return init_params(cache_schema(cfg, batch, max_seq), 0, device, mesh)
 
 
 def cache_pspecs(cfg: LMConfig, batch: int, max_seq: int, mesh=None,
@@ -131,31 +135,46 @@ def loss_fn(cfg: LMConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
 # Serving
 # ---------------------------------------------------------------------------
 def prefill(cfg: LMConfig, params, batch):
-    """Returns (last-position logits (B, V), caches)."""
+    """Returns (last-position logits (B, V), caches).  On a mesh the
+    caches come out in the reference's cache partition (``cache_pspecs``
+    at their own lengths: the K/V positions on ``kv_seq``), as decode
+    takes them."""
     tokens = batch["tokens"]
-    if cfg.family == "encdec":
-        memory = encdec.encode(cfg, params, batch["frames"])
-        logits, caches = encdec.decode_train(cfg, params, tokens, memory,
-                                             mode="prefill")
-        ck, cv = encdec.cross_kv(cfg, params, memory)
-        cache = {"k": caches["k"], "v": caches["v"],
-                 "cross_k": ck, "cross_v": cv}
-        return logits[:, -1], cache
-    logits, _, caches, _ = lm.forward(cfg, params, tokens,
-                                      vision=batch.get("vision"),
-                                      mode="prefill")
-    if cfg.family == "vlm" and caches is not None:
-        ck, cv = lm.vlm_cross_cache(cfg, params, batch["vision"])
-        caches = {"kv": caches["kv"], "cross_k": ck, "cross_v": cv}
-    return logits[:, -1], caches
+    with replicate_plain():
+        if cfg.family == "encdec":
+            memory = encdec.encode(cfg, params, batch["frames"])
+            logits, caches = encdec.decode_train(cfg, params, tokens,
+                                                 memory, mode="prefill")
+            ck, cv = encdec.cross_kv(cfg, params, memory)
+            caches = {"k": caches["k"], "v": caches["v"],
+                      "cross_k": ck, "cross_v": cv}
+        else:
+            logits, _, caches, _ = lm.forward(cfg, params, tokens,
+                                              vision=batch.get("vision"),
+                                              mode="prefill")
+            if cfg.family == "vlm" and caches is not None:
+                ck, cv = lm.vlm_cross_cache(cfg, params, batch["vision"])
+                caches = {"kv": caches["kv"], "cross_k": ck, "cross_v": cv}
+        return logits[:, -1], _cache_partition(cfg, caches, tokens.shape)
+
+
+def _cache_partition(cfg: LMConfig, cache, tokens_shape):
+    """Each leaf of a prefill cache moved to the partition the cache
+    schema's logical axes give it at its own shape (nothing moves without
+    a mesh)."""
+    axes = {p: d.axes for p, d in
+            tree_items(cache_schema(cfg, *tokens_shape))}
+    return tree_from_items((p, shard(t, *axes[p]))
+                           for p, t in tree_items(cache))
 
 
 def decode(cfg: LMConfig, params, token, cache, index: int):
     """token: (B, 1) int; index: the position (a host int).  Updates
     ``cache`` in place; returns (logits (B, 1, V), cache)."""
-    if cfg.family == "encdec":
-        return encdec.decode_step(cfg, params, token, cache, index)
-    return lm.decode(cfg, params, token, cache, index)
+    with replicate_plain():
+        if cfg.family == "encdec":
+            return encdec.decode_step(cfg, params, token, cache, index)
+        return lm.decode(cfg, params, token, cache, index)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..columnar.device import torch_device
-from ..sharding import local_part, placed, placements, spec_for
+from ..sharding import (carried, dtensor, local_part, placed, placements,
+                        spec_for)
 
 
 # ---------------------------------------------------------------------------
@@ -104,14 +105,16 @@ def remat(cfg, fn):
     in the backward pass (``torch.utils.checkpoint``, non-reentrant), so a
     layer holds only its inputs.  ``remat_policy="save_attn"`` recomputes
     everything too: the results are the same, only the recompute's cost
-    differs.  Outside autograd ``fn`` runs as it is."""
+    differs.  Outside autograd ``fn`` runs as it is.  The recompute runs
+    under the forward's mesh and rules (:func:`sharding.carried`), so its
+    sharding constraints, and so its layouts, are the forward's."""
     if not cfg.remat:
         return fn
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(carried(), fn, *args, use_reentrant=False)
 
     return run
 
@@ -136,7 +139,6 @@ def init_params(schema, seed: int = 0, device: str = "cuda", mesh=None):
     def make(d: ParamDef):
         if dm is None:
             return fill(d, lambda x: x, d.shape)
-        from torch.distributed.tensor import DTensor
         places = placements(spec_for(d.shape, d.axes, mesh), mesh)
         # the leading (layer) axis is never sharded: a slice's placements
         # are the leaf's one dim down
@@ -145,10 +147,7 @@ def init_params(schema, seed: int = 0, device: str = "cuda", mesh=None):
         local = local_part(torch.empty(d.shape, device="meta"), dm,
                            places).shape
         out = fill(d, lambda x: local_part(x, dm, sub), local)
-        return DTensor.from_local(out, dm, places, run_check=False,
-                                  shape=torch.Size(d.shape),
-                                  stride=torch.empty(d.shape, device="meta")
-                                  .stride())
+        return dtensor(out, dm, places, d.shape)
 
     def fill(d: ParamDef, keep, shape):
         """A leaf of ``shape``: ``keep`` of each whole slice drawn."""
@@ -183,27 +182,37 @@ def count_params(schema) -> int:
     return int(sum(np.prod(d.shape) for _, d in tree_items(schema)))
 
 
-def matmul(x, w):
-    """``x @ w`` for a dense projection: x (..., K), w (K, N).
+def matmul(x, w, bias=None):
+    """``x @ w + bias`` for a dense projection: x (..., K), w (K, N),
+    bias (N,) or None; x and w of two dtypes multiply in the promoted one
+    (an f32 stub input against bf16 weights, as JAX promotes them).
 
     Placed on a mesh, the layout is fixed here rather than left to
     DTensor's cost model (whose choice depends on the sizes and, at full
     width, can shard a product's rows over "model", which its view rules
     then refuse to fold back).  On each mesh dim, in the reference's
-    GSPMD pattern: where x is batch-sharded, w is gathered over that dim
-    (FSDP) and y keeps x's rows; else where w is sharded on its output
-    dim, x is gathered and y sharded on its last dim (column-parallel);
-    else where w is sharded on its input dim, x is sharded on its last
-    dim and y is partial (row-parallel); else all three are replicated.
-    Each rank then multiplies its local blocks."""
-    if not placed(x):
-        return x @ w
+    GSPMD pattern: where x is sharded on a row dim (its batch, or a decode
+    cache's positions), w is gathered over that dim (FSDP) and y keeps
+    x's rows; else where w is sharded on its output dim, x is gathered and
+    y sharded on its last dim (column-parallel); else where w is sharded
+    on its input dim, x is sharded on its last dim and y is partial
+    (row-parallel: its partial sums in the product's dtype; a bias is
+    added after they are reduced); else all three are replicated.  Each
+    rank then multiplies its local blocks."""
+    if not placed(w):
+        y = x @ w if x.dtype == w.dtype else promote_mm(x, w)
+        return y if bias is None else y + bias
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not placed(x):                  # a plain input: the same on each rank
+        x = DTensor.from_local(x, w.device_mesh,
+                               (Replicate(),) * w.device_mesh.ndim,
+                               run_check=False)
     dm, last = x.device_mesh, x.dim() - 1
     want_x, want_w, out, grad_x, grad_w = [], [], [], [], []
     for px, pw in zip(x.placements, w.placements):
-        if px.is_shard(0):                       # FSDP: rows stay put
-            plan = (Shard(0), Replicate(), Shard(0), Shard(0), Partial())
+        if px.is_shard() and px.dim < last:      # FSDP: rows stay put
+            d = px.dim
+            plan = (Shard(d), Replicate(), Shard(d), Shard(d), Partial())
         elif pw.is_shard(1):                     # column-parallel
             plan = (Replicate(), Shard(1), Shard(last), Partial(), Shard(1))
         elif pw.is_shard(0):                     # row-parallel
@@ -215,9 +224,13 @@ def matmul(x, w):
     xl = x.redistribute(dm, want_x).to_local(grad_placements=grad_x)
     wl = w.redistribute(dm, want_w).to_local(grad_placements=grad_w)
     shape = x.shape[:-1] + w.shape[-1:]
-    return DTensor.from_local(xl @ wl, dm, out, run_check=False,
-                              shape=shape, stride=torch.empty(
-                                  shape, device="meta").stride())
+    y = dtensor(xl @ wl if xl.dtype == wl.dtype else promote_mm(xl, wl),
+                dm, out, shape)
+    if bias is None:
+        return y
+    out = [Replicate() if p.is_partial() else p for p in out]
+    return y.redistribute(dm, out) + bias.redistribute(
+        dm, [Shard(0) if p.is_shard(last) else Replicate() for p in out])
 
 
 def promote_mm(a, b):

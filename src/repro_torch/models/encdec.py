@@ -12,10 +12,10 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..sharding import shard
+from ..sharding import lookup, placed, shard, write_at
 from . import attention as att
-from .common import (ParamDef, blockwise_attention, decode_attention, layer,
-                     layer_norm, layers, remat, sinusoid_positions, stack)
+from .common import (ParamDef, layer, layer_norm, layers, matmul, remat,
+                     sinusoid_positions, stack)
 from .config import LMConfig
 
 
@@ -41,10 +41,10 @@ def _gelu_mlp_schema(cfg, L):
 
 def _gelu_mlp(p, x):
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu((x @ p["w1"] + p["b1"]).float(),
+    h = F.gelu(matmul(x, p["w1"], p["b1"]).float(),
                approximate="tanh").to(x.dtype)
     h = shard(h, "batch", "seq", "ff")
-    return h @ p["w2"] + p["b2"]
+    return matmul(h, p["w2"], p["b2"])
 
 
 def _mha_schema(cfg, L):
@@ -60,17 +60,45 @@ def _mha_schema(cfg, L):
 
 
 def _mha(cfg, p, x, memory=None, causal=False):
+    """Attention of x (B, S, d) over ``memory`` (itself by default).  On a
+    mesh its input and output hold their sequence whole, as the
+    projections read and write it (``lm._whole_seq``)."""
+    x = _whole(x)
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    mem = x if memory is None else memory
+    mem = x if memory is None else _whole(memory)
     sm = mem.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (mem @ p["wk"]).reshape(b, sm, h, hd)
-    v = (mem @ p["wv"]).reshape(b, sm, h, hd)
-    o = blockwise_attention(q, k, v, causal=causal,
-                            block_q=cfg.attn_block_q,
-                            block_kv=cfg.attn_block_kv)
-    return o.reshape(b, s, h * hd) @ p["wo"]
+    q = matmul(x, p["wq"]).reshape(b, s, h, hd)
+    k = matmul(mem, p["wk"]).reshape(b, sm, h, hd)
+    v = matmul(mem, p["wv"]).reshape(b, sm, h, hd)
+    o = att._attend(q, k, v, causal=causal, block_q=cfg.attn_block_q,
+                    block_kv=cfg.attn_block_kv)
+    return _whole(matmul(o.reshape(b, s, h * hd), p["wo"]))
+
+
+def _whole(x):
+    """``x`` (B, S, d) with its sequence whole, on a mesh."""
+    return shard(x, "batch", "seq", None)
+
+
+def _embed(params, tokens):
+    """The decoder's token embeddings.  On a mesh of more than one device
+    the table is taken whole on each rank for training, and looked up
+    where it lies for serving, as ``lm._embed`` does."""
+    table = params["embed"]
+    if placed(table) and table.device_mesh.size() > 1:
+        if not (torch.is_grad_enabled() and table.requires_grad):
+            return lookup(table, tokens).to(torch.bfloat16)
+        from torch.distributed.tensor import Replicate
+        dm = table.device_mesh
+        return F.embedding(tokens, table.redistribute(
+            dm, (Replicate(),) * dm.ndim)).to(torch.bfloat16)
+    return table[tokens].to(torch.bfloat16)
+
+
+def _unembed(cfg, params, x):
+    """The tied unembedding ``x @ embed.T``, vocab padding masked."""
+    return _mask_pad(cfg, matmul(x, params["embed"].T))
 
 
 def encdec_schema(cfg: LMConfig) -> Dict:
@@ -97,6 +125,11 @@ def encdec_schema(cfg: LMConfig) -> Dict:
 
 def _mask_pad(cfg, logits):
     if logits.shape[-1] != cfg.vocab:
+        if placed(logits):
+            # vocab-sharded: the iota compare (an in-place write to a
+            # sharded dim would be lost)
+            vidx = torch.arange(logits.shape[-1], device=logits.device)
+            return torch.where(vidx < cfg.vocab, logits, -1e30)
         logits[..., cfg.vocab:] = -1e30
     return logits
 
@@ -113,8 +146,8 @@ def encode(cfg: LMConfig, params, frames):
 
     def body(lp, h):
         h = h + _mha(cfg, lp["attn"], _ln_apply(lp["ln1"], h, cfg.norm_eps))
-        return h + _gelu_mlp(lp["mlp"], _ln_apply(lp["ln2"], h,
-                                                    cfg.norm_eps))
+        return h + _whole(_gelu_mlp(lp["mlp"], _whole(_ln_apply(
+            lp["ln2"], h, cfg.norm_eps))))
 
     body = remat(cfg, body)
     for lp in layers(params["enc_blocks"]):
@@ -125,7 +158,7 @@ def encode(cfg: LMConfig, params, frames):
 def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
     """tokens: (B, S); memory: (B, enc_seq, d). Returns (logits, caches)."""
     b, s = tokens.shape
-    x = params["embed"][tokens].to(torch.bfloat16)
+    x = _embed(params, tokens)
     x = x + params["pos_dec"][:s][None]
     x = shard(x, "batch", "act_seq", None)
 
@@ -134,13 +167,16 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
         h = h + _mha(cfg, lp["self_attn"], hn, causal=True)
         hc = _ln_apply(lp["ln2"], h, cfg.norm_eps)
         h = h + _mha(cfg, lp["cross_attn"], hc, memory=memory)
-        hm = _ln_apply(lp["ln3"], h, cfg.norm_eps)
-        h = h + _gelu_mlp(lp["mlp"], hm)
+        hm = _whole(_ln_apply(lp["ln3"], h, cfg.norm_eps))
+        h = h + _whole(_gelu_mlp(lp["mlp"], hm))
         if mode != "prefill":
             return h, None
         hd, hh = cfg.head_dim, cfg.n_heads
-        return h, {"k": (hn @ lp["self_attn"]["wk"]).reshape(b, s, hh, hd),
-                   "v": (hn @ lp["self_attn"]["wv"]).reshape(b, s, hh, hd)}
+        hn = _whole(hn)
+        return h, {"k": matmul(hn, lp["self_attn"]["wk"]).reshape(
+                       b, s, hh, hd),
+                   "v": matmul(hn, lp["self_attn"]["wv"]).reshape(
+                       b, s, hh, hd)}
 
     if mode == "train":
         body = remat(cfg, body)
@@ -149,8 +185,8 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
         x, kv = body(lp, x)
         if kv is not None:
             caches.append(kv)
-    x = _ln_apply(params["dec_ln"], x, cfg.norm_eps)
-    logits = _mask_pad(cfg, x @ params["embed"].T)   # tied unembedding
+    x = _whole(_ln_apply(params["dec_ln"], x, cfg.norm_eps))
+    logits = _unembed(cfg, params, x)
     return (shard(logits, "batch", "seq", "vocab"),
             stack(caches) if caches else None)
 
@@ -179,8 +215,8 @@ def cross_kv(cfg: LMConfig, params, memory):
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer(params["dec_blocks"]["cross_attn"], i)
-        ks.append((memory @ lp["wk"]).reshape(b, sm, h, hd))
-        vs.append((memory @ lp["wv"]).reshape(b, sm, h, hd))
+        ks.append(matmul(memory, lp["wk"]).reshape(b, sm, h, hd))
+        vs.append(matmul(memory, lp["wv"]).reshape(b, sm, h, hd))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -189,27 +225,26 @@ def decode_step(cfg: LMConfig, params, token, cache, index: int):
     its self-attention K/V written in place at ``index``."""
     b = token.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
-    x = params["embed"][token].to(torch.bfloat16)
+    x = _embed(params, token)
     x = x + params["pos_dec"][index:index + 1][None]
     for i in range(cfg.n_layers):
         lp = layer(params["dec_blocks"], i)
         ck, cv = cache["k"][i], cache["v"][i]
         hn = _ln_apply(lp["ln1"], x, cfg.norm_eps)
-        q = (hn @ lp["self_attn"]["wq"]).reshape(b, 1, h, hd)
-        ck[:, index] = (hn @ lp["self_attn"]["wk"]).reshape(b, h, hd) \
-            .to(ck.dtype)
-        cv[:, index] = (hn @ lp["self_attn"]["wv"]).reshape(b, h, hd) \
-            .to(cv.dtype)
+        q = matmul(hn, lp["self_attn"]["wq"]).reshape(b, 1, h, hd)
+        write_at(ck, 1, index, matmul(hn, lp["self_attn"]["wk"])
+                 .reshape(b, h, hd).to(ck.dtype))
+        write_at(cv, 1, index, matmul(hn, lp["self_attn"]["wv"])
+                 .reshape(b, h, hd).to(cv.dtype))
         ck = shard(ck, "batch", "kv_seq", None, None)
         cv = shard(cv, "batch", "kv_seq", None, None)
         valid = torch.arange(ck.shape[1], device=x.device) <= index
         o = att._masked_decode_attn(q, ck, cv, valid)
-        x = x + o.reshape(b, 1, h * hd) @ lp["self_attn"]["wo"]
+        x = x + matmul(o.reshape(b, 1, h * hd), lp["self_attn"]["wo"])
         hc = _ln_apply(lp["ln2"], x, cfg.norm_eps)
-        qc = (hc @ lp["cross_attn"]["wq"]).reshape(b, 1, h, hd)
-        oc = decode_attention(qc, cache["cross_k"][i], cache["cross_v"][i])
-        x = x + oc.reshape(b, 1, h * hd) @ lp["cross_attn"]["wo"]
+        x = x + att.cross_decode(cfg, lp["cross_attn"], hc,
+                                 cache["cross_k"][i], cache["cross_v"][i])
         hm = _ln_apply(lp["ln3"], x, cfg.norm_eps)
         x = x + _gelu_mlp(lp["mlp"], hm)
     x = _ln_apply(params["dec_ln"], x, cfg.norm_eps)
-    return _mask_pad(cfg, x @ params["embed"].T), cache
+    return _unembed(cfg, params, x), cache

@@ -21,12 +21,11 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import placed, shard
+from ..sharding import local_part, lookup, placed, shard
 from . import attention as att
 from . import mamba2, moe, rwkv6
-from .common import (ParamDef, decode_attention, layer, layer_norm, layers,
-                     matmul, promote_mm, remat, rms_norm, stack, swiglu,
-                     tree_map)
+from .common import (ParamDef, layer, layer_norm, layers, matmul, remat,
+                     rms_norm, stack, swiglu, tree_map)
 from .config import LMConfig
 
 
@@ -258,15 +257,18 @@ def n_layers_of(tree) -> int:
 def _embed(cfg, params, tokens):
     table = params["embed"]
     if placed(table) and table.device_mesh.size() > 1:
-        # the table whole on each rank (its gradient comes back partial):
-        # DTensor's vocab-parallel lookup does not survive the act_seq
-        # redistribution, and an index's backward has no DTensor rule; a
-        # one-device mesh keeps the index, bit for bit
-        from torch.distributed.tensor import Replicate
-        dm = table.device_mesh
-        x = F.embedding(tokens, table.redistribute(
-            dm, (Replicate(),) * dm.ndim))
-    else:
+        if torch.is_grad_enabled() and table.requires_grad:
+            # the table whole on each rank (its gradient comes back
+            # partial): DTensor's vocab-parallel lookup does not survive
+            # the act_seq redistribution, and an index's backward has no
+            # DTensor rule
+            from torch.distributed.tensor import Replicate
+            dm = table.device_mesh
+            x = F.embedding(tokens, table.redistribute(
+                dm, (Replicate(),) * dm.ndim))
+        else:                      # serving: the table stays where it is
+            x = lookup(table, tokens)
+    else:                          # a one-device mesh keeps the index
         x = table[tokens]
     return shard(x.to(torch.bfloat16), "batch", "act_seq", None)
 
@@ -301,7 +303,7 @@ def _blocks(cfg, params, x, kind, mode):
 def _mamba_layer(cfg, lp, h):
     out, (cs, ss) = mamba2.mamba_train(cfg, lp["mamba"],
                                        rms_norm(h, lp["norm"], cfg.norm_eps))
-    return h + out, {"conv": cs, "ssm": ss}
+    return h + _whole_seq(cfg, out), {"conv": cs, "ssm": ss}
 
 
 def _mamba_layers(cfg, params, h, body=None):
@@ -356,12 +358,12 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
                 aux = aux + a
                 kvs.append(kv)
             # gated cross-attn layer
-            hn = rms_norm(h, cp["attn_norm"], cfg.norm_eps)
-            ca = att.cross_attn(cfg, cp["attn"], hn, vision)
+            hn = _whole_seq(cfg, rms_norm(h, cp["attn_norm"], cfg.norm_eps))
+            ca = _whole_seq(cfg, att.cross_attn(cfg, cp["attn"], hn, vision))
             h = h + torch.tanh(cp["gate_attn"]).to(h.dtype) * ca
-            hm = rms_norm(h, cp["mlp_norm"], cfg.norm_eps)
+            hm = _whole_seq(cfg, rms_norm(h, cp["mlp_norm"], cfg.norm_eps))
             h = h + torch.tanh(cp["gate_mlp"]).to(h.dtype) \
-                * mlp_apply(cp["mlp"], hm)
+                * _whole_seq(cfg, mlp_apply(cp["mlp"], hm))
             return h, aux, kvs
 
         body = remat(cfg, group)
@@ -378,7 +380,8 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
 
         def group(lps, h):
             # shared attention block (concat with the original embedding)
-            hin = torch.cat([h, emb0], dim=-1) @ shared["proj"]
+            hin = matmul(_whole_seq(cfg, torch.cat([h, emb0], dim=-1)),
+                         shared["proj"])
             hb, a, kv = attn_ff_block(cfg, shared, hin, kind="dense",
                                       mode=mode, window=cfg.window)
             h, st = _mamba_layers(cfg, lps, h + hb)
@@ -426,8 +429,17 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
 # Decode
 # ---------------------------------------------------------------------------
 def _put(dst, src):
-    """Write a layer's new recurrent state into its cache views."""
-    tree_map(lambda d, s: d.copy_(s), dst, src)
+    """Write a layer's new recurrent state into its cache views.  A
+    placed view takes the new state in its own placement, written into
+    its local block (the stacked cache's storage) on every rank."""
+    def put(d, s):
+        if not placed(d):
+            d.copy_(s)
+            return
+        dm, want = d.device_mesh, tuple(d.placements)
+        d.to_local().copy_(s.redistribute(dm, want).to_local() if placed(s)
+                           else local_part(s, dm, want))
+    tree_map(put, dst, src)
 
 
 def _decode_blocks(cfg, params, kv, x, kind, index):
@@ -444,7 +456,7 @@ def _mamba_decode_layers(cfg, params, states, h):
         out, ns = mamba2.mamba_decode(
             cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps), st)
         _put(st, ns)
-        h = h + out
+        h = h + _whole_seq(cfg, out)
     return h
 
 
@@ -476,19 +488,20 @@ def decode(cfg: LMConfig, params, token, cache, index: int):
                     cfg, layer(params["self_blocks"], i), x, kind="dense",
                     mode="decode", cache=layer(cache["kv"], i), index=index)
             cp = layer(params["cross_blocks"], g)
-            hn = rms_norm(x, cp["attn_norm"], cfg.norm_eps)
-            ca = _cached_cross_decode(cfg, cp["attn"], hn,
-                                      cache["cross_k"][g],
-                                      cache["cross_v"][g])
+            hn = _whole_seq(cfg, rms_norm(x, cp["attn_norm"], cfg.norm_eps))
+            ca = _whole_seq(cfg, att.cross_decode(
+                cfg, cp["attn"], hn, cache["cross_k"][g],
+                cache["cross_v"][g]))
             x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * ca
-            hm = rms_norm(x, cp["mlp_norm"], cfg.norm_eps)
+            hm = _whole_seq(cfg, rms_norm(x, cp["mlp_norm"], cfg.norm_eps))
             x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) \
-                * mlp_apply(cp["mlp"], hm)
+                * _whole_seq(cfg, mlp_apply(cp["mlp"], hm))
 
     elif f == "zamba":
         shared = params["shared"]
         for g in range(n_layers_of(params["mamba_groups"])):
-            hin = torch.cat([x, emb0], dim=-1) @ shared["proj"]
+            hin = matmul(_whole_seq(cfg, torch.cat([x, emb0], dim=-1)),
+                         shared["proj"])
             hb, _, _ = attn_ff_block(cfg, shared, hin, kind="dense",
                                      mode="decode",
                                      cache=layer(cache["attn"], g),
@@ -512,14 +525,6 @@ def decode(cfg: LMConfig, params, token, cache, index: int):
     return _logits(cfg, params, x), cache
 
 
-def _cached_cross_decode(cfg, p, x, k, v):
-    b = x.shape[0]
-    h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, h, hd)
-    o = decode_attention(q, k, v)
-    return o.reshape(b, 1, h * hd) @ p["wo"]
-
-
 def vlm_cross_cache(cfg: LMConfig, params, vision):
     """Precompute cross-attn K/V from vision states (prefill side); an f32
     vision stub gives f32 K/V, as in the reference."""
@@ -529,8 +534,8 @@ def vlm_cross_cache(cfg: LMConfig, params, vision):
     ks, vs = [], []
     for g in range(n_layers_of(cross)):
         cp = layer(cross, g)
-        ks.append(promote_mm(vision, cp["wk"]).reshape(b, simg, h, hd))
-        vs.append(promote_mm(vision, cp["wv"]).reshape(b, simg, h, hd))
+        ks.append(matmul(vision, cp["wk"]).reshape(b, simg, h, hd))
+        vs.append(matmul(vision, cp["wv"]).reshape(b, simg, h, hd))
     return torch.stack(ks), torch.stack(vs)
 
 

@@ -15,8 +15,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import shard
-from .common import ParamDef, rms_norm
+from ..sharding import (dtensor, local_rows, local_whole, placed, rows_of,
+                        shard)
+from .common import ParamDef, matmul, rms_norm
 from .config import LMConfig
 
 
@@ -114,15 +115,47 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y.to(x.dtype), hstate
 
 
+#: the mixer's small weights (the projections are products)
+_MIXER = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+
+
+def _on_rows(fn, zxbcdt, p, *states):
+    """``fn(zxbcdt, weights, *states)`` -> (y, *new states), on plain
+    tensors.  Placed on a mesh, each rank runs it on its own batch rows,
+    the projected streams and the mixer's weights whole (the in-projection
+    splits its columns into z | x | B | C | dt, which no even block of
+    them follows), and its results are placed by those rows; the states
+    move to their schema's placement where they are stored."""
+    weights = {k: p[k] for k in _MIXER}
+    if not placed(zxbcdt):
+        return fn(zxbcdt, weights, *states)
+    rows = rows_of(zxbcdt)
+    dm = zxbcdt.device_mesh
+    out = fn(local_rows(zxbcdt, rows),
+             {k: local_whole(w, rows) for k, w in weights.items()},
+             *(local_rows(t, rows) if placed(t) else t for t in states))
+    return tuple(dtensor(t, dm, rows, (zxbcdt.shape[0],) + t.shape[1:])
+                 for t in out)
+
+
 def mamba_train(cfg: LMConfig, p, u, conv_state=None, ssm_state=None):
     """u: (B, S, d) -> (out (B, S, d), (conv_state, ssm_state))."""
-    b, s, _ = u.shape
-    hh, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    zxbcdt = u @ p["in_proj"]
+    if not cfg.seq_parallel_proj:
+        u = shard(u, "batch", "seq", None)    # the recurrence's whole sequence
+    zxbcdt = matmul(u, p["in_proj"])
     if cfg.seq_parallel_proj:
         # the in-projection kept sequence-parallel (weights gathered, not
         # activations); the recurrence needs full-sequence channel shards
         zxbcdt = shard(zxbcdt, "batch", "act_seq", None)
+    y, conv_new, ssm_new = _on_rows(
+        lambda zx, w, cs, ss: _mix_train(cfg, zx, w, cs, ss), zxbcdt, p,
+        conv_state, ssm_state)
+    return matmul(y, p["out_proj"]), (conv_new, ssm_new)
+
+
+def _mix_train(cfg: LMConfig, zxbcdt, p, conv_state, ssm_state):
+    b, s, _ = zxbcdt.shape
+    hh, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     z, x, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, Bm, Cm], dim=-1)
     xbc, conv_new = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
@@ -136,7 +169,7 @@ def mamba_train(cfg: LMConfig, p, u, conv_state=None, ssm_state=None):
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(b, s, cfg.d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], (conv_new, ssm_new)
+    return y, conv_new, ssm_new
 
 
 def mamba_state_schema(cfg: LMConfig, batch: int,
@@ -158,20 +191,27 @@ def mamba_state_schema(cfg: LMConfig, batch: int,
 def mamba_decode(cfg: LMConfig, p, u, state):
     """One-token recurrent step. u: (B, 1, d); state: {"conv","ssm"}.
     Returns (out, new state)."""
-    b = u.shape[0]
+    y, conv_new, h = _on_rows(
+        lambda zx, w, cs, ss: _mix_decode(cfg, zx, w, cs, ss),
+        matmul(u, p["in_proj"]), p, state["conv"], state["ssm"])
+    return matmul(y, p["out_proj"]), {"conv": conv_new, "ssm": h}
+
+
+def _mix_decode(cfg: LMConfig, zxbcdt, p, conv_state, ssm_state):
+    b = zxbcdt.shape[0]
     hh, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    z, x, Bm, Cm, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, x, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, Bm, Cm], dim=-1)
-    xbc, conv_new = _causal_conv(xbc, p["conv_w"], p["conv_b"], state["conv"])
+    xbc, conv_new = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     x, Bm, Cm = xbc.split([cfg.d_inner, n, n], dim=-1)
     dt = _softplus(dt.float() + p["dt_bias"])[:, 0]                   # (B,H)
     A = -torch.exp(p["A_log"])
     xh = x.reshape(b, hh, pdim).float()
     decay = torch.exp(dt * A)                                         # (B,H)
-    h = state["ssm"] * decay[:, :, None, None] + torch.einsum(
+    h = ssm_state * decay[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhnp", dt, Bm[:, 0].float(), xh)
     y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
     y = y + xh * p["D"][None, :, None]
-    y = y.reshape(b, 1, cfg.d_inner).to(u.dtype)
+    y = y.reshape(b, 1, cfg.d_inner).to(zxbcdt.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": conv_new, "ssm": h}
+    return y, conv_new, h

@@ -16,7 +16,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ParamDef, layer_norm
+from ..sharding import dtensor, local_part, placed, shard
+from .common import ParamDef, layer_norm, matmul
 from .config import LMConfig
 
 
@@ -58,13 +59,14 @@ def _streams(cfg, p, x, x_prev):
     xx = torch.cat([x_prev, x[:, :-1]], dim=1)
     z = x[:, :, None, :] + p["mu"][None, None] * (xx - x)[:, :, None, :]
     zr, zk, zv, zg, zw = z.unbind(2)
-    r = zr @ p["wr"]
-    k = zk @ p["wk"]
-    v = zv @ p["wv"]
-    g = zg @ p["wg"]
+    r = matmul(zr, p["wr"])
+    k = matmul(zk, p["wk"])
+    v = matmul(zv, p["wv"])
+    g = matmul(zg, p["wg"])
     w = torch.exp(-torch.exp(
         p["decay_w0"]
-        + (torch.tanh(zw @ p["decay_w1"]) @ p["decay_w2"]).float()))
+        + matmul(torch.tanh(matmul(zw, p["decay_w1"])),
+                 p["decay_w2"]).float()))
     return r, k, v, g, w
 
 
@@ -81,6 +83,32 @@ def _wkv_scan(r, k, v, w, u, s0):
     return torch.stack(ys, dim=1), s
 
 
+def _wkv_on_heads(r, k, v, w, u, s0):
+    """:func:`_wkv_scan` of (B, S, H, P) streams.  Placed on a mesh (the
+    streams sharded over batch and heads, as the projections leave them),
+    each rank scans its own rows and heads: the state ``s0`` (B, H, P, P)
+    and the bonus ``u`` (H, P) are brought to the same blocks, and the
+    results are placed by them."""
+    if not placed(r):
+        return _wkv_scan(r, k, v, w, u, s0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm, rp = r.device_mesh, tuple(r.placements)
+    # the state's and the bonus's blocks: rows and heads as the streams'
+    sp = tuple(Shard(1) if p.is_shard(2) else p for p in rp)
+    up = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in rp)
+    ug = tuple(Shard(0) if p.is_shard(2) else Partial() if p.is_shard()
+               else Replicate() for p in rp)
+    s0l = (s0.redistribute(dm, sp).to_local(grad_placements=sp)
+           if placed(s0) else local_part(s0, dm, sp))
+    y, s_fin = _wkv_scan(*(t.to_local(grad_placements=rp)
+                           for t in (r, k, v, w)),
+                         u.redistribute(dm, up).to_local(
+                             grad_placements=ug), s0l)
+    b, _, h, pd = r.shape
+    return dtensor(y, dm, rp, r.shape), dtensor(s_fin, dm, sp,
+                                                (b, h, pd, pd))
+
+
 def rwkv_time_mix(cfg: LMConfig, p, x, state_s, x_prev):
     """x: (B,S,d). Returns (out, new_state_s, new_x_prev)."""
     b, s, d = x.shape
@@ -92,11 +120,12 @@ def rwkv_time_mix(cfg: LMConfig, p, x, state_s, x_prev):
     vh = v.reshape(b, s, h, pd).float()
     wh = w.reshape(b, s, h, pd)
     u = p["bonus_u"].reshape(h, pd)
-    y, s_fin = _wkv_scan(rh, kh, vh, wh, u, state_s)
-    y = y.reshape(b, s, d)
+    y, s_fin = _wkv_on_heads(rh, kh, vh, wh, u, state_s)
+    y = shard(y.reshape(b, s, d), "batch", "seq", None)
     y = layer_norm(y, p["lnx_s"], p["lnx_b"], cfg.norm_eps).to(x.dtype)
     y = y * F.silu(g.float()).to(x.dtype)
-    return y @ p["wo"], s_fin, x[:, -1:, :]
+    return shard(matmul(y, p["wo"]), "batch", "seq", None), s_fin, \
+        x[:, -1:, :]
 
 
 def rwkv_channel_mix(cfg: LMConfig, p, x, x_prev):
@@ -104,9 +133,10 @@ def rwkv_channel_mix(cfg: LMConfig, p, x, x_prev):
     mu = p["cmix_mu"]
     zk = x + mu[None, None, 0] * (xx - x)
     zr = x + mu[None, None, 1] * (xx - x)
-    kk = torch.square(F.relu((zk @ p["ck"]).float())).to(x.dtype)
-    rr = torch.sigmoid((zr @ p["cr"]).float()).to(x.dtype)
-    return rr * (kk @ p["cv"]), x[:, -1:, :]
+    kk = torch.square(F.relu(matmul(zk, p["ck"]).float())).to(x.dtype)
+    rr = torch.sigmoid(matmul(zr, p["cr"]).float()).to(x.dtype)
+    kv = shard(matmul(kk, p["cv"]), "batch", "seq", None)
+    return shard(rr * kv, "batch", "seq", None), x[:, -1:, :]
 
 
 def rwkv_state_schema(cfg: LMConfig, batch: int,
@@ -129,7 +159,9 @@ def rwkv_state_schema(cfg: LMConfig, batch: int,
 
 def rwkv_block(cfg: LMConfig, p, x, state):
     """Full block (time-mix + channel-mix). Works for S>=1; state threads
-    the recurrence across calls."""
+    the recurrence across calls.  On a mesh ``x`` is taken with its
+    sequence whole (the token shift reads the previous position)."""
+    x = shard(x, "batch", "seq", None)
     h1 = layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
     att, s_new, tm_prev = rwkv_time_mix(cfg, p, h1, state["s"],
                                         state["tm_prev"])

@@ -11,6 +11,7 @@ alongside its sibling routing rules).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -25,8 +26,11 @@ from ..columnar.table import Table
 from ..convert import tensor_from_array
 from ..core import Node
 from ..models import api
-from ..models.common import tree_map
+from ..models.common import tree_items, tree_map
 from ..models.config import LMConfig
+from ..sharding import (block_of, current_mesh, distribute, dtensor,
+                        local_part, named_sharding, placed, placements,
+                        use_mesh)
 
 
 class RequestRouter:
@@ -136,7 +140,16 @@ class _Clock:
 
 class ServeEngine:
     """Fixed-slot batched generation over any registry architecture, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).
+
+    On placed parameters (DTensors on a (data, model) mesh, one process
+    per device) every rank runs the same calls: the prompts and stub
+    inputs are placed by their partitions (batch over "data"), the
+    prefill cache comes out in the reference's cache partition, and the
+    decode buffers are placed by ``api.cache_pspecs`` (the K/V positions
+    over "model"), so each decode step writes and reads each rank's own
+    block.  Under the caller's ``use_mesh`` when one is active, else the
+    parameters' own mesh and the default rules."""
 
     def __init__(self, cfg: LMConfig, params, batch_size: int, max_seq: int,
                  device: str = "cuda"):
@@ -156,12 +169,22 @@ class ServeEngine:
         b, plen = prompts.shape
         if b != self.batch:
             raise ValueError(f"{b} prompts for {self.batch} slots")
-        with torch.inference_mode():
+        mesh = self._mesh()
+        # placed: no_grad, as DTensor's view ops (a layer's slice of a
+        # stacked parameter) refuse tensors made outside inference mode
+        with (torch.no_grad() if mesh is not None
+              else torch.inference_mode()), (
+                use_mesh(mesh) if mesh is not None and current_mesh() is None
+                else contextlib.nullcontext()):
             batch = {"tokens": torch.as_tensor(np.asarray(prompts),
                                                dtype=torch.long,
                                                device=self.device)}
             for k, v in (batch_extras or {}).items():
                 batch[k] = tensor_from_array(np.asarray(v), self.device)
+            if mesh is not None:
+                batch = {k: distribute(v, named_sharding(
+                    v.shape, ("batch",) + (None,) * (v.dim() - 1), mesh))
+                    for k, v in batch.items()}
             clock = _Clock(self.device)
             clock.mark()
             logits, cache = api.prefill(self.cfg, self.params, batch)
@@ -175,17 +198,36 @@ class ServeEngine:
                 tok = torch.argmax(logits[:, -1], dim=-1).reshape(b, 1)
                 out.append(tok)
                 clock.mark()
-            tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+            tokens = torch.cat(out, dim=1)
+            if placed(tokens):
+                tokens = tokens.full_tensor()
+            tokens = tokens.cpu().numpy().astype(np.int32)
         ms = clock.intervals_ms()
         self.timings = {"prefill_ms": ms[0], "step_ms": ms[1:]}
         return tokens
+
+    def _mesh(self):
+        """The mesh the parameters are placed on, or None."""
+        leaf = next(t for _, t in tree_items(self.params))
+        if not placed(leaf):
+            return None
+        if current_mesh() is not None:
+            return current_mesh()
+        from ..launch.mesh import mesh_of
+        return mesh_of(leaf.device_mesh)
 
     def _grow_cache(self, cache, plen: int):
         """The decode buffers, allocated once at ``max_seq``: each prefill
         cache is copied into the front of its buffer along the one axis
         that differs (the sequence), or cropped to its most recent window
-        where the buffer is shorter (zamba's windowed attention)."""
+        where the buffer is shorter (zamba's windowed attention).  A
+        placed cache grows into buffers placed by ``api.cache_pspecs``
+        (:meth:`_grow_placed`)."""
         target = api.abstract_cache(self.cfg, self.batch, self.max_seq)
+        if placed(next(t for _, t in tree_items(cache))):
+            specs = api.cache_pspecs(self.cfg, self.batch, self.max_seq,
+                                     current_mesh())
+            return tree_map(self._grow_placed, cache, target, specs)
 
         def fit(src, dst):
             if tuple(src.shape) == tuple(dst.shape):
@@ -200,3 +242,34 @@ class ServeEngine:
             return buf
 
         return tree_map(fit, cache, target)
+
+    @staticmethod
+    def _grow_placed(src, dst, spec):
+        """One decode buffer of ``dst``'s shape placed by ``spec``, from the
+        placed prefill cache ``src``.  Each rank allocates its own block
+        and copies into it the prefill positions that fall there (the
+        most recent window where the buffer is shorter): the prefill
+        cache is first made whole along its position axis (an all-gather
+        of its few positions over "model"); the buffer is never
+        gathered."""
+        from torch.distributed.tensor import Replicate
+        dm = src.device_mesh
+        want = placements(spec, current_mesh())
+        if tuple(src.shape) == tuple(dst.shape):
+            return src.redistribute(dm, want).to(dst.dtype)
+        ax = next(a for a, (s, d) in enumerate(zip(src.shape, dst.shape))
+                  if s != d)
+        s, d = src.shape[ax], dst.shape[ax]
+        part = src.redistribute(dm, [Replicate() if p.is_shard(ax) else p
+                                     for p in want]).to_local()
+        local = torch.zeros(local_part(dst, dm, want).shape,
+                            dtype=dst.dtype, device=part.device)
+        lo, n = block_of(dst.shape, ax, dm, want)
+        if s > d:                          # keep the most recent window
+            local.copy_(part.narrow(ax, s - d + lo, n))
+        else:
+            hi = min(lo + n, s)
+            if hi > lo:
+                local.narrow(ax, 0, hi - lo).copy_(
+                    part.narrow(ax, lo, hi - lo))
+        return dtensor(local, dm, want, dst.shape)

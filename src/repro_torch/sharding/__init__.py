@@ -76,6 +76,21 @@ def current_mesh():
     return _get()[0]
 
 
+def carried():
+    """A function that runs ``fn(*args)`` under the (mesh, rules)
+    installed on this thread now, on whichever thread calls it: autograd
+    recomputes a checkpointed layer on its own device thread, where this
+    thread's :func:`use_mesh` is not installed."""
+    mesh, rules = _get()
+
+    def call(fn, *args):
+        if mesh is None:
+            return fn(*args)
+        with use_mesh(mesh, rules):
+            return fn(*args)
+    return call
+
+
 def _resolve_axis(rule: Axes, mesh, dim_size: int, used=frozenset()) -> Axes:
     """Keep the longest prefix of mesh axes whose product divides dim_size,
     skipping axes already used by earlier dims."""
@@ -211,6 +226,134 @@ def local_part(x, device_mesh, places):
     return x
 
 
+def block(x, dim: int) -> Tuple[int, int]:
+    """``(lo, n)``: the positions ``[lo, lo + n)`` of dim ``dim`` that this
+    rank's block of ``x`` holds (the whole dim for a plain tensor or an
+    unsharded dim), as :func:`local_part` splits it."""
+    if not placed(x):
+        return 0, x.shape[dim]
+    return block_of(x.shape, dim, x.device_mesh, x.placements)
+
+
+def block_of(shape, dim: int, device_mesh, places) -> Tuple[int, int]:
+    """``(lo, n)`` of :func:`block` for a tensor of global ``shape`` placed
+    by ``places`` on ``device_mesh``."""
+    lo, n = 0, shape[dim]
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(places):
+        if p.is_shard(dim):
+            n //= device_mesh.size(i)
+            lo += coord[i] * n
+    return lo, n
+
+
+def seq_dims(x, dim: int) -> Tuple[int, ...]:
+    """The mesh dims over which dim ``dim`` of ``x`` is sharded (none for
+    a plain tensor)."""
+    if not placed(x):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements) if p.is_shard(dim))
+
+
+def write_at(t, dim: int, pos: int, value) -> None:
+    """``t[..., pos, ...] = value`` along dim ``dim``, in place.  ``value``
+    has ``t``'s shape without that dim.  On a placed ``t`` only the rank
+    whose block of dim ``dim`` holds ``pos`` writes, at ``pos - lo`` of its
+    local block (``value`` brought to ``t``'s placement of the other dims
+    first); every other rank writes nothing.  A plain ``t``, or an
+    unsharded dim, takes the plain index assignment.  Writes into the
+    local blocks directly, so it works under ``torch.inference_mode()``
+    (a DTensor's own ``__setitem__`` on a sharded dim loses the write)."""
+    idx = (slice(None),) * dim
+    if not placed(t):
+        t[idx + (pos,)] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    dm = t.device_mesh
+    want = tuple(Replicate() if p.is_shard(dim) else
+                 Shard(p.dim - (p.dim > dim)) if p.is_shard() else p
+                 for p in t.placements)
+    if placed(value):
+        v = value.redistribute(dm, want).to_local()
+    else:
+        v = local_part(value, dm, want)
+    lo, n = block(t, dim)
+    if lo <= pos < lo + n:
+        t.to_local()[idx + (pos - lo,)] = v
+
+
+def lookup(table, tokens):
+    """``table[tokens]``, the rows of a placed (V, d) ``table``, without
+    moving the table: each rank looks up every token (the tokens
+    gathered: small) in its own block of rows and columns, a token whose
+    row lies in another block giving zeros; the blocks are summed over the
+    mesh dims that split the rows (exact: each row lies in one block) and
+    the result placed by the tokens' batch placement, whole over every
+    other mesh dim.  Outside autograd only: an index's backward has no
+    DTensor rule."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = table.device_mesh
+    whole = (Replicate(),) * dm.ndim
+    tok = tokens.redistribute(dm, whole).to_local() if placed(tokens) \
+        else tokens
+    lo, n = block(table, 0)
+    ids = tok - lo
+    local = table.to_local()
+    x = F.embedding(ids.clamp(0, n - 1), local)
+    x = torch.where(((ids >= 0) & (ids < n))[..., None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    places = tuple(Partial() if p.is_shard(0) else
+                   Shard(tok.dim()) if p.is_shard(1) else Replicate()
+                   for p in table.placements)
+    y = dtensor(x, dm, places, tuple(tok.shape) + tuple(table.shape[1:]))
+    return y.redistribute(dm, rows_of(tokens) if placed(tokens) else whole)
+
+
+def dtensor(local, device_mesh, places, shape):
+    """A DTensor of global ``shape`` from this rank's block ``local``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, device_mesh, tuple(places),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(tuple(shape), device="meta")
+                              .stride())
+
+
+def rows_of(x) -> Tuple:
+    """The placements of ``x``'s rows (its dim 0, the batch): ``x``'s own
+    on the mesh dims that shard dim 0, ``Replicate()`` on every other."""
+    from torch.distributed.tensor import Replicate
+    return tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+
+
+def local_rows(t, rows):
+    """This rank's rows of a placed ``t`` (batch on dim 0), every other
+    dim whole: the block plain code runs on.  The rank computes those rows
+    alone, so their gradient has the same placement."""
+    return t.redistribute(t.device_mesh, rows).to_local(grad_placements=rows)
+
+
+def local_whole(w, rows):
+    """A placed weight ``w`` whole on each rank, for plain code on the
+    rows ``rows``: its gradient is partial over the mesh dims that split
+    the rows and the same on every other."""
+    from torch.distributed.tensor import Partial, Replicate
+    return w.redistribute(w.device_mesh, (Replicate(),) * len(rows)) \
+        .to_local(grad_placements=tuple(Partial() if r.is_shard() else
+                                        Replicate() for r in rows))
+
+
+def all_reduce(x, op: str, device_mesh, mesh_dims: Sequence[int]):
+    """A plain (local) tensor reduced (``"sum"`` or ``"max"``) over the
+    ranks of ``mesh_dims`` of ``device_mesh``, one functional collective
+    per mesh dim (no host sync; :class:`~repro_torch.launch.roofline.
+    CollectiveCounter` counts them)."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in mesh_dims:
+        x = funcol.all_reduce(x, op, (device_mesh, i))
+    return funcol.wait_tensor(x) if mesh_dims else x
+
+
 def distribute(x, sharding):
     """``x``, the same whole tensor on every rank, as a DTensor placed by
     ``sharding``: a :class:`NamedSharding` on a mesh with a
@@ -218,7 +361,6 @@ def distribute(x, sharding):
     Each rank copies its own block to its device; nothing moves between
     ranks.  A :class:`NamedSharding` on a mesh without a ``device_mesh``
     returns ``x`` as it is."""
-    from torch.distributed.tensor import DTensor
     if isinstance(sharding, NamedSharding):
         dm = getattr(sharding.mesh, "device_mesh", None)
         if dm is None:
@@ -231,10 +373,7 @@ def distribute(x, sharding):
            if dm.device_type == "cuda" else torch.device(dm.device_type))
     local = torch.empty(part.shape, dtype=x.dtype, device=dev)
     local.copy_(part)
-    return DTensor.from_local(local, dm, places, run_check=False,
-                              shape=x.shape,
-                              stride=torch.empty(x.shape, device="meta")
-                              .stride())
+    return dtensor(local, dm, places, x.shape)
 
 
 def batch_axes(mesh=None) -> Tuple[str, ...]:

@@ -80,6 +80,10 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4,
             zip(paths, grads))
 
     def compute_grads(params, batch):
+        # a batch given placed (launch.dryrun.build_step places it as the
+        # reference's in_shardings do) is taken whole: each microbatch is
+        # a slice of the global batch, placed by grads_of
+        batch = {n: whole(x) for n, x in batch.items()}
         k = cfg.microbatch
         if k <= 1:
             return grads_of(params, batch)
