@@ -176,8 +176,30 @@ Phases:
    loss, each rank against one device on its own card
    (``MESH_F32_TOL``, ``MESH_F32_LOSS_TOL``).  No rank launches a port
    kernel
+18. the MoE families on a (data x model) mesh: the reference's
+   expert-parallel layer (each rank its block of experts, one psum over
+   "model"), prefill and decode on placed experts and a placed cache,
+   AdamW and Adafactor on placed leaves, in NCCL ranks as phase 17's.  On
+   one card a 1x1 mesh: qwen3-moe-30b-a3b FULL (48 layers) in phase 13's
+   cell with the cache cut to ``MOE_SERVE_SEQ`` positions, its 16 tokens
+   and each step's logits bit-equal to one device's in the same rank (run
+   first and freed); one AdamW and one Adafactor step of its FULL widths
+   at ``MOE_TRAIN_LAYERS`` layers (Adafactor updates the expert leaves
+   slice by slice); deepseek-v3 SMOKE's Adafactor step, prefill and
+   decode steps; each bit-equal to one device, with one host sync per MoE
+   layer and decode step.  On four cards a 2x2 mesh: qwen3-moe FULL, 48
+   layers (per rank as phase 17's granite, its logits held to
+   ``LM_FWD_TOL_FULL`` and ``LM_AGREE``), ``MOE_TRAIN_STEPS`` AdamW steps
+   at ``MOE_TRAIN_LAYERS`` layers (step 0 within ``TRAIN_LOSS_TOL``) and
+   as many Adafactor steps (each within it), deepseek-v3 at FULL widths
+   cut to ``DEEPSEEK_LAYERS`` layers (its bf16 logits held as full depth
+   is, ``LM_FWD_TOL_FULL`` and ``LM_AGREE``), deepseek-v3 SMOKE's
+   ``MOE_TRAIN_STEPS`` Adafactor steps (each within ``TRAIN_LOSS_TOL``),
+   and the f32 witness: qwen3-moe at ``MOE_TRAIN_LAYERS`` layers (logits
+   and loss) and deepseek-v3's cut (logits), within ``MESH_F32_TOL``.  No
+   rank launches a port kernel
 
-Each path of phases 3-6 and 8-17 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-18 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -207,9 +229,12 @@ stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
 directory of another checkout).  ``--child MODE ARGS`` is phase 10's
 child process, started by the script itself.  ``python3 chip_smoke.py
---mesh-only`` runs phases 16 and 17 alone (a host with four cards runs
-their 2x2 cases), after one device's 16-layer step as phase 16's loss's
-reference; ``--mesh-only 16`` or ``--mesh-only 17`` runs one of them.
+--mesh-only`` runs phases 16, 17 and 18 alone (a host with four cards
+runs their 2x2 cases), after one device's 16-layer step as phase 16's
+loss's reference; ``--mesh-only 16``, ``17`` or ``18`` runs one of them.
+``python3 chip_smoke.py --moe-memory SRC`` prints, with the package from
+``SRC``, one device's peak in a qwen3-moe train step and the dry-run's
+memory record of its ``train_4k`` cell (two trees' MoE layers compared).
 """
 from __future__ import annotations
 
@@ -332,6 +357,8 @@ PATH_KERNELS = {
     "lm_mesh": (),
     # phase 17: every family without experts on a mesh, likewise
     "lm_mesh_serve": (),
+    # phase 18: the MoE families on a mesh, likewise
+    "lm_mesh_moe": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -5107,13 +5134,14 @@ def engine_step(cfg, params, tok, cache, index):
     return logits, cache
 
 
-def family_batch(cfg, dev):
-    """The families' AdamW step batch: seeded tokens on the card and the
-    stub frontend inputs as tests/test_models_smoke.py makes them."""
+def family_batch(cfg, dev, i=0):
+    """The families' train step ``i``'s batch: seeded tokens on the card
+    and the stub frontend inputs as tests/test_models_smoke.py makes
+    them."""
     import torch
 
     from repro_torch.convert import tensor_from_array
-    g = torch.Generator(device=dev).manual_seed(17)
+    g = torch.Generator(device=dev).manual_seed(17 + i)
     batch = {"tokens": torch.randint(0, cfg.vocab, (
         FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ + 1), generator=g, device=dev)}
     for k, v in (lm_extras(cfg, FAMILY_TRAIN_BATCH) or {}).items():
@@ -5134,17 +5162,24 @@ def family_params(cfg, dev, mesh=None):
 
 
 def family_case(arch, dev, mesh, shape):
-    """One of the five families on one device, then on ``mesh``: one
-    AdamW step (loss, and the state's fingerprint), then a prefill and
-    FAMILY_STEPS decode steps (the mesh fed one device's tokens)."""
+    """One of the five families at FULL width cut in depth
+    (``FAMILY_CUTS``): :func:`config_case` with one step."""
+    from repro_torch.configs import get_config
+    return config_case(get_config(arch).replace(**FAMILY_CUTS[arch]), arch,
+                       dev, mesh, shape)
+
+
+def config_case(cfg, arch, dev, mesh, shape, train_steps=1, serve=True):
+    """``cfg`` on one device, then on ``mesh``: ``train_steps`` steps of
+    its optimizer (each step's loss, and the state's fingerprint), then
+    with ``serve`` a prefill and FAMILY_STEPS decode steps (the mesh fed
+    one device's tokens)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.sharding import use_mesh
     from repro_torch.train import make_train_step
-    cfg = get_config(arch).replace(**FAMILY_CUTS[arch])
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
     extras = lm_extras(cfg, SERVE_BATCH)
@@ -5152,38 +5187,58 @@ def family_case(arch, dev, mesh, shape):
     for where in ("one", shape):
         on = None if where == "one" else mesh
         t0 = time.perf_counter()
+        r = {"losses": [], "fingerprint": None, "peak_bytes": 0,
+             "train_peak_bytes": 0}
         with use_mesh(on) if on is not None else contextlib.nullcontext():
-            params = family_params(cfg, dev, on)
-            step = make_train_step(cfg, lr=TRAIN_LR, params_pspecs=None
-                                   if on is None else api.pspecs(cfg, on))
-            state = step.init_state(params)
-            params, state, m = step(params, state, family_batch(cfg, dev))
-            r = {"loss": float(m["loss"]),
-                 "fingerprint": fingerprint({"params": params,
-                                             "opt": state})}
-            del params, state, step
-            torch.cuda.empty_cache()
-            s = serve_case(cfg, family_params(cfg, dev, on), prompts, extras,
-                           FAMILY_STEPS + 1, dev, mesh=on,
-                           force=None if on is None else got["one"]["gen"])
-            r.update(gen=s["gen"], logits=s["logits"],
-                     peak_bytes=s["peak_bytes"])
+            if train_steps:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                params = family_params(cfg, dev, on)
+                step = make_train_step(cfg, lr=TRAIN_LR, params_pspecs=None
+                                       if on is None else api.pspecs(cfg, on))
+                state = step.init_state(params)
+                for i in range(train_steps):
+                    params, state, m = step(params, state,
+                                            family_batch(cfg, dev, i))
+                    r["losses"].append(float(m["loss"]))
+                r["fingerprint"] = fingerprint({"params": params,
+                                                "opt": state})
+                r["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+                del params, state, step
+                torch.cuda.empty_cache()
+            if serve:
+                s = serve_case(cfg, family_params(cfg, dev, on), prompts,
+                               extras, FAMILY_STEPS + 1, dev, mesh=on,
+                               force=None if on is None else
+                               got["one"]["gen"])
+                r.update(gen=s["gen"], logits=s["logits"],
+                         peak_bytes=s["peak_bytes"])
+                del s
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         r["wall_s"] = time.perf_counter() - t0
         got[where] = r
     one, on = got["one"], got[shape]
-    return {"arch": arch, "layers": cfg.n_layers,
-            "loss_one": one["loss"], "loss": on["loss"],
-            "loss_diff": abs(on["loss"] - one["loss"]),
-            "state_equal": one["fingerprint"] == on["fingerprint"],
-            "logits_equal": bool(np.array_equal(one["logits"],
-                                                on["logits"])),
-            "logit_diff": float(np.abs(one["logits"]
-                                       - on["logits"]).max()),
-            "tokens_agree": float((one["gen"] == on["gen"]).mean()),
-            "peak_bytes": on["peak_bytes"], "wall_s": on["wall_s"],
-            "wall_one_s": one["wall_s"]}
+    diffs = [abs(a - b) for a, b in zip(one["losses"], on["losses"])]
+    out = {"arch": arch, "layers": cfg.n_layers, "optimizer": cfg.optimizer,
+           "losses_one": one["losses"], "losses": on["losses"],
+           "loss_one": (one["losses"] or [None])[0],
+           "loss": (on["losses"] or [None])[0],
+           "loss_diff": diffs[0] if diffs else 0.0,
+           "losses_diff": max(diffs, default=0.0),
+           "state_equal": one["fingerprint"] == on["fingerprint"],
+           "peak_bytes": on["peak_bytes"],
+           "train_peak_bytes": on["train_peak_bytes"],
+           "wall_s": on["wall_s"],
+           "wall_one_s": one["wall_s"]}
+    if serve:
+        out.update(
+            logits_equal=bool(np.array_equal(one["logits"], on["logits"])),
+            logit_diff=float(np.abs(one["logits"] - on["logits"]).max()),
+            argmax_agree=float((one["logits"].argmax(-1)
+                                == on["logits"].argmax(-1)).mean()),
+            tokens_agree=float((one["gen"] == on["gen"]).mean()))
+    return out
 
 
 def serve_prompts(cfg):
@@ -5547,6 +5602,403 @@ def phase_mesh_serve(smi, dev):
                                                "families", "f32") if k in r})
     return out
 
+# ---------------------------------------------------------------------------
+# phase 18: the MoE families (qwen3-moe, deepseek-v3) on a (data x model)
+# mesh: the expert-parallel MoE layer (each rank its block of experts, the
+# EP weights whole over "data", one psum over "model"), prefill and decode
+# on placed experts and a placed cache, AdamW and Adafactor on placed
+# leaves.  One NCCL rank per card, as phases 16-17.  On one card a 1x1
+# mesh: qwen3-moe-30b-a3b FULL, 48 layers, through ServeEngine in phase
+# 13's cell with the cache cut to MOE_SERVE_SEQ positions; one AdamW and
+# one Adafactor step of its FULL widths cut to MOE_TRAIN_LAYERS layers;
+# deepseek-v3 SMOKE's Adafactor step, prefill and decode steps; each
+# bit-equal to one device in the same rank.  On four cards (--mesh-only) a 2x2 mesh: qwen3-moe
+# FULL, 48 layers, the same cell (per rank: prefill and decode ms,
+# tokens/s, peak, host syncs, the collectives of one decode step), every
+# step's logits against one device's within LM_FWD_TOL_FULL and LM_AGREE;
+# MOE_TRAIN_STEPS AdamW steps at MOE_TRAIN_LAYERS layers (step 0's loss
+# within TRAIN_LOSS_TOL) and as many Adafactor steps (each step's);
+# deepseek-v3 at FULL widths cut to DEEPSEEK_LAYERS layers, a prefill and
+# FAMILY_STEPS decode steps within LM_FWD_TOL_FULL and LM_AGREE;
+# deepseek-v3 SMOKE's MOE_TRAIN_STEPS Adafactor steps within
+# TRAIN_LOSS_TOL; and the f32 witness of qwen3-moe at MOE_TRAIN_LAYERS
+# layers and of deepseek-v3's cut (MESH_F32_TOL, MESH_F32_LOSS_TOL)
+# ---------------------------------------------------------------------------
+MOE_ARCH, DEEPSEEK_ARCH = "qwen3-moe-30b-a3b", "deepseek-v3-671b"
+#: the serving cell's cache positions: at phase 13's 32,768 one device
+#: would hold 61 GB of weights and 12.9 GB of cache
+MOE_SERVE_SEQ = 8192
+#: qwen3-moe's FULL widths at this depth for training (about 3.1 B
+#: parameters: one device's AdamW state fits a card, as phase 14's 3.59 B)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 3
+#: deepseek-v3's FULL widths at this depth (its first dense layer and one
+#: MoE layer: about 14.6 B parameters, 29 GB in bf16, 58.5 GB in f32 for
+#: the witness's one-device side), served with this
+#: many cache positions: MLA's decode expands the latent cache into 128
+#: heads' K and V, 12 GiB in f32 at its 32,768
+DEEPSEEK_LAYERS, DEEPSEEK_SERVE_SEQ = 2, 4096
+#: where the four-card run finds one device's qwen3-moe tokens and logits
+MOE_REF = ROOT / "build" / "smoke_mesh_moe_ref.npz"
+#: every rank of phase 18 must be done within this
+MOE_TIMEOUT_S = 900
+#: --moe-memory's train step: 4,096 tokens, so each MoE layer's (token,
+#: slot) rows are 32,768 x d
+MOE_MEMORY_BATCH, MOE_MEMORY_SEQ = 8, 512
+
+
+def moe_serve_cfg():
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).replace(max_seq=MOE_SERVE_SEQ)
+
+
+def moe_serve_reference(dev, smi, path=MOE_REF):
+    """qwen3-moe FULL (48 layers) on one card in the serving cell: the
+    engine's tokens and the logits of the manual loop fed them, written
+    to ``path`` (the four-card run's reference) and freed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    cfg = moe_serve_cfg()
+    s = serve_case(cfg, api.init(cfg, 0, str(dev)), serve_prompts(cfg),
+                   None, SERVE_GEN, dev)
+    log(f"  [{smi}] one device, {MOE_ARCH} FULL ({cfg.n_layers} layers), "
+        f"the serving cell ({MOE_SERVE_SEQ} positions): decode p50 "
+        f"{float(np.median(s['timings']['step_ms'])):.3f} ms, peak "
+        f"{s['peak_bytes']} B")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, gen=s["gen"], logits=s["logits"])
+    del s
+    torch.cuda.empty_cache()
+    log(f"  tokens and logits written to {path.name}")
+
+
+def moe_rank(plan, root, device):
+    """One rank of phase 18 (its group joined by ``launch.train.spawn``);
+    rank 0 returns every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shape = "1x1" if world == 1 else "2x2"
+    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)), device)
+    dev = torch.device(device, torch.cuda.current_device())
+    launches0 = sum(LAUNCHES.values())
+    out = {"rank": rank, "smi": smi_line(rank), "shape": shape}
+    cfg = moe_serve_cfg()
+    prompts = serve_prompts(cfg)
+    if world == 1:
+        one = serve_case(cfg, api.init(cfg, 0, str(dev)), prompts, None,
+                         SERVE_GEN, dev)
+        force, want = one["gen"], one["logits"]
+        out["one_device"] = {
+            "step_p50_ms": float(np.median(one["timings"]["step_ms"])),
+            "peak_bytes": one["peak_bytes"]}
+        del one
+        torch.cuda.empty_cache()
+    else:
+        ref = np.load(root)
+        force, want = ref["gen"], ref["logits"]
+    with use_mesh(mesh):
+        s = serve_case(cfg, api.init(cfg, 0, str(dev), mesh=mesh), prompts,
+                       None, SERVE_GEN, dev, mesh=mesh, force=force,
+                       profile=True)
+    torch.cuda.empty_cache()
+    steps = np.asarray(s["timings"]["step_ms"])
+    v = cfg.vocab
+    out["serve"] = {
+        "layers": cfg.n_layers, "max_seq": cfg.max_seq,
+        "prefill_ms": s["timings"]["prefill_ms"], "step_ms": steps.tolist(),
+        "step_p50_ms": float(np.median(steps)),
+        "step_min_ms": float(steps.min()), "step_max_ms": float(steps.max()),
+        "tokens_per_s": float(SERVE_BATCH * len(steps)
+                              / (steps.sum() / 1e3)),
+        "peak_bytes": s["peak_bytes"],
+        "host_syncs_per_step": s["host_syncs_per_step"],
+        "collectives": s["collectives"],
+        "tokens_agree": float((s["gen"] == force).mean()),
+        "tokens_equal": bool(np.array_equal(s["gen"], force)),
+        "logits_equal": bool(np.array_equal(s["logits"], want)),
+        "logit_diff": float(np.abs(s["logits"] - want).max()),
+        "argmax_agree": float((s["logits"][..., :v].argmax(-1)
+                               == want[..., :v].argmax(-1)).mean())}
+    del s
+    full = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    steps = 1 if world == 1 else MOE_TRAIN_STEPS
+    # AdamW, then Adafactor, whose expert leaves update slice by slice
+    cases = [config_case(full, MOE_ARCH, dev, mesh, shape,
+                         train_steps=steps, serve=False)]
+    ada = full.replace(optimizer="adafactor")
+    cases.append(dict(config_case(ada, MOE_ARCH, dev, mesh, shape,
+                                  train_steps=steps, serve=False),
+                      chunked_leaves=chunked_leaves(ada)))
+    if world > 1:
+        # a row whose two experts' probabilities nearly tie goes to
+        # other experts where bf16 rounds otherwise: held as full depth
+        # is (the f32 witness holds the same cut without the flips)
+        cases.append(dict(config_case(deepseek_cfg(), DEEPSEEK_ARCH, dev,
+                                      mesh, shape, train_steps=0),
+                          logit_tol=LM_FWD_TOL_FULL, agree=LM_AGREE))
+    smoke = get_smoke(DEEPSEEK_ARCH).replace(optimizer="adafactor")
+    cases.append(config_case(smoke, smoke.name, dev, mesh, shape,
+                             train_steps=1 if world == 1 else
+                             MOE_TRAIN_STEPS))
+    out["cases"] = cases
+    if world > 1:
+        out["f32"] = moe_f32_witness(dev, mesh, force[:, :SERVE_GEN - 1])
+    out["launches"] = sum(LAUNCHES.values()) - launches0
+    got = [None] * world
+    dist.all_gather_object(got, out)
+    return got
+
+
+def deepseek_cfg():
+    """deepseek-v3 at FULL widths cut to DEEPSEEK_LAYERS layers (its first
+    dense layer and one MoE layer) and DEEPSEEK_SERVE_SEQ positions."""
+    from repro_torch.configs import get_config
+    return get_config(DEEPSEEK_ARCH).replace(
+        n_layers=DEEPSEEK_LAYERS, first_dense_layers=1,
+        max_seq=DEEPSEEK_SERVE_SEQ)
+
+
+def chunked_leaves(cfg):
+    """How many of ``cfg``'s parameter leaves Adafactor updates one
+    leading slice at a time (above ``_CHUNK_THRESHOLD`` elements)."""
+    import math
+
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import optimizer
+    return sum(len(d.shape) >= 3
+               and math.prod(d.shape) > optimizer._CHUNK_THRESHOLD
+               for _, d in tree_items(api.schema(cfg)))
+
+
+def moe_f32_witness(dev, mesh, feed):
+    """This rank's side of phase 18's f32 witness: qwen3-moe at FULL
+    widths cut to MOE_TRAIN_LAYERS layers, on one device (first, then
+    freed) and on ``mesh``: the loss with bf16 leaves and with f32 ones,
+    and with f32 leaves a prefill and decode steps fed ``feed``; and
+    deepseek-v3's cut (``deepseek_cfg``) with f32 leaves, a prefill and
+    FAMILY_STEPS decode steps fed seeded tokens (``out["deepseek"]``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS,
+                                       max_seq=WITNESS_SEQ)
+    batch = {"tokens": np.random.default_rng(17).integers(
+        0, cfg.vocab, (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ + 1))
+        .astype(np.int32)}
+    got = {}
+    for dt in ("bf16", "f32"):
+        with f32_leaves() if dt == "f32" else contextlib.nullcontext():
+            got[f"one_{dt}"] = witness_loss(cfg, batch, dev)
+            with use_mesh(mesh):
+                got[f"mesh_{dt}"] = witness_loss(cfg, batch, dev, mesh)
+    out = dict(got, layers=cfg.n_layers,
+               bf16_diff=abs(got["mesh_bf16"] - got["one_bf16"]),
+               f32_diff=abs(got["mesh_f32"] - got["one_f32"]),
+               bf16_error=abs(got["one_bf16"] - got["one_f32"]))
+    prompts = serve_prompts(cfg)
+    with f32_leaves():
+        one = witness_logits(cfg, api.init(cfg, 0, str(dev)), prompts, feed,
+                             dev)
+        torch.cuda.empty_cache()
+        with use_mesh(mesh):
+            lg = witness_logits(cfg, api.init(cfg, 0, str(dev), mesh=mesh),
+                                prompts, feed, dev, mesh)
+        torch.cuda.empty_cache()
+    out.update(logit_agreement(lg, one), steps=int(feed.shape[1]))
+    deep = deepseek_cfg()
+    prompts = serve_prompts(deep)
+    feed = np.random.default_rng(18).integers(
+        0, deep.vocab, (SERVE_BATCH, FAMILY_STEPS)).astype(np.int32)
+    with f32_leaves():
+        one = witness_logits(deep, api.init(deep, 0, str(dev)), prompts,
+                             feed, dev)
+        torch.cuda.empty_cache()
+        with use_mesh(mesh):
+            lg = witness_logits(deep, api.init(deep, 0, str(dev),
+                                               mesh=mesh),
+                                prompts, feed, dev, mesh)
+        torch.cuda.empty_cache()
+    out["deepseek"] = dict(logit_agreement(lg, one), layers=deep.n_layers,
+                           steps=FAMILY_STEPS)
+    return out
+
+
+def logit_agreement(got, want):
+    """Max and mean |diff| of two logit arrays, and their argmax
+    agreement."""
+    import numpy as np
+    diff = np.abs(got - want)
+    return {"logit_diff": float(diff.max()), "mean_diff": float(diff.mean()),
+            "argmax_agree": float((got.argmax(-1)
+                                   == want.argmax(-1)).mean())}
+
+
+def phase_mesh_moe(smi, dev):
+    """Phase 18: one rank on one card (1x1), four on four cards (2x2,
+    after one device's qwen3-moe logits are written by this process).
+    Every rank's numbers are printed before any is held."""
+    import torch
+
+    from repro_torch.launch.train import spawn
+    cards = torch.cuda.device_count()
+    world = MESH_RANKS if cards >= MESH_RANKS else 1
+    if world > 1:
+        moe_serve_reference(dev, smi)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] {cards} card(s) visible: {world} NCCL rank(s), one per "
+        f"card; this process holds {torch.cuda.memory_allocated()} B on "
+        "cuda:0")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(world, moe_rank, timeout=MOE_TIMEOUT_S, plan="moe",
+                      root=str(MOE_REF), device=MESH_DEVICE)
+    except RuntimeError as e:
+        check(False, f"phase 18: {e}")
+    finally:
+        if world > 1:
+            MOE_REF.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    log(f"  world size {world}; ranks done in {wall:.1f} s")
+    held = []
+    for r in ranks:
+        log(f"  rank {r['rank']}: {r['smi']}")
+        held.append((r["launches"] == 0, f"rank {r['rank']} launched "
+                     f"{r['launches']} port kernels"))
+        g, c = r["serve"], r["serve"]["collectives"]
+        tag = f"  rank {r['rank']} {r['shape']} {MOE_ARCH}"
+        log(f"{tag} [{r['smi']}] FULL ({g['layers']} layers), the serving "
+            f"cell ({g['max_seq']} positions): prefill "
+            f"{g['prefill_ms']:.2f} ms; decode p50 {g['step_p50_ms']:.3f} ms"
+            f" (min {g['step_min_ms']:.3f}, max {g['step_max_ms']:.3f}, "
+            f"{len(g['step_ms'])} steps), {g['tokens_per_s']:.1f} decode "
+            f"tokens/s, peak {g['peak_bytes']} B, host syncs per decode "
+            f"step {g['host_syncs_per_step']:.2f}")
+        if "one_device" in r:
+            o = r["one_device"]
+            log(f"{tag}: one device in the same rank: decode p50 "
+                f"{o['step_p50_ms']:.3f} ms, peak {o['peak_bytes']} B")
+        log(f"{tag}: collectives of one decode step: calls {c['calls']}, "
+            f"bytes {c['bytes']}, by mesh dim {c['by_dim']}")
+        log(f"{tag}: logits against one device's (fed its tokens): max "
+            f"|diff| {g['logit_diff']:.4f}, argmax agreement "
+            f"{g['argmax_agree']:.3f}, bit-equal {g['logits_equal']}; the "
+            f"engine's free-running tokens agree {g['tokens_agree']:.3f}")
+        # one host sync per MoE layer and decode step: the group sizes
+        # read for the per-expert products (ROADMAP B2.10), on every rank
+        held.append((g["host_syncs_per_step"] == g["layers"], f"{tag}: "
+                     f"{g['host_syncs_per_step']} host syncs per decode "
+                     f"step, not one per MoE layer ({g['layers']})"))
+        if r["shape"] == "1x1":
+            held.append((g["logits_equal"] and g["tokens_equal"], f"{tag}: "
+                         "the 1x1 mesh is not one device bit for bit"))
+        else:
+            held.append((g["logit_diff"] < LM_FWD_TOL_FULL, f"{tag}: logits "
+                         f"{g['logit_diff']} from one device's (>= "
+                         f"{LM_FWD_TOL_FULL})"))
+            held.append((g["argmax_agree"] >= LM_AGREE, f"{tag}: argmax "
+                         f"agreement {g['argmax_agree']} < {LM_AGREE}"))
+        for f in r["cases"]:
+            tag = f"  rank {r['rank']} {r['shape']} {f['arch']}"
+            text = f"{tag}, {f['layers']} layer(s):"
+            if f["losses"]:
+                text += (f" {len(f['losses'])} {f['optimizer']} step(s), "
+                         f"losses {[round(x, 6) for x in f['losses']]} vs "
+                         f"one device {[round(x, 6) for x in f['losses_one']]}"
+                         f" (|diff| step 0 {f['loss_diff']:.3g}, largest "
+                         f"{f['losses_diff']:.3g}), state bit-equal "
+                         f"{f['state_equal']};")
+            if "chunked_leaves" in f:
+                text += (f" {f['chunked_leaves']} leaves updated slice by "
+                         "slice;")
+            if "logit_diff" in f:
+                text += (f" prefill + {FAMILY_STEPS} decode steps' logits "
+                         f"max |diff| {f['logit_diff']:.4f}, argmax "
+                         f"agreement {f['argmax_agree']:.3f}, bit-equal "
+                         f"{f['logits_equal']}, tokens agree "
+                         f"{f['tokens_agree']:.3f};")
+            log(f"{text} peak {f['train_peak_bytes']} B training, "
+                f"{f['peak_bytes']} B serving; {f['wall_s']:.1f} s (one "
+                f"device {f['wall_one_s']:.1f} s)")
+            if "chunked_leaves" in f:
+                held.append((f["chunked_leaves"] > 0, f"{tag}: no leaf "
+                             "updated slice by slice"))
+            if r["shape"] == "1x1":
+                held.append((f["losses_diff"] == 0 and f["state_equal"]
+                             and f.get("logits_equal", True)
+                             and f.get("tokens_agree", 1.0) == 1.0,
+                             f"{tag}: the 1x1 mesh is not one device bit "
+                             "for bit"))
+                continue
+            if f["losses"]:
+                # AdamW: step 0 (later steps follow the parameters' own
+                # bf16 gap); Adafactor: each step, its updates being what
+                # the mesh reduces otherwise
+                d = f["losses_diff"] if f["optimizer"] == "adafactor" \
+                    else f["loss_diff"]
+                held.append((d < TRAIN_LOSS_TOL, f"{tag}: loss {d} from "
+                             f"one device's (>= {TRAIN_LOSS_TOL})"))
+            if "logit_diff" in f:
+                tol = f.get("logit_tol", LM_FWD_TOL)
+                held.append((f["logit_diff"] < tol, f"{tag}: logits "
+                             f"{f['logit_diff']} from one device's (>= "
+                             f"{tol})"))
+            if "agree" in f:
+                held.append((f["argmax_agree"] >= f["agree"], f"{tag}: "
+                             f"argmax agreement {f['argmax_agree']} < "
+                             f"{f['agree']}"))
+        w = r.get("f32")
+        if w is None:
+            continue
+        tag = f"  rank {r['rank']} {r['shape']} f32 witness"
+        log(f"{tag}: {MOE_ARCH}, {w['layers']} layers, f32 parameters and "
+            f"cache, prefill and {w['steps']} decode steps against one "
+            f"device's: max |diff| {w['logit_diff']:.3g} (mean "
+            f"{w['mean_diff']:.3g}), argmax agreement "
+            f"{w['argmax_agree']:.3f}; loss f32 {w['mesh_f32']:.7f} vs "
+            f"{w['one_f32']:.7f} (|diff| {w['f32_diff']:.3g}), bf16 "
+            f"{w['mesh_bf16']:.7f} vs {w['one_bf16']:.7f} (|diff| "
+            f"{w['bf16_diff']:.3g}); one device's bf16 against its f32 "
+            f"{w['bf16_error']:.3g}")
+        held.append((w["logit_diff"] < MESH_F32_TOL, f"{tag}: logits "
+                     f"{w['logit_diff']} from one device's (>= "
+                     f"{MESH_F32_TOL})"))
+        held.append((w["f32_diff"] < MESH_F32_LOSS_TOL, f"{tag}: f32 loss "
+                     f"{w['f32_diff']} from one device's (>= "
+                     f"{MESH_F32_LOSS_TOL})"))
+        d = w["deepseek"]
+        log(f"{tag}: {DEEPSEEK_ARCH}, {d['layers']} layers, f32 parameters "
+            f"and cache, prefill and {d['steps']} decode steps against one "
+            f"device's: max |diff| {d['logit_diff']:.3g} (mean "
+            f"{d['mean_diff']:.3g}), argmax agreement "
+            f"{d['argmax_agree']:.3f}")
+        held.append((d["logit_diff"] < MESH_F32_TOL, f"{tag}: "
+                     f"{DEEPSEEK_ARCH} logits {d['logit_diff']} from one "
+                     f"device's (>= {MESH_F32_TOL})"))
+    for ok, msg in held:
+        check(ok, "phase 18: " + msg)
+    out = {"world": world, "wall_s": wall, "ranks": []}
+    for r in ranks:
+        r["serve"].pop("step_ms")
+        out["ranks"].append({k: r[k] for k in (
+            "rank", "smi", "serve", "one_device", "cases", "f32") if k in r})
+    return out
+
+
 def one_device_reference(dev, smi):
     """Alone (``--mesh-only``): phase 14's cell for one step on one card,
     the 2x2 step-0 loss's reference."""
@@ -5567,8 +6019,8 @@ def one_device_reference(dev, smi):
 
 
 def main_mesh(dev, phases) -> int:
-    """``--mesh-only``: phases 16 and 17 (or those of ``phases``) alone,
-    for a host with four cards."""
+    """``--mesh-only``: phases 16, 17 and 18 (or those of ``phases``)
+    alone, for a host with four cards."""
     import torch
     smi = smi_line()
     log(smi)
@@ -5587,6 +6039,62 @@ def main_mesh(dev, phases) -> int:
         log(f"  phase 17 summary ({smi}): "
             + json.dumps(serve_out, default=str))
         log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    if "18" in phases:
+        log("phase 18 alone: the MoE families on a (data x model) mesh")
+        t0 = time.perf_counter()
+        moe_out = phase_mesh_moe(smi, dev)
+        log(f"  phase 18 summary ({smi}): " + json.dumps(moe_out,
+                                                         default=str))
+        log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_moe_memory(dev, src: Path) -> int:
+    """``--moe-memory SRC``: with the package from ``SRC``, on one card,
+    the peak of one AdamW step of qwen3-moe FULL at MOE_TRAIN_LAYERS
+    layers on one device (beside what its parameters and state hold
+    before it), and ``launch.dryrun``'s memory record of qwen3-moe's
+    ``train_4k`` cell (traced on ``meta``, about 40 s; deepseek-v3's
+    61-layer trace takes more than 6 minutes): what two trees' MoE
+    layers cost in memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train import make_train_step
+    smi = smi_line()
+    log(smi)
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    params = family_params(cfg, dev)
+    step = make_train_step(cfg, lr=TRAIN_LR)
+    state = step.init_state(params)
+    g = torch.Generator(device=dev).manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (
+        MOE_MEMORY_BATCH, MOE_MEMORY_SEQ + 1), generator=g, device=dev)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"train_peak_bytes": peak, "held_before_bytes": before,
+           "loss": float(m["loss"])}
+    log(f"  [{smi}] {src}: {MOE_ARCH} FULL at {cfg.n_layers} layers, one "
+        f"AdamW step on one device (batch {MOE_MEMORY_BATCH} x "
+        f"{MOE_MEMORY_SEQ}): peak {peak} B, {peak - before} B above the "
+        f"{before} B held before it; loss {out['loss']:.6f}")
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    rec = dryrun.run_cell(MOE_ARCH, "train_4k", False, False)
+    out["dryrun"] = {k: rec.get(k) for k in (
+        "status", "mesh", "moe", "memory", "time_s", "error")}
+    log(f"  {src}: dry-run {MOE_ARCH} train_4k: " + json.dumps(out["dryrun"]))
+    check(rec["status"] == "ok", f"dry-run of {MOE_ARCH}: {rec.get('error')}")
+    log("  moe memory summary: " + json.dumps(out))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5906,16 +6414,16 @@ def main(argv) -> int:
               " is false", file=sys.stderr)
         return 2
     src = ROOT / "src"
-    if len(argv) == 2 and argv[0] == "--compare":
+    if len(argv) == 2 and argv[0] in ("--compare", "--moe-memory"):
         src = Path(argv[1]).resolve()
     elif len(argv) == 3 and argv[0] == "--child":
         pass
-    elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= {"16",
-                                                                "17"}:
+    elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= {
+            "16", "17", "18"}:
         pass
     elif argv:
-        print("usage: chip_smoke.py [--compare SRC | --mesh-only [16|17]]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--compare SRC | --moe-memory SRC | "
+              "--mesh-only [16|17|18]]", file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py needs the repository beside it "
@@ -5927,7 +6435,10 @@ def main(argv) -> int:
         return main_child(argv[1], json.loads(argv[2]))
     if argv and argv[0] == "--mesh-only":
         return main_mesh(torch.device("cuda", torch.cuda.current_device()),
-                         set(argv[1:]) or {"16", "17"})
+                         set(argv[1:]) or {"16", "17", "18"})
+    if argv and argv[0] == "--moe-memory":
+        return main_moe_memory(torch.device("cuda",
+                                            torch.cuda.current_device()), src)
     if argv:
         return main_compare(src)
     from repro_torch.kernels import (LAUNCHES, LAUNCHES_BY_Q, _build,
@@ -6294,6 +6805,18 @@ def main(argv) -> int:
         + json.dumps(serve_mesh_out, default=str))
     del serve_mesh_out
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 18: the MoE families on a (data x model) mesh: the expert-"
+        "parallel layer, prefill and decode on placed experts and a placed "
+        "cache, AdamW and Adafactor on placed leaves; " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    moe_mesh_out = phase_mesh_moe(smi, dev)
+    end_path("lm_mesh_moe")
+    log(f"  phase 18 summary ({smi}): "
+        + json.dumps(moe_mesh_out, default=str))
+    del moe_mesh_out
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

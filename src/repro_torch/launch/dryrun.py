@@ -236,9 +236,10 @@ def memory_record(fn: Step, args, out, temp_bytes: float, mesh) -> dict:
 # Tracing a cell
 # ---------------------------------------------------------------------------
 def _traced(cfg: LMConfig, cell: ShapeCell, mesh, rules=None):
-    """The step is built under the mesh's rules and traced outside them:
-    the port runs it on one device (an MoE layer refuses a mesh with a
-    "model" axis)."""
+    """The step is built under the mesh's rules and traced outside them,
+    as one device's step on ``meta`` (the production mesh places nothing;
+    an MoE layer under a mesh with a "model" axis would need placed
+    tensors: real placements are ROADMAP A14e)."""
     with use_mesh(mesh, rules=rules):
         fn, args = build_step(cfg, cell, mesh)
     out, m = trace_step(fn, *args)

@@ -43,29 +43,21 @@ def init(cfg: LMConfig, seed: int = 0, device: str = "cuda", mesh=None):
 
 
 #: the families that train, prefill and decode on a mesh of more than one
-#: device, and the ROADMAP item that brings each other one
-MESH_FAMILIES = ("dense", "mla", "zamba", "rwkv", "vlm", "encdec")
-_MESH_TODO = {"moe": "the expert-parallel MoE path (B2.11)",
-              "mla_moe": "the expert-parallel MoE path (B2.11)"}
+#: device: all eight (the MoE families through the expert-parallel path,
+#: ROADMAP B2.11, done)
+MESH_FAMILIES = ("dense", "moe", "mla", "mla_moe", "zamba", "rwkv", "vlm",
+                 "encdec")
 
 
 def check_mesh(cfg: LMConfig, mesh) -> None:
-    """Raise NotImplementedError for a family this port does not yet
-    place on a mesh of more than one device."""
+    """Raise NotImplementedError for sequence-parallel projections
+    (``cfg.seq_parallel_proj``; no config sets it) on a mesh of more than
+    one device: every family (:data:`MESH_FAMILIES`) places there."""
     dm = getattr(mesh, "device_mesh", None)
-    if dm is None or dm.size() == 1:
-        return
-    if cfg.seq_parallel_proj:
+    if dm is not None and dm.size() > 1 and cfg.seq_parallel_proj:
         raise NotImplementedError(
             f"{cfg.name}: sequence-parallel projections on a mesh (DTensor "
             "does not fold a sharded sequence into a product's rows)")
-    if cfg.family in MESH_FAMILIES:
-        return
-    todo = _MESH_TODO.get(cfg.family, "the other families on a mesh")
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}) on a {dm.size()}-device mesh: only the "
-        f"{'/'.join(MESH_FAMILIES)} families run on a mesh; ROADMAP "
-        f"'Next' lists {todo}")
 
 
 def abstract(cfg: LMConfig):
@@ -123,8 +115,11 @@ def loss_fn(cfg: LMConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     loss = ce + aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp:
-        # predict t+2 from (hidden_t, emb(token_{t+1}))
-        mtp_lg = lm.mtp_logits(cfg, params, hidden[:, :-1], targets[:, :-1])
+        # predict t+2 from (hidden_t, emb(token_{t+1})); on a mesh the
+        # hidden's sequence is made whole before it is cut
+        mtp_lg = lm.mtp_logits(cfg, params,
+                               shard(hidden, "batch", "seq", None)[:, :-1],
+                               targets[:, :-1])
         mtp_ce = cross_entropy(mtp_lg, targets[:, 1:])
         loss = loss + cfg.mtp_loss_coef * mtp_ce
         metrics["mtp_ce"] = mtp_ce

@@ -159,8 +159,10 @@ def init_params(schema, seed: int = 0, device: str = "cuda", mesh=None):
         parts = out if out.dim() >= 3 else [out]
         whole = d.shape[1:] if out.dim() >= 3 else d.shape
         for part in parts:
+            # scaled in place: one f32 slice at a time (deepseek-v3's
+            # expert slice is 28 GiB in f32)
             part.copy_(keep(torch.randn(whole, generator=gen, device=dev,
-                                        dtype=torch.float32) * d.scale))
+                                        dtype=torch.float32).mul_(d.scale)))
         return out
 
     return tree_map(make, schema)

@@ -10,10 +10,11 @@ a port config compares equal to the reference's.  The training knobs
 ``optimizer``, ``microbatch`` and ``grad_accum_dtype`` are read as the
 reference reads them, and so is ``moe_dense_analysis`` (the MoE layer's
 same-work dense surrogate, which the roofline's analysis variants and the
-dry-run select).  The knobs that only the reference's XLA compilation and
-mesh read (``scan_layers``, ``ep_over_data``, ``fsdp``,
-``seq_parallel_proj``, ``embed_fsdp``) are kept and ignored here: the port
-runs each model on one device, layer by layer.
+dry-run select), and on a device mesh ``ep_over_data`` (the MoE layer's
+experts over "model" and "data") and ``embed_fsdp``; ``fsdp`` and
+``ep_over_data`` also set the dry-run's rules.  ``scan_layers`` is kept
+and ignored (the port runs the layers as a loop), and
+``seq_parallel_proj`` is refused on a mesh (``api.check_mesh``).
 """
 from __future__ import annotations
 

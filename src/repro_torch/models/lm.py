@@ -544,11 +544,15 @@ def vlm_cross_cache(cfg: LMConfig, params, vision):
 # ---------------------------------------------------------------------------
 def mtp_logits(cfg: LMConfig, params, hidden, tokens_next):
     """hidden: (B, S, d) final hidden; tokens_next: (B, S) = token t+1.
-    Returns logits for predicting t+2 (one extra MLA block)."""
+    Returns logits for predicting t+2 (one extra MLA block).  On a mesh
+    the two normed inputs hold the whole sequence before they are joined
+    and projected (``_whole_seq``)."""
     mp = params["mtp"]
     e = _embed(cfg, params, tokens_next)
-    h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
-                   rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
-    h = h @ mp["proj"]
+    h = torch.cat([_whole_seq(cfg, rms_norm(hidden, mp["norm_h"],
+                                            cfg.norm_eps)),
+                   _whole_seq(cfg, rms_norm(e, mp["norm_e"], cfg.norm_eps))],
+                  dim=-1)
+    h = matmul(h, mp["proj"])
     h, _, _ = attn_ff_block(cfg, mp, h, kind="mla_dense", mode="train")
     return _logits(cfg, params, h)

@@ -22,11 +22,18 @@ Placed on a mesh (DTensor leaves, each gradient, moment and parameter of
 one placement), the global norm sums each leaf's squares on its blocks
 and takes the leaf's sum whole (one all-reduce per leaf) before adding
 it in, and AdamW then updates every rank's blocks where they lie (its
-math is elementwise).  Adafactor's factored moments reduce over sharded
-dims and are not placed yet.
+math is elementwise).  Adafactor updates every rank's blocks too: a
+leaf's row factor ``vr`` is placed as the leaf without its last dim, its
+column factor ``vc`` as the leaf without its second-to-last (the
+placements ``train.step.opt_state_pspecs`` gives them), and each mean
+over a sharded dim (``vr``'s, ``vc``'s, the row factor's own mean, the
+update's RMS) is a sum over the rank's block added over the mesh dims
+that shard it, then divided by the whole dim's size.  Unsharded, the
+means are the one-device code's, so a 1x1 mesh is bit for bit one device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -132,16 +139,35 @@ def _factored(p):
     return p.dim() >= 2
 
 
+def _factor_placements(p):
+    """(``vr``'s, ``vc``'s) placements for a placed factored leaf ``p``:
+    its own without its last dim, and without its second-to-last."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = p.dim() - 1
+    vr = tuple(Shard(q.dim) if q.is_shard() and q.dim < last else Replicate()
+               for q in p.placements)
+    vc = tuple(Shard(q.dim) if q.is_shard() and q.dim < last - 1 else
+               Shard(last - 1) if q.is_shard(last) else Replicate()
+               for q in p.placements)
+    return vr, vc
+
+
 def adafactor_init(params):
+    def zeros(shape, dtype, p, places=None):
+        if not placed(p):
+            return torch.zeros(shape, dtype=dtype, device=p.device)
+        from torch.distributed.tensor import zeros as dzeros
+        return dzeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                      placements=places or p.placements)
+
     def one(p):
         if _factored(p):
-            return {"vr": torch.zeros(p.shape[:-1], dtype=torch.bfloat16,
-                                      device=p.device),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                      dtype=torch.bfloat16, device=p.device)}
-        return {"v": torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)}
-    dev = _leaves(params)[0].device
+            vr, vc = _factor_placements(p) if placed(p) else (None, None)
+            return {"vr": zeros(p.shape[:-1], torch.bfloat16, p, vr),
+                    "vc": zeros(p.shape[:-2] + p.shape[-1:], torch.bfloat16,
+                                p, vc)}
+        return {"v": zeros(p.shape, torch.float32, p)}
+    dev = _local(_leaves(params)[0]).device
     return {"f": tree_map(one, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -149,24 +175,64 @@ def adafactor_init(params):
 _CHUNK_THRESHOLD = 1 << 27      # leaves above ~134M elements update chunked
 
 
+class _Means:
+    """Means over whole dims of a leaf's local block: the block's sum
+    added over the mesh dims that shard the dim, over the dim's size (the
+    plain ``mean`` where nothing shards it)."""
+
+    def __init__(self, p, g, s):
+        if not placed(p):
+            self.dm, self.dims = None, {}
+            return
+        if tuple(g.placements) != tuple(p.placements):
+            raise ValueError("a gradient placed otherwise than its "
+                             "parameter")
+        want = dict(zip(("vr", "vc"), _factor_placements(p))) \
+            if _factored(p) else {"v": tuple(p.placements)}
+        for k, t in s.items():
+            if tuple(t.placements) != want[k]:
+                raise ValueError(
+                    f"Adafactor state {k} placed {t.placements}, not as "
+                    f"train.step.opt_state_pspecs places it ({want[k]})")
+        self.dm = p.device_mesh
+        self.dims = {d: [i for i, q in enumerate(p.placements)
+                         if q.is_shard(d)] for d in range(p.dim())}
+
+    def __call__(self, t, dim, of: int, keepdim=False):
+        """``t.mean(dim)``, ``t``'s dim ``dim`` being the leaf's dim
+        ``of`` (``None``: every dim, ``t.mean()`` of the whole leaf)."""
+        from ..sharding import all_reduce
+        dims = sorted({i for d in (self.dims if of is None else [of])
+                       for i in self.dims.get(d, [])})
+        if not dims:
+            return t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
+        size = math.prod(self.dm.size(i) for i in dims)
+        if dim is None:
+            return all_reduce(t.sum(), "sum", self.dm, dims) \
+                / (t.numel() * size)
+        return all_reduce(t.sum(dim, keepdim=keepdim), "sum", self.dm,
+                          dims) / (t.shape[dim] * size)
+
+
 @torch.no_grad()
 def adafactor_update(grads, state, params, lr,
                      cfg: AdafactorConfig = AdafactorConfig()):
-    if any(placed(p) for p in _leaves(params)):
-        raise NotImplementedError(
-            "Adafactor on a mesh: ROADMAP 'Next' lists the other families "
-            "on a mesh; AdamW trains there")
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     t = step.float()
     beta2 = 1.0 - t ** (-cfg.decay)
 
-    def upd_core(p, g, s):
+    def upd_core(p, g, s, mean, lead):
+        """One leaf (or one slice of it: ``lead`` leading dims cut) on
+        local blocks."""
+        last = p.dim() - 1 + lead
         gf = g.float()
         g2 = gf * gf + cfg.eps
         if _factored(p):
-            vr = beta2 * s["vr"].float() + (1 - beta2) * g2.mean(-1)
-            vc = beta2 * s["vc"].float() + (1 - beta2) * g2.mean(-2)
-            denom = torch.clamp(vr.mean(-1, keepdim=True), min=cfg.eps)
+            vr = beta2 * s["vr"].float() + (1 - beta2) * mean(g2, -1, last)
+            vc = beta2 * s["vc"].float() + (1 - beta2) * mean(g2, -2,
+                                                               last - 1)
+            denom = torch.clamp(mean(vr, -1, last - 1, keepdim=True),
+                                min=cfg.eps)
             v_hat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
             u = gf / torch.sqrt(v_hat + cfg.eps)
             s["vr"].copy_(vr.to(torch.bfloat16))
@@ -175,7 +241,7 @@ def adafactor_update(grads, state, params, lr,
             v = beta2 * s["v"] + (1 - beta2) * g2
             u = gf / torch.sqrt(v + cfg.eps)
             s["v"].copy_(v)
-        rms_u = torch.sqrt(torch.mean(u * u) + 1e-12)
+        rms_u = torch.sqrt(mean(u * u, None, None) + 1e-12)
         u = u / torch.clamp(rms_u / cfg.clip_threshold, min=1.0)
         p.copy_((p.float() - lr * u).to(p.dtype))
 
@@ -183,11 +249,21 @@ def adafactor_update(grads, state, params, lr,
         s = state["f"]
         for k in path.split("."):
             s = s[k]
+        mean = _Means(p, g, s)
+        pl, gl = _local(p), _local(g)
+        sl = {k: _local(x) for k, x in s.items()}
         if p.dim() >= 3 and p.numel() > _CHUNK_THRESHOLD:
+            # one layer slice at a time (the reference's lax.map); each
+            # slice's RMS is its own, so dim 0 is whole on every rank
+            if mean.dims.get(0):
+                raise ValueError(f"{path}: a chunked leaf sharded on its "
+                                 "leading dim")
+            mean.dims.pop(0, None)
             for i in range(p.shape[0]):
-                upd_core(p[i], g[i], {k: x[i] for k, x in s.items()})
+                upd_core(pl[i], gl[i], {k: x[i] for k, x in sl.items()},
+                         mean, 1)
         else:
-            upd_core(p, g, s)
+            upd_core(pl, gl, sl, mean, 0)
     return params, {"f": state["f"], "step": step}, _global_norm(grads)
 
 

@@ -125,12 +125,11 @@ def port_rank(shape, rank, out):
             torch.equal(t.to_local(), got[p].to_local())
             for p, t in tree_items(conv))
         if shape == "1x2":
-            # 10: an MoE arch on a mesh of two devices
-            try:
-                api.init(get_smoke("qwen3-moe-30b-a3b"), 0, "cpu", mesh)
-                res["moe"] = "placed"
-            except NotImplementedError as e:
-                res["moe"] = str(e)
+            # 10: an MoE arch on a mesh of two devices, each rank's block
+            # of every MoE leaf
+            moe = api.init(get_smoke("qwen3-moe-30b-a3b"), 0, "cpu", mesh)
+            res["moe"] = {p: list(t.to_local().shape) for p, t in
+                          tree_items(moe["blocks"]["moe"])}
         if shape in ("2x2", "1x1"):
             _train_cases(cfg, mesh, ref_params, here, res)
         if shape in ("1x2", "2x1"):
@@ -574,8 +573,15 @@ def test_the_launcher_trains_on_a_2x2_mesh(runs):
 
 
 def test_an_moe_arch_on_a_mesh_raises(runs):
-    msg = runs["result"]("1x2")["moe"]
-    assert "B2.11" in msg and "qwen3" in msg, msg
+    """(It raised until the expert-parallel path, B2.11, was ported.)
+    ``api.init`` places qwen3-moe SMOKE on 1x2: each rank holds half the
+    experts (their "experts" dim on "model"), the router whole."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("qwen3-moe-30b-a3b")
+    got = runs["result"]("1x2")["moe"]
+    L, e, d, h = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    assert got == {"router": [L, d, e], "w_in": [L, e // 2, d, 2 * h],
+                   "w_out": [L, e // 2, h, d]}, got
 
 
 if __name__ == "__main__":
