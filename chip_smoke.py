@@ -126,10 +126,16 @@ Phases:
    step of each of the ten SMOKE configs on the card against the CPU
    (``TRAIN_*`` tolerances)
 15. the dry-run and the H100 roofline: ``python -m
-   repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
-   --roofline`` and ``--shape decode_32k --roofline`` through its
-   ``main`` (FULL width and depth, the 16x16 production mesh, traced on
-   ``meta``); ``run_cell`` for the ten SMOKE configs over a small cell of
+   repro_torch.launch.dryrun --arch granite-3-8b --shape decode_32k
+   --roofline`` through its ``main`` (FULL width and depth) and
+   ``train_4k``'s roofline from its analysis variants (the full-depth
+   placed trace takes about 60 s a mesh: run it through the CLI), each one
+   rank of the 16x16 and the 2x16x16 (``--multi-pod``) production mesh
+   traced on placed ``meta`` blocks in a fake process group of the
+   mesh's size (its collective bytes by kind and mesh dim, the roofline's
+   collective term beside its compute and memory terms, the seconds each
+   took);
+   ``run_cell`` for the ten SMOKE configs over a small cell of
    each kind; phases 13's and 14's steps traced on ``meta``: the code's
    bound (traced FLOPs over the bf16 peak, arguments read and results
    written once over the memory rate) beside their measured p50 and the
@@ -198,8 +204,27 @@ Phases:
    and the f32 witness: qwen3-moe at ``MOE_TRAIN_LAYERS`` layers (logits
    and loss) and deepseek-v3's cut (logits), within ``MESH_F32_TOL``.  No
    rank launches a port kernel
+19. int8 gradient compression and the "pod" axis on a mesh
+   (``make_train_step(grad_compression="int8")`` on placed parameters,
+   every error-feedback residual placed as its parameter), in NCCL ranks
+   as phase 16's.  On one card a (pod=1, data=1, model=1) mesh of
+   granite-3-8b at full width, ``POD_LAYERS[1]`` layers, ``POD_STEPS``
+   steps, its losses, gradient norms, parameters, optimizer state and
+   residuals bit-equal to one device's int8 steps in the same rank (run
+   first and freed; step p50 and peak of both).  On four cards a (pod=2,
+   data=2, model=1) mesh at ``POD_LAYERS[4]`` layers (per rank: step
+   p50, peak, the collectives of one step by kind and mesh dim, step 0's
+   loss against one device's within ``MESH_LOSS_TOL``), the same mesh at
+   ``POD_LAYERS[1]`` layers, every step's loss within ``TRAIN_LOSS_TOL``
+   and gradient norm within ``TRAIN_NORM_RTOL`` of one device's int8
+   steps (this process, before the ranks start), and
+   ``compressed_allreduce_mean`` over "pod" of one layer's ``w_in``
+   gradient timed beside an f32 all-reduce mean of it (bytes and ms;
+   informational), its result within max|g|/127 of the f32 mean.  No
+   rank launches a port kernel (each rank's ``kernels.LAUNCHES`` read
+   before and after)
 
-Each path of phases 3-6 and 8-18 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-19 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -229,9 +254,10 @@ stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
 directory of another checkout).  ``--child MODE ARGS`` is phase 10's
 child process, started by the script itself.  ``python3 chip_smoke.py
---mesh-only`` runs phases 16, 17 and 18 alone (a host with four cards
-runs their 2x2 cases), after one device's 16-layer step as phase 16's
-loss's reference; ``--mesh-only 16``, ``17`` or ``18`` runs one of them.
+--mesh-only`` runs phases 16, 17, 18 and 19 alone (a host with four
+cards runs their 2x2 and 2x2x1 cases), after one device's 16-layer step
+as phase 16's loss's reference; ``--mesh-only 16``, ``17``, ``18`` or
+``19`` runs one of them.
 ``python3 chip_smoke.py --moe-memory SRC`` prints, with the package from
 ``SRC``, one device's peak in a qwen3-moe train step and the dry-run's
 memory record of its ``train_4k`` cell (two trees' MoE layers compared).
@@ -256,6 +282,8 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: bf16 dense tensor-core operations/s (phase 13's prefill bound)
 BF16_OPS_PER_S = 989e12
+#: NVLink 4, one way (900 GB/s both ways): the roofline's collective rate
+LINK_BYTES_PER_S = 450e9
 
 #: where each kernel came from: its source, the reference's Pallas call
 #: (file:line) and the CUDA kernel functions its wrapper launches (the
@@ -359,6 +387,9 @@ PATH_KERNELS = {
     "lm_mesh_serve": (),
     # phase 18: the MoE families on a mesh, likewise
     "lm_mesh_moe": (),
+    # phase 19: int8 gradient compression on a (pod, data, model) mesh,
+    # likewise
+    "lm_mesh_pod": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -4476,7 +4507,13 @@ def phase_train(dev, smi, start_path, end_path):
 # ---------------------------------------------------------------------------
 
 DRYRUN_OUT = ROOT / "build" / "smoke_dryrun.jsonl"
-DRYRUN_SHAPES = ("train_4k", "decode_32k")
+#: traced at full depth through the CLI, one rank of each production mesh
+DRYRUN_SHAPES = ("decode_32k",)
+#: traced as the roofline's analysis variants only, one rank of each
+#: production mesh: a full-depth placed train_4k trace takes about 60 s
+#: a mesh on the host CPU of an NVIDIA H100 80GB HBM3, 700 W machine
+#: (PERF.md), past this script's time budget; run it through the CLI
+DRYRUN_VARIANT_SHAPES = ("train_4k",)
 #: the ten SMOKE configs' cells (name, seq_len, global_batch, kind)
 DRYRUN_SMOKE_CELLS = (("t", 64, 8, "train"), ("p", 64, 8, "prefill"),
                       ("d", 64, 8, "decode"))
@@ -4581,7 +4618,7 @@ def dryrun_bound(smi, kind, cfg, cell, measured):
                 f"({(read + written) / n:.2f} B per parameter) against "
                 f"the hand bound's 22 B per parameter (the gradient read "
                 f"too, {HAND_TRAIN_MS} ms)")
-    mem = dryrun.memory_record(fn, args, res, m.peak_bytes, mesh)
+    mem = dryrun.memory_record(fn, args, res, m.peak_bytes)
     predicted = mem["argument_bytes"] + mem["temp_bytes"]
     ratio = measured["peak_bytes"] / predicted
     out.update(memory=mem, predicted_bytes=predicted,
@@ -4634,31 +4671,88 @@ def dryrun_real_smoke(dev, smi):
     return out
 
 
+def dryrun_variants(cfg, cell, multi_pod):
+    """``run_cell``'s roofline of a cell without its full-depth trace:
+    ``launch.dryrun.roofline_record`` as the rank ``run_cell`` traces, on
+    a fake group of the production mesh's size."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, make_production_mesh
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    cfg, rules = dryrun.traced_config(cfg)
+    rank = dryrun.traced_rank(cfg, cell, mesh, rules)
+    with fake_mesh(mesh, rank) as placed:
+        rl = dryrun.roofline_record(cfg, cell, placed, rules)
+    return {"mesh": "x".join(map(str, mesh.shape.values())), "rank": rank,
+            "roofline": rl}
+
+
 def phase_dryrun(dev, smi, serve, train):
-    """Phase 15: (1) ``launch.dryrun.main`` for granite-3-8b FULL at
-    train_4k and decode_32k with ``--roofline`` on the production mesh;
+    """Phase 15: (1) granite-3-8b FULL's train_4k roofline from its
+    analysis variants (:func:`dryrun_variants`) and ``launch.dryrun.main``
+    at decode_32k with ``--roofline``, each one rank of the 16x16 and the
+    2x16x16 production mesh on placed ``meta`` blocks (collectives by kind
+    and mesh dim);
     (2) ``run_cell`` for the ten SMOKE configs over a small cell of each
     kind; (3) the code's bound and memory of phases 13's and 14's steps
     beside their measured p50 and peak (``serve`` and ``train``); (4)
     granite-3-8b SMOKE's steps for real against the trace."""
     from repro_torch.configs import ARCHS, get_config, get_smoke
     from repro_torch.launch import dryrun
-    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
+    from repro_torch.models import SHAPES
     from repro_torch.models.config import ShapeCell
-    check((PEAK_FLOPS, HBM_BW) == (BF16_OPS_PER_S, MEM_BYTES_PER_S),
+    check((PEAK_FLOPS, HBM_BW, LINK_BW) == (BF16_OPS_PER_S, MEM_BYTES_PER_S,
+                                           LINK_BYTES_PER_S),
           "phase 15: the roofline's peaks are not the H100 data sheet's")
     out = {}
+    for shape in DRYRUN_VARIANT_SHAPES:
+        for multi_pod in (False, True):
+            t0 = time.perf_counter()
+            rec = dryrun_variants(get_config("granite-3-8b"), SHAPES[shape],
+                                  multi_pod)
+            secs = time.perf_counter() - t0
+            rl = rec["roofline"]
+            log(f"  [{smi}] {shape} on {rec['mesh']}, rank {rec['rank']}'s "
+                f"traces of the analysis variants ({secs:.1f} s): roofline "
+                f"compute {rl['compute_s']:.6f} s, memory "
+                f"{rl['memory_s']:.6f} s, "
+                f"collective {rl['collective_s']:.6f} s "
+                f"({rl['coll_bytes_per_dev']:.6g} B over "
+                f"{LINK_BYTES_PER_S:.4g} B/s: {rl['coll_breakdown']}, by "
+                f"mesh dim {rl['coll_by_dim']}), bottleneck "
+                f"{rl['bottleneck']}")
+            check(rl["collective_s"] > 0, f"phase 15: {shape} on "
+                  f"{rec['mesh']} counted no collective")
+            out[f"{shape}:{rec['mesh']}"] = dict(rec, wall_s=secs)
     DRYRUN_OUT.unlink(missing_ok=True)
     try:
         for shape in DRYRUN_SHAPES:
-            argv = ["--arch", "granite-3-8b", "--shape", shape,
-                    "--roofline", "--out", str(DRYRUN_OUT)]
-            rec = dryrun.main(argv)[0]
-            log(f"  [{smi}] python -m repro_torch.launch.dryrun "
-                + " ".join(argv[:5]) + ": " + json.dumps(
-                    {k: v for k, v in rec.items() if k != "traceback"}))
-            check(rec["status"] == "ok", f"phase 15: {shape}: {rec}")
-            out[shape] = rec
+            for flags in ([], ["--multi-pod"]):
+                argv = ["--arch", "granite-3-8b", "--shape", shape,
+                        "--roofline", *flags, "--out", str(DRYRUN_OUT)]
+                t0 = time.perf_counter()
+                rec = dryrun.main(argv)[0]
+                secs = time.perf_counter() - t0
+                log(f"  [{smi}] python -m repro_torch.launch.dryrun "
+                    + " ".join(argv[:-2]) + f" ({secs:.1f} s): "
+                    + json.dumps({k: v for k, v in rec.items()
+                                  if k != "traceback"}))
+                check(rec["status"] == "ok",
+                      f"phase 15: {shape} {rec['mesh']}: {rec}")
+                rl = rec["roofline"]
+                log(f"  [{smi}] {shape} on {rec['mesh']}, rank "
+                    f"{rec['rank']}'s trace: collective bytes per device "
+                    f"{rec['coll']} by mesh dim {rec['coll_by_dim']}; "
+                    f"roofline compute {rl['compute_s']:.6f} s, memory "
+                    f"{rl['memory_s']:.6f} s, collective "
+                    f"{rl['collective_s']:.6f} s "
+                    f"({rl['coll_bytes_per_dev']:.6g} B over "
+                    f"{LINK_BYTES_PER_S:.4g} B/s), bottleneck "
+                    f"{rl['bottleneck']}")
+                check(rec["coll"]["total"] > 0 and rl["collective_s"] > 0,
+                      f"phase 15: {shape} on {rec['mesh']} counted no "
+                      "collective")
+                out[f"{shape}:{rec['mesh']}"] = dict(rec, wall_s=secs)
     finally:
         DRYRUN_OUT.unlink(missing_ok=True)
     out["smoke"], t0 = {}, time.perf_counter()
@@ -4838,7 +4932,7 @@ def mesh_elastic(cfg, src, want_loss):
     from repro_torch.models.common import tree_map
     from repro_torch.sharding import NamedSharding, use_mesh
     from repro_torch.train import make_train_step, opt_state_pspecs
-    mesh = make_device_mesh(1, 4, MESH_DEVICE)
+    mesh = make_device_mesh(1, 4, device=MESH_DEVICE)
     named = lambda specs: tree_map(lambda x: NamedSharding(mesh, x), specs)
     with use_mesh(mesh):
         ps = api.pspecs(cfg, mesh)
@@ -4888,8 +4982,8 @@ def mesh_rank(plan, root, device):
         del res
     if "replay" in plan:
         torch.cuda.empty_cache()
-        cfg, out["replay"] = mesh_replay(make_device_mesh(2, 2, device),
-                                         root / "replay")
+        cfg, out["replay"] = mesh_replay(
+            make_device_mesh(2, 2, device=device), root / "replay")
         out["elastic"] = mesh_elastic(cfg, root / "replay" / "crashed",
                                       out["replay"]["next_loss"])
     out["launches"] = sum(LAUNCHES.values())
@@ -5294,7 +5388,8 @@ def serve_rank(plan, root, device):
     from repro_torch.sharding import use_mesh
     rank, world = dist.get_rank(), dist.get_world_size()
     shape = "1x1" if world == 1 else "2x2"
-    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)), device)
+    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)),
+                            device=device)
     dev = torch.device(device, torch.cuda.current_device())
     launches0 = sum(LAUNCHES.values())
     out = {"rank": rank, "smi": smi_line(rank), "shape": shape,
@@ -5688,7 +5783,8 @@ def moe_rank(plan, root, device):
     from repro_torch.sharding import use_mesh
     rank, world = dist.get_rank(), dist.get_world_size()
     shape = "1x1" if world == 1 else "2x2"
-    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)), device)
+    mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)),
+                            device=device)
     dev = torch.device(device, torch.cuda.current_device())
     launches0 = sum(LAUNCHES.values())
     out = {"rank": rank, "smi": smi_line(rank), "shape": shape}
@@ -5999,6 +6095,317 @@ def phase_mesh_moe(smi, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: int8 gradient compression and the "pod" axis on a mesh
+# (make_train_step(grad_compression="int8") on placed parameters, the
+# residuals placed as the parameters, a (pod, data, model) DeviceMesh).
+# One NCCL rank per card, as phase 16.  On one card a 1x1x1 mesh of
+# granite-3-8b at full width, POD_LAYERS[1] layers, its losses, parameters,
+# optimizer state and residuals bit-equal to one device's int8 steps in
+# the same rank (run first and freed).  On four cards (--mesh-only 19) a
+# (pod=2, data=2, model=1) mesh at POD_LAYERS[4] layers (per rank: step
+# p50, peak, the collectives of one step by kind and mesh dim; step 0's
+# loss against one device's on the same batch), the same mesh at
+# POD_LAYERS[1] layers against one device's int8 steps (each step's loss
+# and gradient norm: the compressed updates over NCCL), and the wire primitive
+# compressed_allreduce_mean over "pod" timed beside an f32 all-reduce of
+# the same leaf
+# ---------------------------------------------------------------------------
+#: layers at full width: one card holds one device's and the 1x1x1 mesh's
+#: state in turn (bf16 parameters, f32 Adam moments and f32 residuals: 14
+#: B a parameter, 28 GB at 8 layers, plus the compression's f32 copies of
+#: the largest leaf); a 2x2x1 rank holds half of each leaf (FSDP over
+#: "data"), 25 GB at 16 layers
+POD_LAYERS = {1: 8, 4: 16}
+POD_STEPS = 4
+#: timed calls of the wire primitive and of the f32 all-reduce
+POD_WIRE_REPS = 20
+#: one device's numbers for the four-card run (a file under build/)
+POD_REF = ROOT / "build" / "smoke_mesh_pod_ref.json"
+
+
+def pod_train(cfg, mesh, steps):
+    """``steps`` int8 AdamW steps of ``cfg`` from seed-0 parameters on
+    ``mesh`` (None: one device) on ``mesh_batch``: (parameters, state,
+    this rank's numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_items
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import make_train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        params = api.init(cfg, 0, MESH_DEVICE, mesh=mesh)
+        step = make_train_step(cfg, lr=TRAIN_LR, grad_compression="int8",
+                               params_pspecs=None if mesh is None else
+                               api.pspecs(cfg, mesh))
+        state = step.init_state(params)
+        ms, hist = [], []
+        for i in range(steps):
+            batch = mesh_batch(cfg, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            hist.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"layers": cfg.n_layers, "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist], "step_ms": ms,
+           "step_p50_ms": float(np.median(ms[1:] if len(ms) > 1 else ms)),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if mesh is not None:
+        places = {p: tuple(t.placements) for p, t in tree_items(params)}
+        out["residuals_placed"] = all(
+            tuple(t.placements) == places[p]
+            for p, t in tree_items(state["ef_residual"]))
+    return params, state, out
+
+
+def pod_collectives(cfg, mesh, params, state):
+    """One more int8 step under the collective counter: calls and bytes
+    by kind and by mesh dim."""
+    import torch
+
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train import make_train_step
+    with use_mesh(mesh):
+        step = make_train_step(cfg, lr=TRAIN_LR, grad_compression="int8",
+                               params_pspecs=api.pspecs(cfg, mesh))
+        counter = CollectiveCounter(mesh)
+        with counter:
+            step(params, state, mesh_batch(cfg, POD_STEPS))
+        torch.cuda.synchronize()
+    return {"calls": counter.calls, "bytes": counter.coll_bytes,
+            "by_dim": counter.by_dim}
+
+
+def pod_wire(mesh, cfg):
+    """``compressed_allreduce_mean`` over "pod" of one layer's largest
+    gradient leaf (``w_in``: d_model x 2 d_ff, bf16; this rank's own
+    values) beside an f32 all-reduce mean of the same leaf: CUDA-event
+    medians of POD_WIRE_REPS calls, the bytes each gathers or reduces
+    (the collective counter), and how far the int8 mean lies from the f32
+    one."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.sharding import all_reduce, use_mesh
+    from repro_torch.train.compress import compressed_allreduce_mean
+    dm = mesh.device_mesh
+    pod = dm.mesh_dim_names.index("pod")
+    n = dm.size(pod)
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(
+        2000 + dist.get_rank())
+    x = (torch.randn((cfg.d_model, 2 * cfg.d_ff), generator=g,
+                     device=MESH_DEVICE) * 1e-3).to(torch.bfloat16)
+    runs = {"int8": lambda: compressed_allreduce_mean(x, "pod"),
+            "f32": lambda: all_reduce(x.float(), "sum", dm, [pod]) / n}
+    out = {"shape": list(x.shape), "pods": n}
+    with use_mesh(mesh):
+        for name, fn in runs.items():
+            counter = CollectiveCounter(mesh)
+            with counter:
+                y = fn()
+            out[name] = {"by_dim": counter.by_dim,
+                         "ms": gpu_ms(fn, reps=POD_WIRE_REPS)}
+            out[name + "_mean"] = y
+        out["max_abs_diff"] = float((out.pop("int8_mean")
+                                     - out.pop("f32_mean")).abs().max())
+        out["bound"] = float(x.float().abs().max()) / 127.0
+    return out
+
+
+def pod_rank(plan, root, device):
+    """One rank of phase 19 (its group joined by ``launch.train.spawn``);
+    rank 0 returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_device_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    launches0 = sum(LAUNCHES.values())
+    out = {"rank": rank, "smi": smi_line(rank), "launches_before": launches0}
+    cfg = get_config("granite-3-8b").replace(n_layers=POD_LAYERS[world])
+    if world == 1:
+        p, s, one = pod_train(cfg, None, POD_STEPS)
+        one["fingerprint"] = fingerprint({"params": p, "opt": s})
+        del p, s
+        torch.cuda.empty_cache()
+        mesh = make_device_mesh(1, 1, pod=1, device=device)
+        out["shape"], out["one_device"] = "1x1x1", one
+    else:
+        mesh = make_device_mesh(2, 1, pod=2, device=device)
+        out["shape"] = "2x2x1"
+        p, s, out["mesh_cut"] = pod_train(
+            cfg.replace(n_layers=POD_LAYERS[1]), mesh, POD_STEPS)
+        del p, s
+        torch.cuda.empty_cache()
+    p, s, got = pod_train(cfg, mesh, POD_STEPS)
+    if world == 1:
+        got["fingerprint"] = fingerprint({"params": p, "opt": s})
+    else:
+        got["collectives"] = pod_collectives(cfg, mesh, p, s)
+    out["mesh"] = got
+    del p, s
+    torch.cuda.empty_cache()
+    if world > 1:
+        out["wire"] = pod_wire(mesh, get_config("granite-3-8b"))
+    out["launches"] = sum(LAUNCHES.values()) - launches0
+    got = [None] * world
+    dist.all_gather_object(got, out)
+    return got
+
+
+def pod_reference(dev, smi):
+    """One device's numbers for the four-card run, written to POD_REF and
+    freed: the loss of ``mesh_batch(cfg, 0)`` at POD_LAYERS[4] layers
+    (step 0, before any update) and POD_STEPS int8 steps at POD_LAYERS[1]
+    layers (:func:`pod_train`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("granite-3-8b").replace(n_layers=POD_LAYERS[4])
+    with torch.no_grad():
+        params = api.init(cfg, 0, str(dev))
+        loss, _ = api.loss_fn(cfg, params, mesh_batch(cfg, 0))
+        loss = float(loss)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] one device, {POD_LAYERS[4]} layers, step 0's batch: "
+        f"loss {loss:.6f}")
+    p, s, cut = pod_train(cfg.replace(n_layers=POD_LAYERS[1]), None,
+                          POD_STEPS)
+    del p, s
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] one device, {POD_LAYERS[1]} layers, {POD_STEPS} int8 "
+        f"steps: losses {[round(x, 6) for x in cut['losses']]}, grad norms "
+        f"{[round(x, 4) for x in cut['grad_norms']]}, p50 "
+        f"{cut['step_p50_ms']:.1f} ms, peak {cut['peak_bytes']} B")
+    out = {"loss": loss, "cut": cut}
+    POD_REF.parent.mkdir(parents=True, exist_ok=True)
+    POD_REF.write_text(json.dumps(out))
+    return out
+
+
+def phase_mesh_pod(smi, dev):
+    """Phase 19: one rank on one card (1x1x1), four on four cards
+    (2x2x1, after one device's step-0 loss is computed by this process).
+    Every rank's numbers are printed before any is held."""
+    import torch
+
+    from repro_torch.launch.train import spawn
+    cards = torch.cuda.device_count()
+    world = MESH_RANKS if cards >= MESH_RANKS else 1
+    want = pod_reference(dev, smi) if world > 1 else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] {cards} card(s) visible: {world} NCCL rank(s), one per "
+        f"card; this process holds {torch.cuda.memory_allocated()} B on "
+        "cuda:0")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(world, pod_rank, timeout=MESH_TIMEOUT_S, plan="pod",
+                      root=str(POD_REF), device=MESH_DEVICE)
+    except RuntimeError as e:
+        check(False, f"phase 19: {e}")
+    finally:
+        POD_REF.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    log(f"  world size {world}; ranks done in {wall:.1f} s")
+    held = []
+    for r in ranks:
+        m = r["mesh"]
+        tag = f"  rank {r['rank']} {r['shape']} [{r['smi']}]"
+        log(f"{tag} granite-3-8b full width, {m['layers']} layers, int8 "
+            f"AdamW, {POD_STEPS} steps: p50 {m['step_p50_ms']:.1f} ms "
+            f"(first {m['step_ms'][0]:.1f}), peak {m['peak_bytes']} B; "
+            f"losses {[round(x, 6) for x in m['losses']]}; residuals "
+            f"placed as their parameters: {m['residuals_placed']}; port "
+            f"kernels launched {r['launches_before']} before, "
+            f"{r['launches']} in the phase")
+        held.append((r["launches_before"] == 0 and r["launches"] == 0,
+                     f"rank {r['rank']} launched port kernels"))
+        held.append((m["residuals_placed"], f"rank {r['rank']}: a residual "
+                     "is not placed as its parameter"))
+        if "one_device" in r:
+            one = r["one_device"]
+            same = one["fingerprint"] == m["fingerprint"]
+            losses = one["losses"] == m["losses"]
+            norms = one["grad_norms"] == m["grad_norms"]
+            log(f"{tag} one device, the same steps: p50 "
+                f"{one['step_p50_ms']:.1f} ms, peak {one['peak_bytes']} B; "
+                f"1x1x1 bit-equal to it: losses {losses}, grad norms "
+                f"{norms}, parameters, optimizer state and residuals "
+                f"{same}")
+            held.append((same and losses and norms, "the 1x1x1 mesh is not "
+                         "one device's int8 training bit for bit"))
+        if "collectives" in m:
+            c = m["collectives"]
+            log(f"{tag} collectives of one int8 step: calls {c['calls']}, "
+                f"bytes {c['bytes']}, by mesh dim {c['by_dim']}")
+            diff = abs(m["losses"][0] - want["loss"])
+            log(f"{tag} step 0 loss {m['losses'][0]:.6f} vs one device "
+                f"{want['loss']:.6f}, |diff| {diff:.3g} (< {MESH_LOSS_TOL})")
+            held.append((diff < MESH_LOSS_TOL, f"rank {r['rank']}: step 0 "
+                         f"loss {m['losses'][0]} vs one device's "
+                         f"{want['loss']}"))
+        if "mesh_cut" in r:
+            c, one = r["mesh_cut"], want["cut"]
+            dl = [abs(a - b) for a, b in zip(c["losses"], one["losses"])]
+            dn = [abs(a - b) / b for a, b in zip(c["grad_norms"],
+                                                 one["grad_norms"])]
+            log(f"{tag} {c['layers']} layers, {POD_STEPS} int8 steps: p50 "
+                f"{c['step_p50_ms']:.1f} ms, peak {c['peak_bytes']} B; "
+                f"losses {[round(x, 6) for x in c['losses']]}, |diff| from "
+                f"one device's {[float(f'{x:.3g}') for x in dl]} (< "
+                f"{TRAIN_LOSS_TOL}); grad norms "
+                f"{[round(x, 4) for x in c['grad_norms']]}, relative diff "
+                f"{[float(f'{x:.3g}') for x in dn]} (< {TRAIN_NORM_RTOL}); "
+                f"residuals placed as their parameters: "
+                f"{c['residuals_placed']}")
+            held.append((len(dl) == POD_STEPS and max(dl) < TRAIN_LOSS_TOL
+                         and max(dn) < TRAIN_NORM_RTOL, f"rank {r['rank']}: "
+                         f"{c['layers']}-layer int8 steps' losses {dl} or "
+                         f"grad norms {dn} from one device's"))
+            held.append((c["residuals_placed"], f"rank {r['rank']}: a "
+                         f"{c['layers']}-layer residual is not placed as "
+                         "its parameter"))
+        if "wire" in r:
+            w = r["wire"]
+            log(f"{tag} the wire over \"pod\" ({w['pods']} pods), one "
+                f"layer's w_in gradient {w['shape']} bf16: "
+                f"compressed_allreduce_mean {w['int8']['ms'] * 1e3:.1f} us, "
+                f"gathering {w['int8']['by_dim']} B; f32 all-reduce mean "
+                f"{w['f32']['ms'] * 1e3:.1f} us, {w['f32']['by_dim']} B "
+                f"(counted as the reference counts an all-reduce: twice "
+                f"its result); int8 mean from f32 mean max |diff| "
+                f"{w['max_abs_diff']:.3g} (bound max|g|/127 = "
+                f"{w['bound']:.3g})")
+            held.append((w["max_abs_diff"] <= w["bound"], f"rank "
+                         f"{r['rank']}: the int8 mean is past max|g|/127"))
+    for ok, msg in held:
+        check(ok, "phase 19: " + msg)
+    out = {"world": world, "wall_s": wall, "ranks": []}
+    if want is not None:
+        out["one_device_cut"] = want["cut"]
+    for r in ranks:
+        for side in ("mesh", "one_device"):
+            r.get(side, {}).pop("fingerprint", None)
+        out["ranks"].append({k: r[k] for k in (
+            "rank", "smi", "shape", "mesh", "mesh_cut", "one_device",
+            "wire") if k in r})
+    return out
+
+
 def one_device_reference(dev, smi):
     """Alone (``--mesh-only``): phase 14's cell for one step on one card,
     the 2x2 step-0 loss's reference."""
@@ -6019,7 +6426,7 @@ def one_device_reference(dev, smi):
 
 
 def main_mesh(dev, phases) -> int:
-    """``--mesh-only``: phases 16, 17 and 18 (or those of ``phases``)
+    """``--mesh-only``: phases 16, 17, 18 and 19 (or those of ``phases``)
     alone, for a host with four cards."""
     import torch
     smi = smi_line()
@@ -6046,6 +6453,14 @@ def main_mesh(dev, phases) -> int:
         log(f"  phase 18 summary ({smi}): " + json.dumps(moe_out,
                                                          default=str))
         log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    if "19" in phases:
+        log("phase 19 alone: int8 gradient compression on a (pod x data x "
+            "model) mesh")
+        t0 = time.perf_counter()
+        pod_out = phase_mesh_pod(smi, dev)
+        log(f"  phase 19 summary ({smi}): " + json.dumps(pod_out,
+                                                         default=str))
+        log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6419,11 +6834,11 @@ def main(argv) -> int:
     elif len(argv) == 3 and argv[0] == "--child":
         pass
     elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= {
-            "16", "17", "18"}:
+            "16", "17", "18", "19"}:
         pass
     elif argv:
         print("usage: chip_smoke.py [--compare SRC | --moe-memory SRC | "
-              "--mesh-only [16|17|18]]", file=sys.stderr)
+              "--mesh-only [16|17|18|19]]", file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py needs the repository beside it "
@@ -6435,7 +6850,7 @@ def main(argv) -> int:
         return main_child(argv[1], json.loads(argv[2]))
     if argv and argv[0] == "--mesh-only":
         return main_mesh(torch.device("cuda", torch.cuda.current_device()),
-                         set(argv[1:]) or {"16", "17", "18"})
+                         set(argv[1:]) or {"16", "17", "18", "19"})
     if argv and argv[0] == "--moe-memory":
         return main_moe_memory(torch.device("cuda",
                                             torch.cuda.current_device()), src)
@@ -6817,6 +7232,18 @@ def main(argv) -> int:
         + json.dumps(moe_mesh_out, default=str))
     del moe_mesh_out
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 19: int8 gradient compression and the \"pod\" axis on a "
+        "(pod x data x model) mesh: the residuals placed as the parameters;"
+        " " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    pod_mesh_out = phase_mesh_pod(smi, dev)
+    end_path("lm_mesh_pod")
+    log(f"  phase 19 summary ({smi}): "
+        + json.dumps(pod_mesh_out, default=str))
+    del pod_mesh_out
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

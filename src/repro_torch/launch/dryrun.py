@@ -1,29 +1,41 @@
-"""Dry-run: trace every (arch x shape x mesh) cell's step on ``meta``.
+"""Dry-run: trace every (arch x shape x mesh) cell's step on ``meta``,
+as one rank of the cell's mesh.
 
 The reference lowers and compiles each cell on 256 or 512 host
-placeholder devices.  The port runs each step on one device, so here the
-step runs once on ``meta`` tensors (shapes and dtypes only: nothing is
-allocated, no CUDA context starts) under the counter of
+placeholder devices.  Here the process joins a ``"fake"`` process group of
+the mesh's size (:func:`repro_torch.launch.mesh.fake_mesh`: a collective
+returns at once and moves nothing) and runs one rank's step once on
+DTensors whose blocks are ``meta`` tensors (shapes and dtypes only:
+nothing is allocated, no CUDA context starts) under the counter of
 :func:`repro_torch.launch.roofline.trace_step`.  Per cell it:
 
-  1. builds the production mesh (16x16 single-pod / 2x16x16 multi-pod) of
-     ``meta`` placeholders,
+  1. builds the mesh (16x16 single-pod / 2x16x16 multi-pod, or the one
+     given) and its ``DeviceMesh`` over the fake group,
   2. builds the cell's step (train_step / prefill / decode) over abstract
-     parameters and inputs, with the partition of every argument from the
-     logical-axis rules, recorded (applied only to real arguments on a
-     mesh that carries a ``device_mesh``: :func:`build_step`),
+     parameters and inputs placed by the logical-axis rules: parameters,
+     optimizer state, batch, token and cache are DTensors of their
+     ``meta`` blocks, so placing them issues no collective
+     (:func:`build_step`),
   3. traces it once: success is the deliverable,
-  4. records the memory per device (arguments, outputs and donated
-     aliases by their partitions; temporaries the traced step's peak of
-     live storage split evenly) and the cost (``flops``, ``bytes
-     accessed``),
+  4. records one rank's own numbers: memory (its blocks of the arguments,
+     the outputs and the donated aliases; temporaries the peak of the
+     live storage its ops create), the cost (``flops`` and ``bytes
+     accessed`` of its local ops) and the collectives DTensor issues
+     (``coll``: bytes by kind; ``coll_by_dim``: by mesh dim and kind),
   5. (optionally, --roofline) traces the reference's small analysis
-     variants, solves and extrapolates the roofline terms against the
-     H100 (see launch.roofline), split evenly over the mesh's devices.
+     variants the same way, solves and extrapolates the roofline terms
+     against the H100 (see launch.roofline), the collective term at
+     ``LINK_BW``.
+
+The traced rank is 0 (the largest blocks: torch splits unevenly with the
+larger blocks first); a decode cell traces the rank whose cache block
+holds the written position, which writes it beside everything rank 0
+does.  The record names it (``rank``).  A process already in a process
+group (a rank of ``launch.train``) cannot trace a cell: :func:`run_cell`
+raises.
 
 Where the trace differs from the reference's compile, the record says so:
 
-* ``collectives: "one device"``: the step has no collective.
 * ``moe: "dense surrogate"``: an MoE arch's group sizes cannot be read on
   ``meta``, so its experts run the same-work dense surrogate
   (``cfg.moe_dense_analysis``), as the reference's analysis variants do.
@@ -33,9 +45,9 @@ Where the trace differs from the reference's compile, the record says so:
   (autograd's ``select_backward`` writes a zero gradient of a whole
   (B, S, H, P) stream for each token's slice, and the accumulation adds
   them).  So a train or prefill cell is traced at three short lengths at
-  the cell's batch, and its flops, bytes and peak are the quadratic
-  through them at the cell's length (exact for a polynomial of degree
-  two or less).
+  the cell's batch, and its flops, bytes, collectives and peak are the
+  quadratic through them at the cell's length (exact for a polynomial of
+  degree two or less).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k \
@@ -58,9 +70,10 @@ from ..configs import ARCHS, get_config
 from ..models import SHAPES, api, supports_shape
 from ..models.common import tree_from_items, tree_items, tree_map
 from ..models.config import LMConfig, ShapeCell
-from ..sharding import distribute, spec_for, use_mesh
+from ..sharding import (NamedSharding, current_rules, distribute, spec_for,
+                        use_mesh)
 from ..train import make_train_step, opt_state_pspecs
-from .mesh import make_production_mesh
+from .mesh import fake_mesh, make_production_mesh
 from .roofline import (Measurement, analysis_variants, roofline_terms,
                        solve_units, trace_step)
 from .specs import input_shardings, input_specs
@@ -76,23 +89,24 @@ class Step:
     given: each argument's partition tree (``in_specs``), the result's
     (``out_specs(result)``) and the donated arguments; ``None`` in a
     partition tree replicates the whole subtree.  A donated argument is
-    updated in place and returned as (part of) the result.  The
-    partitions are recorded; :func:`build_step` applies them to the
-    arguments it makes on a mesh with a ``device_mesh``, and the step then
-    runs under that mesh (``mesh``)."""
+    updated in place and returned as (part of) the result.
+    :func:`build_step` places the arguments it makes on a mesh with a
+    ``device_mesh`` by these partitions, and the step then runs under
+    that mesh (``mesh``) and the rules it was built with (``rules``)."""
 
     def __init__(self, fn, in_specs, out_specs, donate_argnums=(),
-                 mesh=None):
+                 mesh=None, rules=None):
         self.fn = fn
         self.in_specs = in_specs
         self.out_specs = out_specs
         self.donate_argnums = donate_argnums
         self.mesh = mesh
+        self.rules = rules
 
     def __call__(self, *args):
         if getattr(self.mesh, "device_mesh", None) is None:
             return self.fn(*args)
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh, self.rules):
             return self.fn(*args)
 
 
@@ -125,33 +139,43 @@ def _real_batch(cfg: LMConfig, batch, device, seed: int):
     return tree_map(make, batch)
 
 
+def _placed(tree, specs, mesh):
+    """A tree of whole (``meta``) tensors as DTensors on ``mesh``, each
+    leaf by the spec tuple at its path: every rank keeps its own block."""
+    return tree_map(lambda t, sp: distribute(t, NamedSharding(mesh, sp)),
+                    tree, specs)
+
+
 def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
                seed: int = 0):
     """Returns (step, example args tuple): abstract (``meta``) arguments,
     or with ``device="cuda"`` / ``"cpu"`` real ones of the same shapes
     made from ``seed``.  The partitions come from the rules of the active
-    ``use_mesh`` (or the defaults) on ``mesh``.  Real arguments on a mesh
-    that carries a ``device_mesh`` are placed by them, as the reference's
-    ``in_shardings`` place its arguments: parameters and the decode cache
-    by ``api.init(mesh=)`` / ``api.init_cache(mesh=)``, the optimizer state
-    as its parameters, the batch and the token by ``sharding.distribute``;
+    ``use_mesh`` (or the defaults) on ``mesh``.  On a mesh that carries a
+    ``device_mesh`` the arguments are placed by them, as the reference's
+    ``in_shardings`` place its arguments: real parameters and a real
+    decode cache by ``api.init(mesh=)`` / ``api.init_cache(mesh=)``,
+    abstract ones as DTensors of ``meta`` blocks, the optimizer state as
+    its parameters, the batch and the token by ``sharding.distribute``;
     the step then runs on DTensors, under ``mesh``."""
     meta = torch.device(device).type == "meta"
-    on = None if meta or getattr(mesh, "device_mesh", None) is None \
-        else mesh
+    on = None if getattr(mesh, "device_mesh", None) is None else mesh
     params = api.abstract(cfg) if meta else api.init(cfg, seed, device,
                                                      mesh=on)
     pspec = api.pspecs(cfg, mesh)
+    if meta and on is not None:
+        api.check_mesh(cfg, on)
+        params = _placed(params, pspec, on)
     b, s = cell.global_batch, cell.seq_len
+    rules = current_rules()
 
     if cell.kind in ("train", "prefill"):
         batch = input_specs(cfg, cell)["batch"]
         shards = input_shardings(cfg, cell, mesh)["batch"]
         if not meta:
             batch = _real_batch(cfg, batch, device, seed)
-            if on is not None:
-                batch = {k: distribute(v, shards[k])
-                         for k, v in batch.items()}
+        if on is not None:
+            batch = {k: distribute(v, shards[k]) for k, v in batch.items()}
         batch_spec = _specs(shards)
 
     if cell.kind == "train":
@@ -160,7 +184,7 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
         opt_spec = opt_state_pspecs(cfg, pspec)
         fn = Step(step, (pspec, opt_spec, batch_spec),
                   lambda out: (pspec, opt_spec, None), donate_argnums=(0, 1),
-                  mesh=on)
+                  mesh=on, rules=rules)
         return fn, (params, opt, batch)
 
     if cell.kind == "prefill":
@@ -169,7 +193,7 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
                   lambda out: (spec_for(out[0].shape, ("batch", "vocab"),
                                         mesh),
                                _like_schema(out[1], cache_schema, mesh)),
-                  mesh=on)
+                  mesh=on, rules=rules)
         return fn, (params, batch)
 
     # decode: the port's index is a host int (api.decode); the last
@@ -178,17 +202,19 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
     shards = input_shardings(cfg, cell, mesh)
     if meta:
         token, cache = spec["token"], spec["cache"]
+        if on is not None:
+            cache = _placed(cache, shards["cache"], on)
     else:
         token = _real_batch(cfg, {"t": spec["token"]}, device, seed)["t"]
-        if on is not None:
-            token = distribute(token, shards["token"])
         cache = api.init_cache(cfg, b, s, device, mesh=on)
+    if on is not None:
+        token = distribute(token, shards["token"])
     fn = Step(lambda p, t, c, i: api.decode(cfg, p, t, c, i),
               (pspec, shards["token"].spec, shards["cache"],
                shards["index"].spec),
               lambda out: (spec_for(out[0].shape, ("batch", None, "vocab"),
                                     mesh), shards["cache"]),
-              donate_argnums=(2,), mesh=on)
+              donate_argnums=(2,), mesh=on, rules=rules)
     return fn, (params, token, cache, s - 1)
 
 
@@ -220,12 +246,29 @@ def tree_bytes(tree, specs, mesh) -> int:
     return _device_bytes(tree, specs or (), mesh)
 
 
-def memory_record(fn: Step, args, out, temp_bytes: float, mesh) -> dict:
-    """The reference's ``memory_analysis()`` fields, per device."""
-    arg = tree_bytes(args, fn.in_specs, mesh)
-    outb = tree_bytes(out, fn.out_specs(out), mesh)
-    alias = sum(tree_bytes(args[i], fn.in_specs[i], mesh)
-                for i in fn.donate_argnums)
+def local_bytes(tree) -> int:
+    """Bytes this rank holds of a tree of tensors: each plain tensor
+    whole, each DTensor's local block (a host int counts as the
+    reference's int32 scalar)."""
+    if isinstance(tree, dict):
+        return sum(local_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(local_bytes(v) for v in tree)
+    if isinstance(tree, int):
+        return INDEX_BYTES
+    if isinstance(tree, torch.Tensor):
+        t = tree.to_local() if hasattr(tree, "to_local") else tree
+        return t.numel() * t.element_size()
+    return 0
+
+
+def memory_record(fn: Step, args, out, temp_bytes: float) -> dict:
+    """The reference's ``memory_analysis()`` fields of one rank: its
+    blocks of the arguments, the results and the donated arguments, and
+    ``temp_bytes`` (the trace's peak of live created storage)."""
+    arg = local_bytes(args)
+    outb = local_bytes(out)
+    alias = sum(local_bytes(args[i]) for i in fn.donate_argnums)
     temp = int(temp_bytes)
     return {"argument_bytes": arg, "output_bytes": outb, "temp_bytes": temp,
             "alias_bytes": alias, "code_bytes": 0,
@@ -236,13 +279,13 @@ def memory_record(fn: Step, args, out, temp_bytes: float, mesh) -> dict:
 # Tracing a cell
 # ---------------------------------------------------------------------------
 def _traced(cfg: LMConfig, cell: ShapeCell, mesh, rules=None):
-    """The step is built under the mesh's rules and traced outside them,
-    as one device's step on ``meta`` (the production mesh places nothing;
-    an MoE layer under a mesh with a "model" axis would need placed
-    tensors: real placements are ROADMAP A14e)."""
+    """The step built under the mesh's rules and traced once.  On a mesh
+    with a ``device_mesh`` (the fake group's, :func:`run_cell`) it runs
+    there on placed ``meta`` blocks, and the counts are this rank's; on
+    one without (a host mesh) it runs as one device's step."""
     with use_mesh(mesh, rules=rules):
         fn, args = build_step(cfg, cell, mesh)
-    out, m = trace_step(fn, *args)
+    out, m = trace_step(fn, *args, mesh=fn.mesh)
     return fn, args, out, m
 
 
@@ -258,33 +301,97 @@ def measure_cell(cfg: LMConfig, cell: ShapeCell, mesh, rules=None):
     """(step, args, output, Measurement, traced lengths or None) of the
     cell's step on ``meta``.  An rwkv train or prefill cell longer than
     ``RWKV_LENGTHS`` is traced at those lengths (the cell's batch), and its
-    flops, bytes and peak are the quadratic through them at its length;
-    its results' shapes do not depend on the length."""
+    flops, bytes, collectives and peak are the quadratic through them at
+    its length; its results' shapes do not depend on the length."""
     if not (cfg.family == "rwkv" and cell.kind != "decode"
             and cell.seq_len > RWKV_LENGTHS[-1]):
         return (*_traced(cfg, cell, mesh, rules), None)
-    got = [_traced(cfg, ShapeCell(cell.name, n, cell.global_batch,
-                                  cell.kind), mesh, rules)[2:]
-           for n in RWKV_LENGTHS]
-    at = lambda f: _quadratic_at(RWKV_LENGTHS, [getattr(m, f)
-                                                for _, m in got],
-                                 cell.seq_len)
-    m = Measurement(at("flops"), at("bytes_accessed"), {"total": 0.0},
-                    at("peak_bytes"))
+    outs, got = zip(*[_traced(cfg, ShapeCell(cell.name, n, cell.global_batch,
+                                             cell.kind), mesh, rules)[2:]
+                      for n in RWKV_LENGTHS])
+    at = lambda ys: _quadratic_at(RWKV_LENGTHS, ys, cell.seq_len)
+    coll = {k: at([m.coll.get(k, 0.0) for m in got])
+            for k in sorted({k for m in got for k in m.coll})}
+    by_dim = {d: {k: at([m.coll_by_dim.get(d, {}).get(k, 0.0) for m in got])
+                  for k in sorted({k for m in got
+                                   for k in m.coll_by_dim.get(d, {})})}
+              for d in sorted({d for m in got for d in m.coll_by_dim})}
+    m = Measurement(at([m.flops for m in got]),
+                    at([m.bytes_accessed for m in got]), coll,
+                    at([m.peak_bytes for m in got]), by_dim)
     with use_mesh(mesh, rules=rules):
         fn, args = build_step(cfg, cell, mesh)
-    return fn, args, got[-1][0], m, list(RWKV_LENGTHS)
+    return fn, args, outs[-1], m, list(RWKV_LENGTHS)
 
 
 def _mesh_name(mesh) -> str:
     return "x".join(str(n) for n in mesh.shape.values())
 
 
+def traced_rank(cfg: LMConfig, cell: ShapeCell, mesh, rules=None) -> int:
+    """The rank whose step :func:`run_cell` traces: 0, or for a decode
+    cell the rank at the last block of every mesh axis that splits the
+    cache's positions (``kv_seq``), which owns the written position."""
+    if cell.kind != "decode":
+        return 0
+    with use_mesh(mesh, rules=rules):
+        ent = spec_for((cell.seq_len,), ("kv_seq",), mesh)
+    axes = () if not ent or ent[0] is None else (
+        (ent[0],) if isinstance(ent[0], str) else ent[0])
+    rank = 0
+    for a in mesh.axis_names:
+        rank = rank * mesh.shape[a] + (mesh.shape[a] - 1 if a in axes else 0)
+    return rank
+
+
+def traced_config(cfg: LMConfig):
+    """(config, rules) that a cell of ``cfg`` is traced with: an MoE
+    arch's dense surrogate (``moe_dense_analysis``), its experts over
+    "model" x "data" under ``ep_over_data``, and the embedding whole
+    without FSDP."""
+    rules = {}
+    if cfg.ep_over_data:
+        rules["experts"] = ("model", "data")
+    if not cfg.fsdp:
+        rules["embed"] = None
+    if cfg.n_experts:
+        cfg = cfg.replace(moe_dense_analysis=True)
+    return cfg, rules or None
+
+
+def _check_dims(by_dim, mesh) -> None:
+    """Raises unless every mesh dim of a collective breakdown is one of
+    ``mesh``'s axes (a group of an earlier fake mesh is counted by its
+    own name)."""
+    stray = sorted(set(by_dim) - set(mesh.axis_names))
+    if stray:
+        raise RuntimeError(f"collectives on groups {stray} that are no "
+                           f"dim of the mesh {tuple(mesh.axis_names)}")
+
+
+def roofline_record(cfg: LMConfig, cell: ShapeCell, placed, rules) -> dict:
+    """The roofline of a cell of ``cfg`` (as :func:`traced_config` gives
+    it) on ``placed`` (the mesh :func:`fake_mesh` yields): the
+    reference's analysis variants traced as this rank, the unit solve's
+    extrapolation to the cell's depth, and the terms against the H100,
+    the collective term at ``LINK_BW`` (``coll_by_dim`` beside them)."""
+    variants, full_counts = analysis_variants(cfg, cell)
+    measured = [(counts, measure_cell(vcfg, cell, placed, rules)[3])
+                for vcfg, counts in variants]
+    m = solve_units(measured, full_counts)
+    _check_dims(m.coll_by_dim, placed)
+    rl = roofline_terms(m, cfg, cell, placed.devices.size).as_dict()
+    rl["coll_by_dim"] = m.coll_by_dim
+    return rl
+
+
 def run_cell(arch: str, shape, multi_pod: bool, do_roofline: bool,
              cfg_override: Optional[LMConfig] = None, tag: str = "",
              mesh=None):
-    """One cell's record.  ``shape``: a name of ``SHAPES`` or a
-    ``ShapeCell``; ``mesh``: the production mesh unless given."""
+    """One cell's record, the trace of :func:`traced_rank` on a fake group
+    of the mesh's size.  ``shape``: a name of ``SHAPES`` or a
+    ``ShapeCell``; ``mesh``: the production mesh unless given.  Raises in
+    a process that already belongs to a group."""
     cfg = cfg_override or get_config(arch)
     cell = shape if isinstance(shape, ShapeCell) else SHAPES[shape]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
@@ -295,41 +402,33 @@ def run_cell(arch: str, shape, multi_pod: bool, do_roofline: bool,
                          "long-context path (DESIGN §Arch-applicability)")
         return rec
     t0 = time.time()
-    n_dev = mesh.devices.size
-    rules = {}
-    if cfg.ep_over_data:
-        rules["experts"] = ("model", "data")
-    if not cfg.fsdp:
-        rules["embed"] = None
-    rules = rules or None
-    rec.update(collectives="one device", traced="meta",
-               per_device="arguments, outputs and aliases by their "
-               "partitions; temp, flops and bytes an even split of the "
-               "one-device step")
+    cfg, rules = traced_config(cfg)
+    rank = traced_rank(cfg, cell, mesh, rules)
+    rec.update(traced="meta", rank=rank, per_device="one rank's trace on a "
+               "fake group of the mesh's size: its blocks of the arguments, "
+               "outputs and aliases, the peak of its live storage, its "
+               "local ops' flops and bytes, the collectives it issues")
     if cfg.n_experts:
-        cfg = cfg.replace(moe_dense_analysis=True)
         rec["moe"] = "dense surrogate"
-    try:
-        fn, args, out, m, lengths = measure_cell(cfg, cell, mesh, rules)
-        if lengths:
-            rec["rwkv_lengths"] = lengths
-        with use_mesh(mesh, rules=rules):
-            rec["memory"] = memory_record(fn, args, out,
-                                          m.peak_bytes / n_dev, mesh)
-        rec["cost_analysis"] = {"flops": m.flops / n_dev,
-                                "bytes accessed": m.bytes_accessed / n_dev}
-        if do_roofline:
-            variants, full_counts = analysis_variants(cfg, cell)
-            measured = [(counts, measure_cell(vcfg, cell, mesh, rules)[3])
-                        for vcfg, counts in variants]
-            m_full = solve_units(measured, full_counts)
-            rl = roofline_terms(m_full.scale(1.0 / n_dev), cfg, cell, n_dev)
-            rec["roofline"] = rl.as_dict()
-        rec["status"] = "ok"
-    except Exception as e:
-        rec["status"] = "error"
-        rec["error"] = f"{type(e).__name__}: {e}"
-        rec["traceback"] = traceback.format_exc()[-4000:]
+    with fake_mesh(mesh, rank) as placed:
+        try:
+            fn, args, out, m, lengths = measure_cell(cfg, cell, placed,
+                                                     rules)
+            _check_dims(m.coll_by_dim, placed)
+            if lengths:
+                rec["rwkv_lengths"] = lengths
+            rec["memory"] = memory_record(fn, args, out, m.peak_bytes)
+            rec["cost_analysis"] = {"flops": m.flops,
+                                    "bytes accessed": m.bytes_accessed}
+            rec["coll"] = m.coll
+            rec["coll_by_dim"] = m.coll_by_dim
+            if do_roofline:
+                rec["roofline"] = roofline_record(cfg, cell, placed, rules)
+            rec["status"] = "ok"
+        except Exception as e:
+            rec["status"] = "error"
+            rec["error"] = f"{type(e).__name__}: {e}"
+            rec["traceback"] = traceback.format_exc()[-4000:]
     rec["time_s"] = round(time.time() - t0, 1)
     return rec
 

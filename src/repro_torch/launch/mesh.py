@@ -16,16 +16,21 @@ launcher runs one per host.
   traffic.  The production mesh is made of ``meta`` placeholders, as the
   reference's dry-run compiles on host placeholder devices: the port
   places nothing on it, the dry-run (:mod:`.dryrun`) reads its shape.
-- :func:`make_device_mesh` gives a (data, model) :class:`Mesh` that
-  carries the ``torch.distributed`` ``DeviceMesh`` of this process's
-  group (after :func:`init_distributed`): under it
+- :func:`make_device_mesh` gives a (data, model) or (pod, data, model)
+  :class:`Mesh` that carries the ``torch.distributed`` ``DeviceMesh`` of
+  this process's group (after :func:`init_distributed`): under it
   (:func:`repro_torch.sharding.use_mesh`) parameters, optimizer state,
   batches and activations are DTensors placed by their partitions.
+- :func:`fake_mesh` carries a ``DeviceMesh`` of a ``"fake"`` group of a
+  mesh's size in this one process: the dry-run places ``meta`` blocks on
+  it and traces one rank's step.
 - A :class:`ShardMesh` is the 1-D list of devices the shards of a
   :class:`~repro_torch.columnar.shard.ShardedTapeBackend` live on.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
@@ -112,24 +117,89 @@ def init_distributed(device: str = "cuda",
     return dev
 
 
-def make_device_mesh(data: int = 1, model: int = 1,
+def make_device_mesh(data: int = 1, model: int = 1, pod: int = 0,
                      device: str = "cuda") -> Mesh:
     """A (data, model) :class:`Mesh` over this process's initialised group
     (:func:`init_distributed`), carrying its ``DeviceMesh`` (dims named
-    ``"data"`` and ``"model"``, ranks in row-major order).  Raises unless
-    ``data * model`` is the group's world size."""
+    ``"data"`` and ``"model"``, ranks in row-major order); with ``pod`` a
+    (pod, data, model) one, in the reference's order (its
+    ``make_host_mesh(data, model, pod)``): the "batch" rule's
+    ``("pod", "data")`` splits rows over both, and no parameter rule names
+    "pod", so parameters are whole over it.  Raises unless the mesh's
+    device count is the group's world size."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed first")
+    shape, axes = ((pod, data, model), ("pod", "data", "model")) if pod \
+        else ((data, model), ("data", "model"))
     world = dist.get_world_size()
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} has {data * model} devices "
-                         f"but the process group has {world} ranks")
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, shape))} has "
+                         f"{math.prod(shape)} devices but the process group "
+                         f"has {world} ranks")
     kind = torch.device(device).type
-    dm = init_device_mesh(kind, (data, model),
-                          mesh_dim_names=("data", "model"))
-    return Mesh((data, model), ("data", "model"), kind, device_mesh=dm)
+    dm = init_device_mesh(kind, shape, mesh_dim_names=axes)
+    return Mesh(shape, axes, kind, device_mesh=dm)
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: Mesh, rank: int = 0):
+    """``mesh``'s axes carried by the ``DeviceMesh`` of a ``"fake"`` process
+    group of its device count (torch's own testing backend: a collective
+    returns at once and moves nothing), this process its rank ``rank``:
+    DTensors of ``meta`` blocks placed on it run one rank's step without a
+    device or a peer (the dry-run, :mod:`.dryrun`).  The group is joined
+    on entry and destroyed on exit; a process already in a group (a rank
+    of ``launch.train``) raises and keeps its group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            "this process already belongs to a process group (rank "
+            f"{dist.get_rank()} of {dist.get_world_size()}): the dry-run "
+            "joins a fake group of the mesh's size, so run it in a process "
+            "of its own")
+    world = mesh.devices.size
+    shape = tuple(mesh.shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        dm = init_device_mesh("cpu", shape, mesh_dim_names=mesh.axis_names)
+        yield Mesh(shape, mesh.axis_names, "meta", device_mesh=dm)
+    finally:
+        dist.destroy_process_group()
+        forget_device_meshes()
+
+
+def forget_device_meshes() -> None:
+    """Drop DTensor's caches of sharding and redistribution plans (the
+    Python ones and the C++ dispatch's): a
+    ``DeviceMesh`` compares equal to a later one of the same shape, names
+    and ranks, so a plan cached on a destroyed group's mesh would carry
+    that mesh (and its group names) into the next group's ops.  Raises if
+    this torch has no sharding-propagation or no redistribution cache
+    that it knows how to clear."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    found = {"sharding propagation": [
+        getattr(getattr(prop, "propagate_op_sharding", None), "cache_clear",
+                None),
+        getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)],
+        "redistribution": [
+        getattr(getattr(_redistribute, "_gen_transform_infos", None),
+                "cache_clear", None),
+        getattr(getattr(_redistribute, "_planner_cache", None), "clear",
+                None)]}
+    for what, clears in found.items():
+        clears = [c for c in clears if c is not None]
+        if not clears:
+            raise RuntimeError(f"torch {torch.__version__}: no cache of "
+                               f"DTensor's {what} plans found to clear")
+        for clear in clears:
+            clear()
 
 
 def mesh_of(device_mesh) -> Mesh:

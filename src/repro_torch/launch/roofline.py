@@ -24,10 +24,11 @@ Methodology:
   storage counted once across its views.
 * Collectives are counted where they are called: :class:`CollectiveCounter`
   sees every ``_c10d_functional`` op DTensor's redistributions issue on a
-  real mesh (calls and bytes by kind and by mesh dim; ``CommDebugMode``
-  counts only calls), and ``coll`` holds its bytes by kind.  A step traced
-  on ``meta`` runs on one device, so its ``coll`` is ``{"total": 0.0}``
-  (the dry-run records ``"collectives": "one device"``).
+  mesh (calls and bytes by kind and by mesh dim; ``CommDebugMode`` counts
+  only calls), ``coll`` holds its bytes by kind and ``coll_by_dim`` by
+  mesh dim and kind.  The dry-run traces one rank of a fake group of the
+  mesh's size on placed ``meta`` blocks, so its counts are that rank's,
+  collectives included; a step on one device has ``{"total": 0.0}``.
   :func:`collective_bytes` (the reference's HLO-text parser) is kept for
   parity and for reading the reference's HLO.
 * The port's layers are a Python loop, so a full-depth trace counts every
@@ -46,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -93,25 +95,14 @@ def collective_bytes(hlo_text: str) -> Dict[str, float]:
 
 @dataclass
 class Measurement:
-    """A step's work.  ``peak_bytes`` is the peak of one traced call: a sum
-    of measurements keeps the larger peak, a scaled one the same peak."""
+    """A step's work.  ``peak_bytes`` is the peak of one traced call;
+    ``coll`` holds collective bytes by kind, ``coll_by_dim`` by mesh dim
+    and kind."""
     flops: float = 0.0
     bytes_accessed: float = 0.0
     coll: Dict[str, float] = field(default_factory=dict)
     peak_bytes: float = 0.0
-
-    def __add__(self, o):
-        c = dict(self.coll)
-        for k, v in o.coll.items():
-            c[k] = c.get(k, 0.0) + v
-        return Measurement(self.flops + o.flops,
-                           self.bytes_accessed + o.bytes_accessed, c,
-                           max(self.peak_bytes, o.peak_bytes))
-
-    def scale(self, f: float):
-        return Measurement(self.flops * f, self.bytes_accessed * f,
-                           {k: v * f for k, v in self.coll.items()},
-                           self.peak_bytes)
+    coll_by_dim: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +116,14 @@ _ALLOC = {torch.ops.aten.empty.memory_format,
 #: in-place ops that write their first argument without reading it
 _WRITE_ONLY = {torch.ops.aten.copy_.default, torch.ops.aten.fill_.Scalar,
                torch.ops.aten.fill_.Tensor, torch.ops.aten.zero_.default}
+
+
+def _is_wait(func) -> bool:
+    """A functional collective's wait: it returns its input when the
+    collective is done, and moves nothing (the collective's own op counts
+    its input read and its result written)."""
+    return func.namespace == "_c10d_functional" and \
+        func._schema.name.endswith("wait_tensor")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -160,10 +159,13 @@ def _tensors(tree, out=None) -> List[torch.Tensor]:
 
 
 #: the functional collectives DTensor issues, by the reference's HLO names
+#: (``_dtensor.shard_dim_alltoall``: a Shard-to-Shard move on a mesh of
+#: cards; on a CPU mesh DTensor all-gathers and chunks instead)
 _COLL_KINDS = {"all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
                "all_reduce": "all-reduce",
-               "all_to_all_single": "all-to-all"}
+               "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all"}
 
 
 def _ranks(group) -> Tuple[int, ...]:
@@ -173,11 +175,12 @@ def _ranks(group) -> Tuple[int, ...]:
 
 class CollectiveCounter(TorchDispatchMode):
     """Calls and bytes of the collectives run under it: every
-    ``_c10d_functional`` op, by kind (the reference's names) and by the
-    mesh dim whose group it runs on (``mesh``: a ``Mesh`` with a
-    ``device_mesh``, or a ``DeviceMesh``: a group is that dim's when it
-    holds the same ranks, as DTensor may run a dim's collectives on the
-    groups of an equal mesh made earlier; other groups by name).  Bytes as
+    ``_c10d_functional`` op and DTensor's ``shard_dim_alltoall``, by kind
+    (the reference's names) and by the mesh dim whose group it runs on
+    (``mesh``: a ``Mesh`` with a ``device_mesh``, or a ``DeviceMesh``: a
+    group is that dim's when it holds the same ranks, as DTensor may run a
+    dim's collectives on the groups of an equal mesh made earlier; other
+    groups by name).  Bytes as
     the reference's :func:`collective_bytes` counts them: each result's
     bytes, twice for an all-reduce (a ring's reduce-scatter and
     all-gather).  An op on DTensors is let through (``NotImplemented``) so
@@ -211,7 +214,7 @@ class CollectiveCounter(TorchDispatchMode):
             issubclass(t, self._dtensor) for t in types)
 
     def _count(self, func, args, out) -> None:
-        if func.namespace != "_c10d_functional":
+        if func.namespace not in ("_c10d_functional", "_dtensor"):
             return
         kind = _COLL_KINDS.get(func._schema.name.split("::")[-1])
         if kind is None:
@@ -298,12 +301,16 @@ class _StepCounter(CollectiveCounter):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in outs):
+            # DTensor working out an op's global shape on fake tensors of
+            # the global shapes: no step's work, and nothing allocated
+            return out
         self._count(func, args, out)
         packet = func.overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        outs = _tensors(out)
-        if not (func.is_view or func in _ALLOC):
+        if not (func.is_view or func in _ALLOC or _is_wait(func)):
             reads = _tensors((args[1:], kwargs) if func in _WRITE_ONLY
                              else (args, kwargs))
             self.bytes += sum(map(_nbytes, reads)) + sum(map(_nbytes, outs))
@@ -315,13 +322,16 @@ class _StepCounter(CollectiveCounter):
 def trace_step(fn, *args, mesh=None):
     """``fn(*args)`` once under the counter: ``(its output, Measurement)``.
     On ``meta`` arguments nothing is allocated and no data is read; on a
-    real ``mesh`` the counts are this rank's (its local ops) and ``coll``
-    holds the collectives' bytes by kind."""
+    ``mesh`` (real ranks, or the dry-run's fake group) the counts are
+    this rank's (its local ops) and ``coll`` / ``coll_by_dim`` hold the
+    collectives' bytes by kind and by mesh dim."""
     counter = _StepCounter(args, mesh)
     with counter:
         out = fn(*args)
     return out, Measurement(float(counter.flops), float(counter.bytes),
-                            counter.coll(), float(counter.peak))
+                            counter.coll(), float(counter.peak),
+                            {d: dict(per) for d, per in
+                             counter.by_dim.items()})
 
 
 def measure_step(fn, *args, mesh=None) -> Measurement:
@@ -330,11 +340,12 @@ def measure_step(fn, *args, mesh=None) -> Measurement:
     op.  ``flops``: matrix products and attention only; elementwise work is
     not counted, unlike XLA's ``cost_analysis``.  ``bytes_accessed``:
     every op's tensor arguments read and results written (an in-place
-    op's destination both; views and allocations move nothing).
+    op's destination both; views, allocations and a collective's wait
+    move nothing).
     ``peak_bytes``: the peak of storage the step creates that is alive at
     once.  ``coll``: the collectives' bytes by kind and their total
-    (``{"total": 0.0}`` on one device); ``mesh`` names their mesh dims
-    (:class:`CollectiveCounter`)."""
+    (``{"total": 0.0}`` on one device) and ``coll_by_dim`` by mesh dim;
+    ``mesh`` names the dims (:class:`CollectiveCounter`)."""
     return trace_step(fn, *args, mesh=mesh)[1]
 
 
@@ -417,7 +428,12 @@ def solve_units(variants: List[Tuple[Dict, Measurement]],
     keys = sorted({k for _, m in variants for k in m.coll})
     coll = {k: extrapolate(np.array([m.coll.get(k, 0.0)
                                      for _, m in variants])) for k in keys}
-    return Measurement(flops, byts, coll)
+    dims = sorted({d for _, m in variants for d in m.coll_by_dim})
+    by_dim = {d: {k: extrapolate(np.array([m.coll_by_dim.get(d, {}).get(
+        k, 0.0) for _, m in variants])) for k in sorted(
+            {k for _, m in variants for k in m.coll_by_dim.get(d, {})})}
+        for d in dims}
+    return Measurement(flops, byts, coll, coll_by_dim=by_dim)
 
 
 # ---------------------------------------------------------------------------

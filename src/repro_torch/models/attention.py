@@ -18,7 +18,7 @@ import torch
 from ..sharding import (all_reduce, block, dtensor, placed, rows_of,
                         seq_dims, shard, write_at)
 from .common import (ParamDef, apply_rope, blockwise_attention,
-                     decode_attention, matmul, rms_norm)
+                     decode_attention, matmul, rms_norm, split_heads)
 from .config import LMConfig
 
 
@@ -47,7 +47,6 @@ def gqa_schema(cfg: LMConfig, layers: Optional[int] = None) -> Dict:
 
 
 def _qkv(cfg: LMConfig, p, x, positions):
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q2, k2, v2 = (matmul(x, p["wq"]), matmul(x, p["wk"]),
                   matmul(x, p["wv"]))
@@ -57,9 +56,8 @@ def _qkv(cfg: LMConfig, p, x, positions):
         q2 = shard(q2, "batch", "act_seq", None)
         k2 = shard(k2, "batch", "act_seq", None)
         v2 = shard(v2, "batch", "act_seq", None)
-    q = q2.reshape(b, s, h, hd)
-    k = k2.reshape(b, s, kv, hd)
-    v = v2.reshape(b, s, kv, hd)
+    q, k, v = (split_heads(t, n, hd) for t, n in ((q2, h), (k2, kv),
+                                                   (v2, kv)))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -244,10 +242,9 @@ def mla_schema(cfg: LMConfig, layers: Optional[int] = None) -> Dict:
 
 
 def _mla_q(cfg, p, x, positions):
-    b, s, _ = x.shape
     h, qk = cfg.n_heads, cfg.qk_nope + cfg.qk_rope
     cq = rms_norm(matmul(x, p["wdq"]), p["q_norm"], cfg.norm_eps)
-    q = matmul(cq, p["wuq"]).reshape(b, s, h, qk)
+    q = split_heads(matmul(cq, p["wuq"]), h, qk)
     q_nope, q_rope = q.split([cfg.qk_nope, cfg.qk_rope], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return torch.cat([q_nope, q_rope], dim=-1)
@@ -262,10 +259,9 @@ def _mla_latent(cfg, p, x, positions):
 
 
 def _mla_expand_kv(cfg, p, c):
-    b, s, _ = c.shape
     h = cfg.n_heads
-    k_nope = matmul(c, p["wuk"]).reshape(b, s, h, cfg.qk_nope)
-    v = matmul(c, p["wuv"]).reshape(b, s, h, cfg.v_head)
+    k_nope = split_heads(matmul(c, p["wuk"]), h, cfg.qk_nope)
+    v = split_heads(matmul(c, p["wuv"]), h, cfg.v_head)
     return k_nope, v
 
 
@@ -375,11 +371,10 @@ def cross_attn(cfg: LMConfig, p, x, memory):
     memory (the vision stub) runs its projections in f32, as JAX promotes
     them."""
     b, sq, _ = x.shape
-    sk = memory.shape[1]
     h, hd = cfg.n_heads, cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(b, sq, h, hd)
-    k = matmul(memory, p["wk"]).reshape(b, sk, h, hd)
-    v = matmul(memory, p["wv"]).reshape(b, sk, h, hd)
+    q = split_heads(matmul(x, p["wq"]), h, hd)
+    k = split_heads(matmul(memory, p["wk"]), h, hd)
+    v = split_heads(matmul(memory, p["wv"]), h, hd)
     o = _attend(q, k, v, causal=False, block_q=cfg.attn_block_q,
                 block_kv=cfg.attn_block_kv)
     return matmul(o.reshape(b, sq, h * hd), p["wo"])
@@ -390,6 +385,6 @@ def cross_decode(cfg: LMConfig, p, x, k, v):
     hd): every position attended, no cache write."""
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(b, 1, h, hd)
+    q = split_heads(matmul(x, p["wq"]), h, hd)
     o = _attend(q, k, v, fn=decode_attention)
     return matmul(o.reshape(b, 1, h * hd), p["wo"])

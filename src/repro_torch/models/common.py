@@ -168,6 +168,38 @@ def init_params(schema, seed: int = 0, device: str = "cuda", mesh=None):
     return tree_map(make, schema)
 
 
+def split_heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd).  A placed ``t`` whose last dim is
+    split into more blocks than there are heads, or into blocks that
+    would cut a head, is gathered over the mesh dims that split it first
+    (granite-3-8b's 8 kv heads on a "model" axis of 16): each rank then
+    holds every head, and attention (``attention._attend``) takes those
+    its query heads read."""
+    if placed(t):
+        last = t.dim() - 1
+        dims = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+        if n % math.prod(t.device_mesh.size(i) for i in dims):
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(t.device_mesh, tuple(
+                Replicate() if i in dims else p
+                for i, p in enumerate(t.placements)))
+    return t.reshape(t.shape[:-1] + (n, hd))
+
+
+def merge_heads(t):
+    """(B, S, n, hd) -> (B, S, n * hd).  A placed ``t`` (its head dim
+    sharded or whole, never its ``hd``) merges on each rank's block, so
+    the gradient, in whatever placement it comes back, is brought to
+    ``t``'s before it is split again: DTensor's own view would have to
+    cut heads where the gradient's blocks of the merged dim are smaller
+    than a head."""
+    if not placed(t):
+        return t.reshape(t.shape[:-2] + (-1,))
+    local = t.to_local(grad_placements=t.placements)
+    return dtensor(local.reshape(local.shape[:-2] + (-1,)), t.device_mesh,
+                   t.placements, t.shape[:-2] + (t.shape[-2] * t.shape[-1],))
+
+
 def abstract_params(schema):
     """Meta tensors of each leaf's shape and dtype: no allocation."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from ..sharding import lookup, placed, shard, write_at
 from . import attention as att
 from .common import (ParamDef, layer, layer_norm, layers, matmul, remat,
-                     sinusoid_positions, stack)
+                     sinusoid_positions, split_heads, stack)
 from .config import LMConfig
 
 
@@ -67,10 +67,9 @@ def _mha(cfg, p, x, memory=None, causal=False):
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     mem = x if memory is None else _whole(memory)
-    sm = mem.shape[1]
-    q = matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = matmul(mem, p["wk"]).reshape(b, sm, h, hd)
-    v = matmul(mem, p["wv"]).reshape(b, sm, h, hd)
+    q = split_heads(matmul(x, p["wq"]), h, hd)
+    k = split_heads(matmul(mem, p["wk"]), h, hd)
+    v = split_heads(matmul(mem, p["wv"]), h, hd)
     o = att._attend(q, k, v, causal=causal, block_q=cfg.attn_block_q,
                     block_kv=cfg.attn_block_kv)
     return _whole(matmul(o.reshape(b, s, h * hd), p["wo"]))
@@ -157,7 +156,7 @@ def encode(cfg: LMConfig, params, frames):
 
 def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
     """tokens: (B, S); memory: (B, enc_seq, d). Returns (logits, caches)."""
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = _embed(params, tokens)
     x = x + params["pos_dec"][:s][None]
     x = shard(x, "batch", "act_seq", None)
@@ -173,10 +172,10 @@ def decode_train(cfg: LMConfig, params, tokens, memory, mode="train"):
             return h, None
         hd, hh = cfg.head_dim, cfg.n_heads
         hn = _whole(hn)
-        return h, {"k": matmul(hn, lp["self_attn"]["wk"]).reshape(
-                       b, s, hh, hd),
-                   "v": matmul(hn, lp["self_attn"]["wv"]).reshape(
-                       b, s, hh, hd)}
+        return h, {"k": split_heads(matmul(hn, lp["self_attn"]["wk"]),
+                                    hh, hd),
+                   "v": split_heads(matmul(hn, lp["self_attn"]["wv"]),
+                                    hh, hd)}
 
     if mode == "train":
         body = remat(cfg, body)
@@ -215,8 +214,8 @@ def cross_kv(cfg: LMConfig, params, memory):
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer(params["dec_blocks"]["cross_attn"], i)
-        ks.append(matmul(memory, lp["wk"]).reshape(b, sm, h, hd))
-        vs.append(matmul(memory, lp["wv"]).reshape(b, sm, h, hd))
+        ks.append(split_heads(matmul(memory, lp["wk"]), h, hd))
+        vs.append(split_heads(matmul(memory, lp["wv"]), h, hd))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -231,11 +230,13 @@ def decode_step(cfg: LMConfig, params, token, cache, index: int):
         lp = layer(params["dec_blocks"], i)
         ck, cv = cache["k"][i], cache["v"][i]
         hn = _ln_apply(lp["ln1"], x, cfg.norm_eps)
-        q = matmul(hn, lp["self_attn"]["wq"]).reshape(b, 1, h, hd)
-        write_at(ck, 1, index, matmul(hn, lp["self_attn"]["wk"])
-                 .reshape(b, h, hd).to(ck.dtype))
-        write_at(cv, 1, index, matmul(hn, lp["self_attn"]["wv"])
-                 .reshape(b, h, hd).to(cv.dtype))
+        q = split_heads(matmul(hn, lp["self_attn"]["wq"]), h, hd)
+        write_at(ck, 1, index, split_heads(matmul(
+            hn, lp["self_attn"]["wk"]), h, hd).reshape(b, h, hd)
+            .to(ck.dtype))
+        write_at(cv, 1, index, split_heads(matmul(
+            hn, lp["self_attn"]["wv"]), h, hd).reshape(b, h, hd)
+            .to(cv.dtype))
         ck = shard(ck, "batch", "kv_seq", None, None)
         cv = shard(cv, "batch", "kv_seq", None, None)
         valid = torch.arange(ck.shape[1], device=x.device) <= index

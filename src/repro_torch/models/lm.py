@@ -25,7 +25,7 @@ from ..sharding import local_part, lookup, placed, shard
 from . import attention as att
 from . import mamba2, moe, rwkv6
 from .common import (ParamDef, layer, layer_norm, layers, matmul, remat,
-                     rms_norm, stack, swiglu, tree_map)
+                     rms_norm, split_heads, stack, swiglu, tree_map)
 from .config import LMConfig
 
 
@@ -528,14 +528,13 @@ def decode(cfg: LMConfig, params, token, cache, index: int):
 def vlm_cross_cache(cfg: LMConfig, params, vision):
     """Precompute cross-attn K/V from vision states (prefill side); an f32
     vision stub gives f32 K/V, as in the reference."""
-    b, simg, _ = vision.shape
     h, hd = cfg.n_heads, cfg.head_dim
     cross = params["cross_blocks"]["attn"]
     ks, vs = [], []
     for g in range(n_layers_of(cross)):
         cp = layer(cross, g)
-        ks.append(matmul(vision, cp["wk"]).reshape(b, simg, h, hd))
-        vs.append(matmul(vision, cp["wv"]).reshape(b, simg, h, hd))
+        ks.append(split_heads(matmul(vision, cp["wk"]), h, hd))
+        vs.append(split_heads(matmul(vision, cp["wv"]), h, hd))
     return torch.stack(ks), torch.stack(vs)
 
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding import dtensor, local_part, placed, shard
-from .common import ParamDef, layer_norm, matmul
+from .common import ParamDef, layer_norm, matmul, merge_heads, split_heads
 from .config import LMConfig
 
 
@@ -92,6 +92,11 @@ def _wkv_on_heads(r, k, v, w, u, s0):
     if not placed(r):
         return _wkv_scan(r, k, v, w, u, s0)
     from torch.distributed.tensor import Partial, Replicate, Shard
+    # partial sums (a row-parallel projection's, where the rows do not
+    # split over a dim) are reduced first: the scan is not linear
+    r, k, v, w = (t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in t.placements))
+        for t in (r, k, v, w))
     dm, rp = r.device_mesh, tuple(r.placements)
     # the state's and the bonus's blocks: rows and heads as the streams'
     sp = tuple(Shard(1) if p.is_shard(2) else p for p in rp)
@@ -111,17 +116,15 @@ def _wkv_on_heads(r, k, v, w, u, s0):
 
 def rwkv_time_mix(cfg: LMConfig, p, x, state_s, x_prev):
     """x: (B,S,d). Returns (out, new_state_s, new_x_prev)."""
-    b, s, d = x.shape
+    d = x.shape[-1]
     h = cfg.n_heads
     pd = d // h
     r, k, v, g, w = _streams(cfg, p, x, x_prev)
-    rh = r.reshape(b, s, h, pd).float()
-    kh = k.reshape(b, s, h, pd).float()
-    vh = v.reshape(b, s, h, pd).float()
-    wh = w.reshape(b, s, h, pd)
+    rh, kh, vh = (split_heads(t, h, pd).float() for t in (r, k, v))
+    wh = split_heads(w, h, pd)
     u = p["bonus_u"].reshape(h, pd)
     y, s_fin = _wkv_on_heads(rh, kh, vh, wh, u, state_s)
-    y = shard(y.reshape(b, s, d), "batch", "seq", None)
+    y = shard(merge_heads(y), "batch", "seq", None)
     y = layer_norm(y, p["lnx_s"], p["lnx_b"], cfg.norm_eps).to(x.dtype)
     y = y * F.silu(g.float()).to(x.dtype)
     return shard(matmul(y, p["wo"]), "batch", "seq", None), s_fin, \

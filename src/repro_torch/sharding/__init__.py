@@ -76,6 +76,11 @@ def current_mesh():
     return _get()[0]
 
 
+def current_rules():
+    """The rules installed with :func:`current_mesh` (None without)."""
+    return _get()[1]
+
+
 def carried():
     """A function that runs ``fn(*args)`` under the (mesh, rules)
     installed on this thread now, on whichever thread calls it: autograd
@@ -311,12 +316,18 @@ def lookup(table, tokens):
 
 
 def dtensor(local, device_mesh, places, shape):
-    """A DTensor of global ``shape`` from this rank's block ``local``."""
+    """A DTensor of global ``shape`` (contiguous strides) from this rank's
+    block ``local``.  The strides are computed, not read off an empty
+    tensor of the global shape: inside a traced step such a tensor would
+    count as created storage (``launch.roofline``)."""
     from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(size, 1)
     return DTensor.from_local(local, device_mesh, tuple(places),
                               run_check=False, shape=torch.Size(shape),
-                              stride=torch.empty(tuple(shape), device="meta")
-                              .stride())
+                              stride=tuple(reversed(stride)))
 
 
 def rows_of(x) -> Tuple:
@@ -358,9 +369,10 @@ def distribute(x, sharding):
     """``x``, the same whole tensor on every rank, as a DTensor placed by
     ``sharding``: a :class:`NamedSharding` on a mesh with a
     ``device_mesh``, or a DTensor whose mesh and placements ``x`` takes.
-    Each rank copies its own block to its device; nothing moves between
-    ranks.  A :class:`NamedSharding` on a mesh without a ``device_mesh``
-    returns ``x`` as it is."""
+    Each rank copies its own block to its device (a ``meta`` ``x`` gives a
+    ``meta`` block: the dry-run's abstract arguments); nothing moves
+    between ranks.  A :class:`NamedSharding` on a mesh without a
+    ``device_mesh`` returns ``x`` as it is."""
     if isinstance(sharding, NamedSharding):
         dm = getattr(sharding.mesh, "device_mesh", None)
         if dm is None:
@@ -369,7 +381,8 @@ def distribute(x, sharding):
     else:
         dm, places = sharding.device_mesh, tuple(sharding.placements)
     part = local_part(x, dm, places)
-    dev = (torch.device("cuda", torch.cuda.current_device())
+    dev = (x.device if x.is_meta else
+           torch.device("cuda", torch.cuda.current_device())
            if dm.device_type == "cuda" else torch.device(dm.device_type))
     local = torch.empty(part.shape, dtype=x.dtype, device=dev)
     local.copy_(part)

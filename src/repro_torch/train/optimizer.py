@@ -39,7 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.common import tree_items, tree_map
-from ..sharding import placed
+from ..sharding import dtensor, local_part, placed
 
 
 @dataclass(frozen=True)
@@ -156,9 +156,14 @@ def adafactor_init(params):
     def zeros(shape, dtype, p, places=None):
         if not placed(p):
             return torch.zeros(shape, dtype=dtype, device=p.device)
-        from torch.distributed.tensor import zeros as dzeros
-        return dzeros(shape, dtype=dtype, device_mesh=p.device_mesh,
-                      placements=places or p.placements)
+        # the block on the parameter's own device (a meta parameter of
+        # the dry-run gives a meta block)
+        places = places or p.placements
+        block = local_part(torch.empty(shape, device="meta"),
+                           p.device_mesh, places).shape
+        return dtensor(torch.zeros(block, dtype=dtype,
+                                   device=p.to_local().device),
+                       p.device_mesh, places, shape)
 
     def one(p):
         if _factored(p):

@@ -19,7 +19,14 @@ loss and its gradient run with the models' own plain tensors counted as
 replicated (``sharding.replicate_plain``), each gradient is redistributed
 to its parameter's placements before it is accumulated, as the
 reference's ``_pin`` constrains its f32 accumulator, and the loss and
-metrics come back whole (replicated, plain tensors).
+metrics come back whole (replicated, plain tensors).  A batch given
+placed is redistributed to that partition as it is (one microbatch) or
+taken whole first (each microbatch a slice of it).  With
+``grad_compression="int8"`` the placed gradients are quantized with error
+feedback as on one device (``compress``: one scale per leaf from its
+global max), the residuals placed as the parameters; their reduction over
+"pod" and "data" stays the one DTensor issues, as XLA issues it in the
+reference's step.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from ..models import api
 from ..models.common import tree_from_items, tree_items, tree_map
 from ..models.config import LMConfig
 from ..sharding import (current_mesh, distribute, named_sharding, placed,
-                        placements, replicate_plain, spec_for)
+                        placements, replicate_plain, shard, spec_for)
 from . import compress
 from .optimizer import make_optimizer
 
@@ -66,8 +73,9 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4,
         paths, leaves = zip(*[(p, t.detach().requires_grad_())
                               for p, t in tree_items(params)])
         if current_mesh() is not None:
-            batch = {n: distribute(x, named_sharding(
-                x.shape, ("batch",) + (None,) * (x.dim() - 1)))
+            rows = lambda x: ("batch",) + (None,) * (x.dim() - 1)
+            batch = {n: shard(x, *rows(x)) if placed(x) else distribute(
+                x, named_sharding(x.shape, rows(x)))
                 for n, x in batch.items()}
         with torch.enable_grad(), replicate_plain():
             loss, metrics = api.loss_fn(
@@ -80,13 +88,13 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4,
             zip(paths, grads))
 
     def compute_grads(params, batch):
+        k = cfg.microbatch
+        if k <= 1:
+            return grads_of(params, batch)
         # a batch given placed (launch.dryrun.build_step places it as the
         # reference's in_shardings do) is taken whole: each microbatch is
         # a slice of the global batch, placed by grads_of
         batch = {n: whole(x) for n, x in batch.items()}
-        k = cfg.microbatch
-        if k <= 1:
-            return grads_of(params, batch)
         for i in range(k):
             mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
                   for n, x in batch.items()}
@@ -106,11 +114,6 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4,
         return loss_sum / k, metrics, grads
 
     def step(params, opt_state, batch):
-        if grad_compression and any(placed(t) for _, t in
-                                    tree_items(params)):
-            raise NotImplementedError(
-                "int8 gradient compression on a mesh: ROADMAP 'Next' lists "
-                "the int8 all-reduce over a process group")
         loss, metrics, grads = compute_grads(params, batch)
         if grad_compression == "int8":
             grads, new_resid = compress.compress_tree_with_feedback(

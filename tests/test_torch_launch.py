@@ -268,7 +268,7 @@ def test_dryrun_memory_matches_the_reference(arch, kind):
                           cfg_override=get_smoke(arch),
                           mesh=make_host_mesh())
     assert rec["status"] == "ok", rec.get("traceback")
-    assert rec["mesh"] == "1x1" and rec["collectives"] == "one device"
+    assert rec["mesh"] == "1x1" and rec["coll"]["total"] == 0
     assert (rec.get("moe") == "dense surrogate") == (arch != "granite-3-8b")
     flags = os.environ.get("XLA_FLAGS")
     ma, n_out = _ref_memory(arch, cell)
@@ -294,7 +294,8 @@ def test_dryrun_memory_known_values():
 
 
 def test_dryrun_per_device_bytes_on_the_production_mesh():
-    """Arguments per device: each sharded dim divided by its mesh axes."""
+    """Arguments per device: each sharded dim divided by its mesh axes;
+    the traced rank's collectives give the roofline a collective term."""
     cfg = get_smoke("granite-3-8b")
     cell = ShapeCell("d", 64, 32, "decode")
     mesh = make_production_mesh()
@@ -326,7 +327,8 @@ def test_dryrun_per_device_bytes_on_the_production_mesh():
     assert rec["cost_analysis"]["flops"] * 256 == pytest.approx(
         dryrun.measure_cell(cfg, cell, make_host_mesh())[3].flops, rel=REL)
     rl = rec["roofline"]
-    assert rl["collective_s"] == 0.0
+    assert rl["collective_s"] > 0
+    assert rl["collective_s"] == rl["coll_bytes_per_dev"] / RL.LINK_BW
     assert rl["bottleneck"] in ("compute", "memory")
 
 
