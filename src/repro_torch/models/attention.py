@@ -79,9 +79,10 @@ def _attend(q, k, v, fn=blockwise_attention, **kw):
     heads as query heads), or else taking q's batch placement and, of
     their heads, those that q's local heads read: a block of whole GQA
     groups, or the one group a block lies in (a group straddling two
-    blocks raises).  Gradients of whole k and v
-    come back ``Partial`` over the head-sharded mesh dim, where every rank
-    read the same k and v.  The attention itself moves no data."""
+    blocks raises).  Gradients of whole k and v come back ``Partial``
+    over each mesh dim that shards q's heads: a kv head that the query
+    heads of several ranks read has its gradient split among them.  The
+    attention itself moves no data."""
     if not placed(q):
         return fn(q, k, v, **kw)
     from torch.distributed.tensor import Partial, Replicate
@@ -94,7 +95,8 @@ def _attend(q, k, v, fn=blockwise_attention, **kw):
         vl = v.to_local(grad_placements=qp)
     else:
         kvp = tuple(p if p.is_shard(0) else Replicate() for p in qp)
-        grad = tuple(Partial() if p.is_shard(2) else p for p in kvp)
+        grad = tuple(Partial() if a.is_shard(2) else p
+                     for a, p in zip(qp, kvp))
         kl = k.redistribute(dm, kvp).to_local(grad_placements=grad)
         vl = v.redistribute(dm, kvp).to_local(grad_placements=grad)
         if hl != hq:                          # heads sharded: their kv heads
