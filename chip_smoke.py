@@ -83,8 +83,8 @@ Phases:
    ``repro_torch.kernels.ref`` raises, and the bucket N of every K1 / K5
    launch is logged
 12. block-sharded execution (``ShardedTapeBackend``) at S = 1
-   (``make_shard_mesh(1)``), 2 and 4 (an explicit ``ShardMesh`` naming
-   cuda:0 S times, and the first S cards where the machine has them),
+   (``make_shard_mesh(1)``) and 4 (an explicit ``ShardMesh`` naming
+   cuda:0 4 times, and the first 4 cards where the machine has them),
    beside the unsharded tape engine in the same run: phase 3's 32 trees
    and phase 4's string trees cold and warm (each result the oracle's,
    counters and op logs the unsharded engine's, every warm query one
@@ -135,8 +135,8 @@ Phases:
    mesh's size (its collective bytes by kind and mesh dim, the roofline's
    collective term beside its compute and memory terms, the seconds each
    took);
-   ``run_cell`` for the ten SMOKE configs over a small cell of
-   each kind; phases 13's and 14's steps traced on ``meta``: the code's
+   ``run_cell`` for the ten SMOKE configs, each over a small cell of one
+   kind (the kinds in turn); phases 13's and 14's steps traced on ``meta``: the code's
    bound (traced FLOPs over the bf16 peak, arguments read and results
    written once over the memory rate) beside their measured p50 and the
    hand bounds, and the predicted memory (arguments + the trace's peak)
@@ -223,8 +223,25 @@ Phases:
    informational), its result within max|g|/127 of the f32 mean.  No
    rank launches a port kernel (each rank's ``kernels.LAUNCHES`` read
    before and after)
+20. sequence-parallel projections on a mesh (``seq_parallel_proj``: the
+   GQA q/k/v, MLP and mamba in-projections on sequence blocks, their
+   weights gathered over "model", each GQA layer's q moved to head
+   blocks by one all-to-all), in NCCL ranks as phase 16's.  On one card
+   a 1x1 mesh of granite-3-8b at full width, ``SEQPAR_LAYERS[1]`` layers
+   with the flag: ``SEQPAR_STEPS`` AdamW steps and phase 13's serving
+   cell bit-equal to one device's in the same rank.  On four cards a 2x2
+   mesh: granite-3-8b at ``SEQPAR_LAYERS[4]`` layers with the flag and
+   without (each step's loss within ``TRAIN_LOSS_TOL`` of one device's
+   and of each other; the collectives of one step each way, three
+   all-to-alls a layer with the flag and none without), 40 layers
+   through ServeEngine with the flag and without (logits within
+   ``LM_FWD_TOL_FULL`` and ``LM_AGREE`` of one device's), zamba2-1.2b FULL
+   trained both ways (``ZAMBA_STEPS``) and served (full depth:
+   ``LM_FWD_TOL_FULL`` and ``LM_AGREE``), the f32 witness (``MESH_F32_TOL``, ``MESH_F32_LOSS_TOL``)
+   and yi-9b SMOKE's f32 gradients without the flag within
+   ``C6_GRAD_TOL`` of one device's.  No rank launches a port kernel
 
-Each path of phases 3-6 and 8-19 is driven with the kernels' launch counts
+Each path of phases 3-6 and 8-20 is driven with the kernels' launch counts
 set to 0 just before it and read just after: a tape path's counts must
 equal the launches its tapes need (a graph replay counts the launches its
 capture recorded); on a lockstep path the grouped set
@@ -254,10 +271,10 @@ stream drains, the string tapes and a lockstep strings batch, with
 digests of the bitmaps, with the package from ``SRC`` (a ``src``
 directory of another checkout).  ``--child MODE ARGS`` is phase 10's
 child process, started by the script itself.  ``python3 chip_smoke.py
---mesh-only`` runs phases 16, 17, 18 and 19 alone (a host with four
-cards runs their 2x2 and 2x2x1 cases), after one device's 16-layer step
-as phase 16's loss's reference; ``--mesh-only 16``, ``17``, ``18`` or
-``19`` runs one of them.
+--mesh-only`` runs phases 16 to 20 alone (a host with four cards runs
+their 2x2 and 2x2x1 cases), after one device's 16-layer step as phase
+16's loss's reference; ``--mesh-only 16``, ``17``, ``18``, ``19`` or
+``20`` runs one of them.
 ``python3 chip_smoke.py --moe-memory SRC`` prints, with the package from
 ``SRC``, one device's peak in a qwen3-moe train step and the dry-run's
 memory record of its ``train_4k`` cell (two trees' MoE layers compared).
@@ -266,12 +283,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
 import time
 import warnings
 from collections import Counter, defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -390,6 +409,8 @@ PATH_KERNELS = {
     # phase 19: int8 gradient compression on a (pod, data, model) mesh,
     # likewise
     "lm_mesh_pod": (),
+    # phase 20: sequence-parallel projections on a mesh, likewise
+    "lm_mesh_seqpar": (),
 }
 #: the kernels a per-step path may launch
 STEP_KERNELS = ("bitmap_setop", "predicate_scan", "predicate_scan_multi")
@@ -1511,6 +1532,12 @@ def memory_text(be) -> str:
             f"the graphs' shared pool, the full set, the last outputs)")
 
 
+#: threads that compute phase 3's column statistics (a host of 8 cores
+#: with the card; 98.1 s on one thread at 5.8 M x 144, NVIDIA H100 80GB
+#: HBM3, 700.00 W host)
+STATS_THREADS = 8
+
+
 def phase_numeric(rows, n_queries, dev_name, sync_check):
     import numpy as np
     import torch
@@ -1520,6 +1547,13 @@ def phase_numeric(rows, n_queries, dev_name, sync_check):
     from repro_torch.kernels import LAUNCHES
     t0 = time.perf_counter()
     table = make_forest_table(rows, n_dup=12, seed=7)
+    # the column statistics the query generator reads (chunked quantiles,
+    # NumPy's partition, which runs without the GIL), several columns at
+    # a time: the same per-column work as the lazy path, the same trees
+    with ThreadPoolExecutor(STATS_THREADS) as pool:
+        list(pool.map(table.stats, [
+            name for name, col in table.columns.items()
+            if np.issubdtype(col.dtype, np.number)]))
     trees = random_query_suite(table, n_queries, 16, 3, seed=0)
     log(f"  table {rows} x {len(table.columns)} and {len(trees)} trees "
         f"built in {time.perf_counter() - t0:.1f} s")
@@ -3207,13 +3241,15 @@ def phase_block_stream(table, queries, steps, rounds=2, dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: block-sharded execution (ShardedTapeBackend): S = 1, 2 and 4
-# shards of the card (S = 2 and 4 on cuda:0 named S times, and on S cards
+# phase 12: block-sharded execution (ShardedTapeBackend): S = 1 and 4
+# shards of the card (S = 4 on cuda:0 named 4 times, and on 4 cards
 # where the machine has them), held against the unsharded tape engine, the
 # lockstep session and the numpy oracle in the same run
 # ---------------------------------------------------------------------------
 
-SHARD_COUNTS = (1, 2, 4)
+#: S = 2 ran too until the one-card wall neared its limit: the same code
+#: as S = 4, with fewer parts
+SHARD_COUNTS = (1, 4)
 #: per-query counters a sharded tape shares with the unsharded one
 SHARD_SAME = ("host_syncs", "device_dispatches", "host_fallbacks",
               "blocks_touched", "blocks_pruned", "records_evaluated")
@@ -3221,7 +3257,7 @@ SHARD_SAME = ("host_syncs", "device_dispatches", "host_fallbacks",
 
 def shard_meshes():
     """(label, mesh) for each shard count: S = 1 through ``make_shard_mesh``,
-    S = 2 and 4 on cuda:0 named S times (an explicit ``ShardMesh``), and
+    S = 4 on cuda:0 named 4 times (an explicit ``ShardMesh``), and
     on the first S cards where the machine has them."""
     import torch
 
@@ -3622,7 +3658,7 @@ def shard_mesh_errors():
     meshes = [label for label, _ in shard_meshes()]
     log(f"  meshes run: {meshes}")
     if n < 2:
-        log("  one card: S = 2 and 4 run on cuda:0 named S times; the "
+        log("  one card: S = 4 runs on cuda:0 named 4 times; the "
             "cross-card copy of the gather is not measured")
 
 
@@ -4692,8 +4728,8 @@ def phase_dryrun(dev, smi, serve, train):
     at decode_32k with ``--roofline``, each one rank of the 16x16 and the
     2x16x16 production mesh on placed ``meta`` blocks (collectives by kind
     and mesh dim);
-    (2) ``run_cell`` for the ten SMOKE configs over a small cell of each
-    kind; (3) the code's bound and memory of phases 13's and 14's steps
+    (2) ``run_cell`` for the ten SMOKE configs, each over a small cell of
+    one kind (the kinds in turn); (3) the code's bound and memory of phases 13's and 14's steps
     beside their measured p50 and peak (``serve`` and ``train``); (4)
     granite-3-8b SMOKE's steps for real against the trace."""
     from repro_torch.configs import ARCHS, get_config, get_smoke
@@ -4756,17 +4792,20 @@ def phase_dryrun(dev, smi, serve, train):
     finally:
         DRYRUN_OUT.unlink(missing_ok=True)
     out["smoke"], t0 = {}, time.perf_counter()
-    for arch in ARCHS:
-        for name, seq, b, kind in DRYRUN_SMOKE_CELLS:
-            rec = dryrun.run_cell(arch, ShapeCell(name, seq, b, kind), False,
-                                  False, cfg_override=get_smoke(arch))
-            check(rec["status"] in ("ok", "skipped"),
-                  f"phase 15: {arch} SMOKE {kind}: {rec}")
-            out["smoke"][f"{arch}:{kind}"] = {
-                k: rec.get(k) for k in ("status", "time_s", "memory")}
+    # each config at one cell kind, the kinds in turn: every config and
+    # every kind traced (all 30 pairs took 25-40 s of the one-card wall)
+    for i, arch in enumerate(ARCHS):
+        name, seq, b, kind = DRYRUN_SMOKE_CELLS[i % len(DRYRUN_SMOKE_CELLS)]
+        rec = dryrun.run_cell(arch, ShapeCell(name, seq, b, kind), False,
+                              False, cfg_override=get_smoke(arch))
+        check(rec["status"] in ("ok", "skipped"),
+              f"phase 15: {arch} SMOKE {kind}: {rec}")
+        out["smoke"][f"{arch}:{kind}"] = {
+            k: rec.get(k) for k in ("status", "time_s", "memory")}
     statuses = sorted({r["status"] for r in out["smoke"].values()})
-    log(f"  [{smi}] the ten SMOKE configs x (train, prefill, decode) on the "
-        f"production mesh: {statuses} in {time.perf_counter() - t0:.1f} s")
+    log(f"  [{smi}] the ten SMOKE configs, each at one of (train, prefill, "
+        f"decode) in turn, on the production mesh: {statuses} in "
+        f"{time.perf_counter() - t0:.1f} s")
     full = get_config("granite-3-8b")
     out["decode"] = dryrun_bound(smi, "decode", full, ShapeCell(
         "phase13", full.max_seq, 4, "decode"), serve)
@@ -5375,6 +5414,43 @@ def granite_serve_reference(dev, smi, path=SERVE_REF):
     log(f"  tokens and logits written to {path.name}")
 
 
+def placed_serve(cfg, dev, mesh, force, want):
+    """``cfg``'s seed-0 parameters placed on ``mesh`` through ServeEngine
+    in phase 13's cell, the manual loop fed ``force`` (one device's
+    tokens), against one device's logits ``want``: times, peak, host
+    syncs and the collectives of one more decode step
+    (:func:`serve_case`'s profile)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.sharding import use_mesh
+    with use_mesh(mesh):
+        s = serve_case(cfg, api.init(cfg, 0, str(dev), mesh=mesh),
+                       serve_prompts(cfg), None, SERVE_GEN, dev, mesh=mesh,
+                       force=force, profile=True)
+    torch.cuda.empty_cache()
+    steps = np.asarray(s["timings"]["step_ms"])
+    v = cfg.vocab
+    return {
+        "layers": cfg.n_layers, "prefill_ms": s["timings"]["prefill_ms"],
+        "step_ms": steps.tolist(),
+        "step_p50_ms": float(np.median(steps)),
+        "step_min_ms": float(steps.min()),
+        "step_max_ms": float(steps.max()),
+        "tokens_per_s": float(SERVE_BATCH * len(steps)
+                              / (steps.sum() / 1e3)),
+        "peak_bytes": s["peak_bytes"],
+        "host_syncs_per_step": s["host_syncs_per_step"],
+        "collectives": s["collectives"],
+        "tokens_agree": float((s["gen"] == force).mean()),
+        "tokens_equal": bool(np.array_equal(s["gen"], force)),
+        "logits_equal": bool(np.array_equal(s["logits"], want)),
+        "logit_diff": float(np.abs(s["logits"] - want).max()),
+        "argmax_agree": float((s["logits"][..., :v].argmax(-1)
+                               == want[..., :v].argmax(-1)).mean())}
+
+
 def serve_rank(plan, root, device):
     """One rank of phase 17 (its group joined by ``launch.train.spawn``);
     rank 0 returns every rank's numbers."""
@@ -5385,7 +5461,6 @@ def serve_rank(plan, root, device):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import api
-    from repro_torch.sharding import use_mesh
     rank, world = dist.get_rank(), dist.get_world_size()
     shape = "1x1" if world == 1 else "2x2"
     mesh = make_device_mesh(*((1, 1) if world == 1 else (2, 2)),
@@ -5408,31 +5483,7 @@ def serve_rank(plan, root, device):
             torch.cuda.empty_cache()
         else:
             force, want = ref[f"gen_{name}"], ref[f"logits_{name}"]
-        with use_mesh(mesh):
-            s = serve_case(cfg, api.init(cfg, 0, str(dev), mesh=mesh),
-                           prompts, None, SERVE_GEN, dev, mesh=mesh,
-                           force=force, profile=True)
-        torch.cuda.empty_cache()
-        steps = np.asarray(s["timings"]["step_ms"])
-        v = cfg.vocab
-        out["granite"][name] = {
-            "layers": cfg.n_layers, "prefill_ms": s["timings"]["prefill_ms"],
-            "step_ms": steps.tolist(),
-            "step_p50_ms": float(np.median(steps)),
-            "step_min_ms": float(steps.min()),
-            "step_max_ms": float(steps.max()),
-            "tokens_per_s": float(SERVE_BATCH * len(steps)
-                                  / (steps.sum() / 1e3)),
-            "peak_bytes": s["peak_bytes"],
-            "host_syncs_per_step": s["host_syncs_per_step"],
-            "collectives": s["collectives"],
-            "tokens_agree": float((s["gen"] == force).mean()),
-            "tokens_equal": bool(np.array_equal(s["gen"], force)),
-            "logits_equal": bool(np.array_equal(s["logits"], want)),
-            "logit_diff": float(np.abs(s["logits"] - want).max()),
-            "argmax_agree": float((s["logits"][..., :v].argmax(-1)
-                                   == want[..., :v].argmax(-1)).mean())}
-        del s
+        out["granite"][name] = placed_serve(cfg, dev, mesh, force, want)
     out["families"] = [family_case(arch, dev, mesh, shape)
                        for arch in FAMILY_CUTS]
     if world > 1:
@@ -5516,23 +5567,26 @@ def witness_loss(cfg, batch, dev, mesh=None):
     return loss
 
 
-def f32_witness(dev, mesh, feed):
+def f32_witness(dev, mesh, feed, full=None, cases=None):
     """This rank's side of the f32 witness: each case on one device (on
     this rank's own card, first, then freed) and on ``mesh``, with bf16
-    leaves and with f32 ones.  Granite-3-8b FULL's 40-layer prefill and
-    decode steps fed ``feed`` (logits; f32 only), its 16-layer loss and
-    the five families' loss (each in both)."""
+    leaves and with f32 ones.  ``full`` (granite-3-8b FULL by default):
+    its 40-layer prefill and decode steps fed ``feed`` (logits; f32
+    only); ``cases`` ({name: config}; by default granite-3-8b at
+    TRAIN_LAYERS and the five families' FAMILY_CUTS): their loss (each
+    in both)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.sharding import use_mesh
-    full = get_config("granite-3-8b")
+    full = full or get_config("granite-3-8b")
     rng = np.random.default_rng(17)
-    cases = {"granite-3-8b": full.replace(n_layers=TRAIN_LAYERS)}
-    cases.update({arch: get_config(arch).replace(**cut)
-                  for arch, cut in FAMILY_CUTS.items()})
+    if cases is None:
+        cases = {"granite-3-8b": full.replace(n_layers=TRAIN_LAYERS)}
+        cases.update({arch: get_config(arch).replace(**cut)
+                      for arch, cut in FAMILY_CUTS.items()})
     out = {"losses": {}}
     for arch, cfg in cases.items():
         batch = {"tokens": rng.integers(0, cfg.vocab, (
@@ -6124,10 +6178,11 @@ POD_WIRE_REPS = 20
 POD_REF = ROOT / "build" / "smoke_mesh_pod_ref.json"
 
 
-def pod_train(cfg, mesh, steps):
-    """``steps`` int8 AdamW steps of ``cfg`` from seed-0 parameters on
-    ``mesh`` (None: one device) on ``mesh_batch``: (parameters, state,
-    this rank's numbers)."""
+def adamw_steps(cfg, mesh, steps, compression=None):
+    """``steps`` AdamW steps of ``cfg`` (``compression``: the train
+    step's ``grad_compression``) from seed-0 parameters on ``mesh``
+    (None: one device) on ``mesh_batch``: (parameters, state, this rank's
+    numbers)."""
     import numpy as np
     import torch
 
@@ -6139,7 +6194,8 @@ def pod_train(cfg, mesh, steps):
     torch.cuda.reset_peak_memory_stats()
     with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
         params = api.init(cfg, 0, MESH_DEVICE, mesh=mesh)
-        step = make_train_step(cfg, lr=TRAIN_LR, grad_compression="int8",
+        step = make_train_step(cfg, lr=TRAIN_LR,
+                               grad_compression=compression,
                                params_pspecs=None if mesh is None else
                                api.pspecs(cfg, mesh))
         state = step.init_state(params)
@@ -6156,7 +6212,7 @@ def pod_train(cfg, mesh, steps):
            "grad_norms": [h["grad_norm"] for h in hist], "step_ms": ms,
            "step_p50_ms": float(np.median(ms[1:] if len(ms) > 1 else ms)),
            "peak_bytes": torch.cuda.max_memory_allocated()}
-    if mesh is not None:
+    if mesh is not None and compression:
         places = {p: tuple(t.placements) for p, t in tree_items(params)}
         out["residuals_placed"] = all(
             tuple(t.placements) == places[p]
@@ -6164,24 +6220,39 @@ def pod_train(cfg, mesh, steps):
     return params, state, out
 
 
-def pod_collectives(cfg, mesh, params, state):
-    """One more int8 step under the collective counter: calls and bytes
-    by kind and by mesh dim."""
+def counted_step(cfg, mesh, params, state, i, compression=None):
+    """Step ``i`` more under the collective counter: calls and bytes by
+    kind and by mesh dim, and the all-gathers' bytes by mesh dim and by
+    the rank of their result (2-D: a weight; more: an activation)."""
     import torch
 
-    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.launch.roofline import CollectiveCounter, _tensors
     from repro_torch.models import api
     from repro_torch.sharding import use_mesh
     from repro_torch.train import make_train_step
+
+    class Counter(CollectiveCounter):
+        def _count(self, func, args, out):
+            super()._count(func, args, out)
+            if func.namespace != "_c10d_functional" or \
+                    "all_gather" not in func._schema.name:
+                return
+            per = gathers.setdefault(self._dim(next(
+                (a for a in reversed(args) if isinstance(a, str)), "")), {})
+            for t in _tensors(out):
+                kind = "weights" if t.dim() <= 2 else "activations"
+                per[kind] = per.get(kind, 0) + t.numel() * t.element_size()
+
+    gathers = {}
     with use_mesh(mesh):
-        step = make_train_step(cfg, lr=TRAIN_LR, grad_compression="int8",
+        step = make_train_step(cfg, lr=TRAIN_LR, grad_compression=compression,
                                params_pspecs=api.pspecs(cfg, mesh))
-        counter = CollectiveCounter(mesh)
+        counter = Counter(mesh)
         with counter:
-            step(params, state, mesh_batch(cfg, POD_STEPS))
+            step(params, state, mesh_batch(cfg, i))
         torch.cuda.synchronize()
     return {"calls": counter.calls, "bytes": counter.coll_bytes,
-            "by_dim": counter.by_dim}
+            "by_dim": counter.by_dim, "gathers": gathers}
 
 
 def pod_wire(mesh, cfg):
@@ -6235,7 +6306,7 @@ def pod_rank(plan, root, device):
     out = {"rank": rank, "smi": smi_line(rank), "launches_before": launches0}
     cfg = get_config("granite-3-8b").replace(n_layers=POD_LAYERS[world])
     if world == 1:
-        p, s, one = pod_train(cfg, None, POD_STEPS)
+        p, s, one = adamw_steps(cfg, None, POD_STEPS, "int8")
         one["fingerprint"] = fingerprint({"params": p, "opt": s})
         del p, s
         torch.cuda.empty_cache()
@@ -6244,15 +6315,16 @@ def pod_rank(plan, root, device):
     else:
         mesh = make_device_mesh(2, 1, pod=2, device=device)
         out["shape"] = "2x2x1"
-        p, s, out["mesh_cut"] = pod_train(
-            cfg.replace(n_layers=POD_LAYERS[1]), mesh, POD_STEPS)
+        p, s, out["mesh_cut"] = adamw_steps(
+            cfg.replace(n_layers=POD_LAYERS[1]), mesh, POD_STEPS, "int8")
         del p, s
         torch.cuda.empty_cache()
-    p, s, got = pod_train(cfg, mesh, POD_STEPS)
+    p, s, got = adamw_steps(cfg, mesh, POD_STEPS, "int8")
     if world == 1:
         got["fingerprint"] = fingerprint({"params": p, "opt": s})
     else:
-        got["collectives"] = pod_collectives(cfg, mesh, p, s)
+        got["collectives"] = counted_step(cfg, mesh, p, s, POD_STEPS,
+                                          "int8")
     out["mesh"] = got
     del p, s
     torch.cuda.empty_cache()
@@ -6268,7 +6340,7 @@ def pod_reference(dev, smi):
     """One device's numbers for the four-card run, written to POD_REF and
     freed: the loss of ``mesh_batch(cfg, 0)`` at POD_LAYERS[4] layers
     (step 0, before any update) and POD_STEPS int8 steps at POD_LAYERS[1]
-    layers (:func:`pod_train`)."""
+    layers (:func:`adamw_steps`)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6282,8 +6354,8 @@ def pod_reference(dev, smi):
     torch.cuda.empty_cache()
     log(f"  [{smi}] one device, {POD_LAYERS[4]} layers, step 0's batch: "
         f"loss {loss:.6f}")
-    p, s, cut = pod_train(cfg.replace(n_layers=POD_LAYERS[1]), None,
-                          POD_STEPS)
+    p, s, cut = adamw_steps(cfg.replace(n_layers=POD_LAYERS[1]), None,
+                            POD_STEPS, "int8")
     del p, s
     torch.cuda.empty_cache()
     log(f"  [{smi}] one device, {POD_LAYERS[1]} layers, {POD_STEPS} int8 "
@@ -6406,6 +6478,354 @@ def phase_mesh_pod(smi, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sequence-parallel projections (seq_parallel_proj) on a (data x
+# model) mesh: the GQA q/k/v, MLP and mamba in-projections read each
+# rank's sequence block with their weights gathered over "model", and
+# each GQA layer's q moves from sequence blocks to head blocks by one
+# all-to-all (sharding.all_to_all).  One NCCL rank per card, as phases
+# 16-19.  On one card a 1x1 mesh: granite-3-8b FULL at SEQPAR_LAYERS[1]
+# layers with the flag, SEQPAR_STEPS AdamW steps and phase 13's serving
+# cell, bit-equal to one device in the same rank (run first and freed).
+# On four cards (--mesh-only 20) a 2x2 mesh: granite-3-8b FULL at
+# SEQPAR_LAYERS[4] layers, SEQPAR_STEPS AdamW steps with the flag and
+# without, each step's loss against one device's (run first on each
+# rank's own card and freed) within TRAIN_LOSS_TOL, and the collectives
+# of one step each way by kind and mesh dim (the all-gathers over "model"
+# split into weights and activations); 40 layers through ServeEngine in
+# phase 13's cell with the flag and without, every step's logits against
+# one device's (written by this process first) as phase 17 holds them;
+# zamba2-1.2b FULL at full depth, ZAMBA_STEPS steps with the flag and
+# without and served with it, against one device; an f32 witness
+# (granite's loss at SEQPAR_LAYERS[4] layers and its 40-layer prefill and
+# decode steps with the flag, zamba2's loss);
+# and C6 on the card: yi-9b SMOKE's gradients in f32 on 2x2 without the
+# flag (one kv head read by both "model" ranks) against one device's
+# ---------------------------------------------------------------------------
+#: granite-3-8b's training depth: one card holds one device's and the
+#: 1x1 mesh's AdamW state in turn (18 B a parameter: 36 GB at 8 layers);
+#: a 2x2 rank holds a quarter of each leaf, and one device's 16 layers
+#: (64.6 GB, phase 14's cell) on its own card first
+SEQPAR_LAYERS = {1: 8, 4: 16}
+SEQPAR_STEPS = 4
+#: where the four-card run finds one device's 40-layer granite-3-8b
+#: tokens and logits (phase 17's reference, written by this process)
+SEQPAR_REF = ROOT / "build" / "smoke_mesh_seqpar_ref.npz"
+#: the C6 case: yi-9b SMOKE (4 query heads, 1 kv head) on 2x2, f32 leaves;
+#: its gradients within this of each leaf's largest entry of one
+#: device's (the CPU tests' F32_GRAD_TOL; 0.6 and more before the repair)
+C6_ARCH = "yi-9b"
+C6_GRAD_TOL = 1e-2
+SEQPAR = {"seq_parallel_proj": True}
+#: zamba2-1.2b FULL's AdamW steps: its gradients are NaN at full width
+#: on one device too (the SSD's decay exp(acum_i - acum_j) overflows f32
+#: above the diagonal before the mask takes it out, and the mask's
+#: gradient there is 0 x inf, as in the reference's identical code;
+#: ROADMAP C7), so one step: its loss before any update is held, and its
+#: gradient norm is finite on the mesh exactly where one device's is
+ZAMBA_STEPS = 1
+#: every phase-20 rank must be done within this (four cards: one
+#: device's 16-layer steps, both meshes' steps, 40-layer serving, zamba2
+#: FULL three ways and the f32 witness, in each rank)
+SEQPAR_TIMEOUT_S = 900
+
+
+def seqpar_train(cfg, mesh, steps, counted=False):
+    """:func:`adamw_steps` of ``cfg``, then freed: this rank's numbers,
+    the state's fingerprint and, with ``counted``, the collectives of one
+    more step (:func:`counted_step`)."""
+    import torch
+    params, state, out = adamw_steps(cfg, mesh, steps)
+    out.update(flag=bool(cfg.seq_parallel_proj),
+               microbatches=max(1, cfg.microbatch),
+               fingerprint=fingerprint({"params": params, "opt": state}))
+    if counted:
+        out["collectives"] = counted_step(cfg, mesh, params, state, steps)
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def c6_grads(dev, mesh):
+    """yi-9b SMOKE's loss and gradients of one batch with f32 leaves, on
+    one device and on ``mesh`` (every rank joins the gathers): the loss
+    gap and each leaf's largest gap relative to its largest entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_from_items, tree_items
+    from repro_torch.sharding import placed, replicate_plain, use_mesh
+    cfg = get_smoke(C6_ARCH)
+    batch = {"tokens": np.random.default_rng(100).integers(
+        0, cfg.vocab, (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ + 1))
+        .astype(np.int32)}
+    got = {}
+    for where in ("one", "mesh"):
+        on = None if where == "one" else mesh
+        with f32_leaves(), (use_mesh(on) if on is not None
+                            else contextlib.nullcontext()):
+            paths, leaves = zip(*[(p, t.detach().requires_grad_())
+                                  for p, t in tree_items(api.init(
+                                      cfg, 0, str(dev), mesh=on))])
+            with torch.enable_grad(), replicate_plain():
+                loss, _ = api.loss_fn(cfg, tree_from_items(zip(
+                    paths, leaves)), _placed_inputs(batch, on, dev))
+                grads = torch.autograd.grad(loss, leaves)
+            whole = lambda t: (t.full_tensor() if placed(t) else t).float()
+            got[where] = (float(whole(loss.detach())),
+                          {p: whole(g) for p, g in zip(paths, grads)})
+    (l1, g1), (lm, gm) = got["one"], got["mesh"]
+    rel = {p: float((gm[p] - g).abs().max() / g.abs().max().clamp_min(1e-12))
+           for p, g in g1.items()}
+    return {"arch": C6_ARCH, "loss_one": l1, "loss": lm,
+            "loss_diff": abs(lm - l1), "grad_rel": rel,
+            "grad_rel_max": max(rel.values())}
+
+
+def within(diffs, n, tol) -> bool:
+    """Whether there are ``n`` gaps, each under ``tol`` (NaN is not)."""
+    return len(diffs) == n and all(d < tol for d in diffs)
+
+
+def seqpar_rank(plan, root, device):
+    """One rank of phase 20 (its group joined by ``launch.train.spawn``);
+    rank 0 returns every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(device, torch.cuda.current_device())
+    launches0 = sum(LAUNCHES.values())
+    out = {"rank": rank, "smi": smi_line(rank), "launches_before": launches0}
+    shape = (1, 1) if world == 1 else (2, 2)
+    mesh = make_device_mesh(*shape, device=device)
+    out["shape"] = "x".join(map(str, shape))
+    granite = get_config("granite-3-8b")
+    cfg = granite.replace(n_layers=SEQPAR_LAYERS[world], **SEQPAR)
+    out["one_device"] = seqpar_train(cfg, None, SEQPAR_STEPS)
+    out["mesh"] = seqpar_train(cfg, mesh, SEQPAR_STEPS, counted=world > 1)
+    if world == 1:
+        # the 1x1 mesh at phase 13's cell, against one device's in this
+        # rank, bit for bit
+        one = serve_case(cfg, api.init(cfg, 0, str(dev)),
+                         serve_prompts(cfg), None, SERVE_GEN, dev)
+        torch.cuda.empty_cache()
+        out["serve"] = placed_serve(cfg, dev, mesh, one["gen"],
+                                    one["logits"])
+        del one
+    else:
+        out["flag_off"] = seqpar_train(cfg.replace(seq_parallel_proj=False),
+                                       mesh, SEQPAR_STEPS, counted=True)
+        ref = np.load(root)
+        full = granite.replace(**SEQPAR)
+        out["serve"] = placed_serve(full, dev, mesh, ref["gen_full"],
+                                    ref["logits_full"])
+        out["serve_flag_off"] = placed_serve(
+            granite, dev, mesh, ref["gen_full"], ref["logits_full"])
+        zamba = get_config("zamba2-1.2b").replace(**SEQPAR)
+        out["zamba"] = {
+            "one_device": seqpar_train(zamba, None, ZAMBA_STEPS),
+            "mesh": seqpar_train(zamba, mesh, ZAMBA_STEPS),
+            "flag_off": seqpar_train(zamba.replace(seq_parallel_proj=False),
+                                     mesh, ZAMBA_STEPS),
+            "serve": config_case(zamba, "zamba2-1.2b", dev, mesh, "2x2",
+                                 train_steps=0)}
+        out["f32"] = f32_witness(
+            dev, mesh, ref["gen_full"][:, :SERVE_GEN - 1], full=full,
+            cases={"granite-3-8b": cfg, "zamba2-1.2b": zamba})
+        out["c6"] = c6_grads(dev, mesh)
+    out["launches"] = sum(LAUNCHES.values()) - launches0
+    got = [None] * world
+    dist.all_gather_object(got, out)
+    return got
+
+
+def phase_mesh_seqpar(smi, dev):
+    """Phase 20: one rank on one card (1x1), four on four cards (2x2,
+    after one device's 40-layer granite-3-8b tokens and logits are written
+    by this process).  Every rank's numbers are printed before any is
+    held."""
+    import torch
+
+    from repro_torch.launch.train import spawn
+    cards = torch.cuda.device_count()
+    world = MESH_RANKS if cards >= MESH_RANKS else 1
+    if world > 1:
+        granite_serve_reference(dev, smi, SEQPAR_REF)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] {cards} card(s) visible: {world} NCCL rank(s), one per "
+        f"card; this process holds {torch.cuda.memory_allocated()} B on "
+        "cuda:0")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(world, seqpar_rank, timeout=SEQPAR_TIMEOUT_S,
+                      plan="seqpar", root=str(SEQPAR_REF),
+                      device=MESH_DEVICE)
+    except RuntimeError as e:
+        check(False, f"phase 20: {e}")
+    finally:
+        SEQPAR_REF.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    log(f"  world size {world}; ranks done in {wall:.1f} s")
+    held = []
+
+    def steps(tag, name, got, want):
+        dl = [abs(a - b) for a, b in zip(got["losses"], want["losses"])]
+        log(f"{tag} {name}: {got['layers']} layers, batch {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}, {len(got['losses'])} AdamW steps, p50 "
+            f"{got['step_p50_ms']:.1f} ms, peak {got['peak_bytes']} B; "
+            f"losses {[round(x, 6) for x in got['losses']]}, |diff| "
+            f"{[float(f'{x:.3g}') for x in dl]}; grad norms "
+            f"{[round(x, 4) for x in got['grad_norms']]}")
+        return dl
+
+    for r in ranks:
+        tag = f"  rank {r['rank']} {r['shape']} [{r['smi']}]"
+        log(f"{tag}: port kernels launched {r['launches_before']} before "
+            f"the phase, {r['launches']} in it")
+        held.append((r["launches_before"] == 0 and r["launches"] == 0,
+                     f"rank {r['rank']} launched port kernels"))
+        one, m = r["one_device"], r["mesh"]
+        steps(tag, "granite-3-8b one device", one, one)
+        dl = steps(tag, "granite-3-8b with the flag, against one device", m,
+                   one)
+        s = r["serve"]
+        log(f"{tag} granite-3-8b with the flag, {s['layers']} layers, phase "
+            f"13's cell: prefill {s['prefill_ms']:.2f} ms, decode p50 "
+            f"{s['step_p50_ms']:.3f} ms, peak {s['peak_bytes']} B, host "
+            f"syncs per decode step {s['host_syncs_per_step']:.2f}; logits "
+            f"against one device's (fed its tokens) max |diff| "
+            f"{s['logit_diff']:.4f}, argmax agreement "
+            f"{s['argmax_agree']:.3f}, bit-equal {s['logits_equal']}; one "
+            f"decode step's collectives {s['collectives']}")
+        held.append((s["host_syncs_per_step"] == 0, f"rank {r['rank']}: "
+                     f"{s['host_syncs_per_step']} host syncs per decode "
+                     "step"))
+        if r["shape"] == "1x1":
+            held.append((m["losses"] == one["losses"] and m["fingerprint"]
+                         == one["fingerprint"], f"rank {r['rank']}: the 1x1 "
+                         "mesh's AdamW steps with the flag are not one "
+                         "device's bit for bit"))
+            held.append((s["logits_equal"] and s["tokens_equal"],
+                         f"rank {r['rank']}: the 1x1 mesh's serving with "
+                         "the flag is not one device's bit for bit"))
+            continue
+        off = r["flag_off"]
+        dl_off = steps(tag, "granite-3-8b without the flag, against one "
+                       "device", off, one)
+        dl_on_off = [abs(a - b) for a, b in zip(m["losses"], off["losses"])]
+        log(f"{tag} granite-3-8b with the flag against without: |diff| "
+            f"{[float(f'{x:.3g}') for x in dl_on_off]}")
+        for name, x in (("with the flag", m), ("without", off)):
+            c = x["collectives"]
+            log(f"{tag} collectives of one step {name}: calls {c['calls']}, "
+                f"bytes {c['bytes']}, by mesh dim {c['by_dim']}; "
+                f"all-gathers by result rank (2-D: weights, more: "
+                f"activations) {c['gathers']}")
+        a2a = m["collectives"]["calls"].get("all-to-all", 0)
+        want = 3 * m["layers"] * m["microbatches"]
+        held.append((a2a == want, f"rank {r['rank']}: {a2a} all-to-alls "
+                     f"in a step with the flag, not {want} (3 a layer and "
+                     f"microbatch: {m['layers']} layers, {m['microbatches']}"
+                     " microbatches)"))
+        held.append(("all-to-all" not in off["collectives"]["calls"],
+                     f"rank {r['rank']}: all-to-alls without the flag"))
+        for name, d in (("with the flag", dl), ("without", dl_off),
+                        ("with against without", dl_on_off)):
+            held.append((within(d, SEQPAR_STEPS, TRAIN_LOSS_TOL),
+                         f"rank {r['rank']}: granite-3-8b losses {name} "
+                         f"{d} (>= {TRAIN_LOSS_TOL})"))
+        so = r["serve_flag_off"]
+        log(f"{tag} granite-3-8b without the flag, {so['layers']} layers, "
+            f"the same cell in the same rank: prefill {so['prefill_ms']:.2f}"
+            f" ms, decode p50 {so['step_p50_ms']:.3f} ms, peak "
+            f"{so['peak_bytes']} B; logits against one device's max |diff| "
+            f"{so['logit_diff']:.4f}, argmax agreement "
+            f"{so['argmax_agree']:.3f}; one decode step's collectives "
+            f"{so['collectives']}")
+        for name, x in (("with the flag", s), ("without", so)):
+            held.append((x["logit_diff"] < LM_FWD_TOL_FULL, f"rank "
+                         f"{r['rank']}: 40-layer logits {name} "
+                         f"{x['logit_diff']} from one device's"))
+            held.append((x["argmax_agree"] >= LM_AGREE, f"rank {r['rank']}: "
+                         f"argmax agreement {name} {x['argmax_agree']}"))
+            held.append((x["host_syncs_per_step"] == 0, f"rank "
+                         f"{r['rank']}: host syncs per decode step {name}"))
+        z = r["zamba"]
+        one_z = z["one_device"]
+        steps(tag, "zamba2-1.2b one device", one_z, one_z)
+        finite = [math.isfinite(x) for x in one_z["grad_norms"]]
+        for name in ("mesh", "flag_off"):
+            d = steps(tag, "zamba2-1.2b " + ("with the flag" if name ==
+                                            "mesh" else "without the flag")
+                      + ", against one device", z[name], one_z)
+            held.append((within(d, ZAMBA_STEPS, TRAIN_LOSS_TOL),
+                         f"rank {r['rank']}: zamba2 losses {name} {d} "
+                         f"(>= {TRAIN_LOSS_TOL})"))
+            held.append(([math.isfinite(x) for x in z[name]["grad_norms"]]
+                         == finite, f"rank {r['rank']}: zamba2 gradient "
+                         f"norms {name} {z[name]['grad_norms']} finite "
+                         f"where one device's {one_z['grad_norms']} are "
+                         "not, or not where they are"))
+        zs = z["serve"]
+        log(f"{tag} zamba2-1.2b with the flag, {zs['layers']} layers: "
+            f"prefill + {FAMILY_STEPS} decode steps' logits against one "
+            f"device's max |diff| {zs['logit_diff']:.4f}, argmax agreement "
+            f"{zs['argmax_agree']:.3f}, tokens agree "
+            f"{zs['tokens_agree']:.3f}; peak {zs['peak_bytes']} B")
+        # at full depth, as phase 17 holds granite-3-8b's 40 layers (two
+        # bf16 evaluation orders part as depth grows; the f32 witness
+        # holds the code)
+        held.append((zs["logit_diff"] < LM_FWD_TOL_FULL and
+                     zs["argmax_agree"] >= LM_AGREE, f"rank {r['rank']}: "
+                     f"zamba2 logits {zs['logit_diff']} from one device's, "
+                     f"argmax agreement {zs['argmax_agree']}"))
+        w = r["f32"]
+        g = w["granite_decode"]
+        log(f"{tag} f32 witness with the flag: granite-3-8b {g['layers']} "
+            f"layers, prefill and {g['steps']} decode steps against one "
+            f"device's: max |diff| {g['logit_diff']:.3g} (mean "
+            f"{g['mean_diff']:.3g}), argmax agreement "
+            f"{g['argmax_agree']:.3f}")
+        held.append((g["logit_diff"] < MESH_F32_TOL, f"rank {r['rank']}: "
+                     f"f32 logits {g['logit_diff']} (>= {MESH_F32_TOL})"))
+        for arch, c in w["losses"].items():
+            log(f"{tag} f32 witness with the flag: {arch}, {c['layers']} "
+                f"layers, loss f32 {c['mesh_f32']:.7f} vs one device "
+                f"{c['one_f32']:.7f} (|diff| {c['f32_diff']:.3g}); bf16 "
+                f"|diff| {c['bf16_diff']:.3g}")
+            held.append((c["f32_diff"] < MESH_F32_LOSS_TOL, f"rank "
+                         f"{r['rank']}: {arch} f32 loss {c['f32_diff']}"))
+        c6 = r["c6"]
+        worst = sorted(c6["grad_rel"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"{tag} C6: {c6['arch']} SMOKE on 2x2 without the flag, f32 "
+            f"leaves: loss {c6['loss']:.7f} vs one device "
+            f"{c6['loss_one']:.7f}; gradients' largest gap relative to "
+            f"each leaf's largest entry {c6['grad_rel_max']:.3g} (< "
+            f"{C6_GRAD_TOL}; worst {worst})")
+        held.append((c6["grad_rel_max"] < C6_GRAD_TOL, f"rank {r['rank']}: "
+                     f"C6 gradients {c6['grad_rel_max']} from one device's"))
+    for ok, msg in held:
+        check(ok, "phase 20: " + msg)
+    out = {"world": world, "wall_s": wall, "ranks": []}
+    for r in ranks:
+        for x in (r, r.get("zamba", {})):
+            for k in ("one_device", "mesh", "flag_off"):
+                x.get(k, {}).pop("fingerprint", None)
+        out["ranks"].append({k: r[k] for k in (
+            "rank", "smi", "shape", "one_device", "mesh", "flag_off",
+            "serve", "serve_flag_off", "zamba", "f32", "c6") if k in r})
+    return out
+
+
 def one_device_reference(dev, smi):
     """Alone (``--mesh-only``): phase 14's cell for one step on one card,
     the 2x2 step-0 loss's reference."""
@@ -6425,9 +6845,13 @@ def one_device_reference(dev, smi):
     return out
 
 
+#: the phases ``--mesh-only`` runs (all of them without a number)
+MESH_PHASES = ("16", "17", "18", "19", "20")
+
+
 def main_mesh(dev, phases) -> int:
-    """``--mesh-only``: phases 16, 17, 18 and 19 (or those of ``phases``)
-    alone, for a host with four cards."""
+    """``--mesh-only``: phases 16 to 20 (or those of ``phases``) alone,
+    for a host with four cards."""
     import torch
     smi = smi_line()
     log(smi)
@@ -6461,6 +6885,14 @@ def main_mesh(dev, phases) -> int:
         log(f"  phase 19 summary ({smi}): " + json.dumps(pod_out,
                                                          default=str))
         log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    if "20" in phases:
+        log("phase 20 alone: sequence-parallel projections on a (data x "
+            "model) mesh")
+        t0 = time.perf_counter()
+        seqpar_out = phase_mesh_seqpar(smi, dev)
+        log(f"  phase 20 summary ({smi}): " + json.dumps(seqpar_out,
+                                                         default=str))
+        log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6833,12 +7265,12 @@ def main(argv) -> int:
         src = Path(argv[1]).resolve()
     elif len(argv) == 3 and argv[0] == "--child":
         pass
-    elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= {
-            "16", "17", "18", "19"}:
+    elif argv and argv[0] == "--mesh-only" and set(argv[1:]) <= set(
+            MESH_PHASES):
         pass
     elif argv:
         print("usage: chip_smoke.py [--compare SRC | --moe-memory SRC | "
-              "--mesh-only [16|17|18|19]]", file=sys.stderr)
+              "--mesh-only [16|17|18|19|20]]", file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py needs the repository beside it "
@@ -6850,7 +7282,7 @@ def main(argv) -> int:
         return main_child(argv[1], json.loads(argv[2]))
     if argv and argv[0] == "--mesh-only":
         return main_mesh(torch.device("cuda", torch.cuda.current_device()),
-                         set(argv[1:]) or {"16", "17", "18", "19"})
+                         set(argv[1:]) or set(MESH_PHASES))
     if argv and argv[0] == "--moe-memory":
         return main_moe_memory(torch.device("cuda",
                                             torch.cuda.current_device()), src)
@@ -7114,7 +7546,7 @@ def main(argv) -> int:
     # phase 12 runs last of the main paths (no profiled window follows it)
     # and with every plain function of kernels.ref raising
     log("phase 12: block-sharded execution (ShardedTapeBackend), numeric "
-        "tapes, S = 1, 2, 4; " + smi)
+        "tapes, S = " + ", ".join(map(str, SHARD_COUNTS)) + "; " + smi)
     t0 = time.perf_counter()
     shard_mesh_errors()
     with NoPlain():
@@ -7244,6 +7676,18 @@ def main(argv) -> int:
         + json.dumps(pod_mesh_out, default=str))
     del pod_mesh_out
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 20: sequence-parallel projections on a (data x model) mesh "
+        "(seq_parallel_proj): weights gathered over \"model\", each GQA "
+        "layer's q moved to head blocks by one all-to-all; " + smi)
+    t0 = time.perf_counter()
+    start_path()
+    seqpar_out = phase_mesh_seqpar(smi, dev)
+    end_path("lm_mesh_seqpar")
+    log(f"  phase 20 summary ({smi}): " + json.dumps(seqpar_out,
+                                                     default=str))
+    del seqpar_out
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     # the stacked kernels at TIMED_QS and at every path's median Q; each
     # row's headline is the median Q of the numeric lockstep path's K5

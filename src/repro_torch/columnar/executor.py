@@ -19,8 +19,10 @@
 
 ``DeviceTapeBackend`` (``columnar.device``) runs a compiled tape on the
 card through the hand-written CUDA kernels, or on the CPU through their
-plain versions.  Sharded execution is not yet ported: asking for it
-raises :class:`ConfigError`.
+plain versions.  Sharded execution (``ExecConfig(shards=S)`` or
+``mesh=``) runs the tape on each shard's column blocks through
+``ShardedTapeBackend`` (``columnar.shard``), which :func:`resolve_backend`
+builds.
 """
 from __future__ import annotations
 

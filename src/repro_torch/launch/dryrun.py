@@ -164,7 +164,6 @@ def build_step(cfg: LMConfig, cell: ShapeCell, mesh, device="meta",
                                                      mesh=on)
     pspec = api.pspecs(cfg, mesh)
     if meta and on is not None:
-        api.check_mesh(cfg, on)
         params = _placed(params, pspec, on)
     b, s = cell.global_batch, cell.seq_len
     rules = current_rules()
@@ -434,6 +433,11 @@ def run_cell(arch: str, shape, multi_pod: bool, do_roofline: bool,
 
 
 def _override(v: str):
+    """A ``--set`` value: a Python literal, ``true`` / ``false`` in any
+    case as a bool (``--set seq_parallel_proj=false`` turns it off), or
+    else the string."""
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
     try:
         return ast.literal_eval(v)
     except (ValueError, SyntaxError):

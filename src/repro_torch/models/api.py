@@ -38,7 +38,6 @@ def init(cfg: LMConfig, seed: int = 0, device: str = "cuda", mesh=None):
     """Seeded parameters on ``device``; with a ``mesh`` that carries a
     ``device_mesh``, DTensors placed by :func:`pspecs` (the same values,
     each rank holding its blocks: ``common.init_params``)."""
-    check_mesh(cfg, mesh)
     return init_params(schema(cfg), seed, device, mesh)
 
 
@@ -47,17 +46,6 @@ def init(cfg: LMConfig, seed: int = 0, device: str = "cuda", mesh=None):
 #: ROADMAP B2.11, done)
 MESH_FAMILIES = ("dense", "moe", "mla", "mla_moe", "zamba", "rwkv", "vlm",
                  "encdec")
-
-
-def check_mesh(cfg: LMConfig, mesh) -> None:
-    """Raise NotImplementedError for sequence-parallel projections
-    (``cfg.seq_parallel_proj``; no config sets it) on a mesh of more than
-    one device: every family (:data:`MESH_FAMILIES`) places there."""
-    dm = getattr(mesh, "device_mesh", None)
-    if dm is not None and dm.size() > 1 and cfg.seq_parallel_proj:
-        raise NotImplementedError(
-            f"{cfg.name}: sequence-parallel projections on a mesh (DTensor "
-            "does not fold a sharded sequence into a product's rows)")
 
 
 def abstract(cfg: LMConfig):
@@ -86,7 +74,6 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                device: str = "cuda", mesh=None):
     """Zero decode buffers on ``device``; with a ``mesh`` that carries a
     ``device_mesh``, DTensors placed by :func:`cache_pspecs`."""
-    check_mesh(cfg, mesh)
     return init_params(cache_schema(cfg, batch, max_seq), 0, device, mesh)
 
 

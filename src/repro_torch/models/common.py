@@ -174,16 +174,21 @@ def split_heads(t, n: int, hd: int):
     would cut a head, is gathered over the mesh dims that split it first
     (granite-3-8b's 8 kv heads on a "model" axis of 16): each rank then
     holds every head, and attention (``attention._attend``) takes those
-    its query heads read."""
-    if placed(t):
-        last = t.dim() - 1
-        dims = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
-        if n % math.prod(t.device_mesh.size(i) for i in dims):
-            from torch.distributed.tensor import Replicate
-            t = t.redistribute(t.device_mesh, tuple(
-                Replicate() if i in dims else p
-                for i, p in enumerate(t.placements)))
-    return t.reshape(t.shape[:-1] + (n, hd))
+    its query heads read.  A placed ``t`` splits on each rank's block, as
+    :func:`merge_heads` merges (a block of whole heads, or a block of
+    the sequence with every head: ``seq_parallel_proj``)."""
+    if not placed(t):
+        return t.reshape(t.shape[:-1] + (n, hd))
+    last = t.dim() - 1
+    dims = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+    if n % math.prod(t.device_mesh.size(i) for i in dims):
+        from torch.distributed.tensor import Replicate
+        t = t.redistribute(t.device_mesh, tuple(
+            Replicate() if i in dims else p
+            for i, p in enumerate(t.placements)))
+    local = t.to_local(grad_placements=t.placements)
+    return dtensor(local.reshape(local.shape[:-1] + (-1, hd)), t.device_mesh,
+                   t.placements, t.shape[:-1] + (n, hd))
 
 
 def merge_heads(t):

@@ -13,8 +13,10 @@ same-work dense surrogate, which the roofline's analysis variants and the
 dry-run select), and on a device mesh ``ep_over_data`` (the MoE layer's
 experts over "model" and "data") and ``embed_fsdp``; ``fsdp`` and
 ``ep_over_data`` also set the dry-run's rules.  ``scan_layers`` is kept
-and ignored (the port runs the layers as a loop), and
-``seq_parallel_proj`` is refused on a mesh (``api.check_mesh``).
+and ignored (the port runs the layers as a loop).  ``seq_parallel_proj``
+keeps the GQA, MLP and mamba in-projections sequence-parallel on a mesh,
+as the reference's sites do (``models/attention.py``, ``models/lm.py``,
+``models/mamba2.py``).
 """
 from __future__ import annotations
 

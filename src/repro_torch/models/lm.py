@@ -73,11 +73,17 @@ def attn_ff_block(cfg: LMConfig, p, x, *, kind: str, mode: str,
     sharded sequence into a product's rows, forward or backward, so the
     norms' outputs going into the projections and the sublayers' outputs
     coming out of them hold the whole sequence (``_whole_seq``), as GSPMD
-    gathers them for the reference."""
+    gathers them for the reference.  With ``cfg.seq_parallel_proj`` the
+    reference's sites keep the sequence split instead (``_seq_par``):
+    GQA's q/k/v projections and the dense MLP take ``act_seq`` rows
+    (their weights gathered over "model"), and their outputs go straight
+    back to ``act_seq``; MLA and MoE are fed as without it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = _whole_seq(cfg, rms_norm(x, p["attn_norm"], cfg.norm_eps))
+    gqa = not kind.startswith("mla")
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = _seq_par(cfg, h) if gqa else _whole_seq(h)
     new_cache = None
-    if kind.startswith("mla"):
+    if not gqa:
         if mode == "decode":
             a, new_cache = att.mla_decode(cfg, p["attn"], h, cache, index)
         else:
@@ -96,21 +102,32 @@ def attn_ff_block(cfg: LMConfig, p, x, *, kind: str, mode: str,
                 positions = torch.arange(h.shape[1], device=h.device)[None]
                 _, k, v = att._qkv(cfg, p["attn"], h, positions)
                 new_cache = {"k": k, "v": v}
-    x = shard(x + _whole_seq(cfg, a), "batch", "act_seq", None)
-    h2 = _whole_seq(cfg, rms_norm(x, p["mlp_norm"], cfg.norm_eps))
+    a = _seq_par(cfg, a) if gqa else _whole_seq(a)
+    x = shard(x + a, "batch", "act_seq", None)
+    h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if kind.endswith("moe"):
-        m, aux = moe.moe_apply(cfg, p["moe"], h2)
+        m, aux = moe.moe_apply(cfg, p["moe"], _whole_seq(h2))
+        m = _whole_seq(m)
     else:
-        m = mlp_apply(p["mlp"], h2, seq_par=cfg.seq_parallel_proj)
-    return (shard(x + _whole_seq(cfg, m), "batch", "act_seq", None), aux,
-            new_cache)
+        m = _seq_par(cfg, mlp_apply(p["mlp"], _seq_par(cfg, h2),
+                                    seq_par=cfg.seq_parallel_proj))
+    return shard(x + m, "batch", "act_seq", None), aux, new_cache
 
 
-def _whole_seq(cfg, h):
+def _whole_seq(h):
     """``h`` with its sequence whole (a product reads or writes it as
-    rows), unless ``cfg.seq_parallel_proj`` keeps the projections
-    sequence-parallel."""
-    return h if cfg.seq_parallel_proj else shard(h, "batch", "seq", None)
+    rows)."""
+    return shard(h, "batch", "seq", None)
+
+
+def _seq_par(cfg, h):
+    """``h`` at one of the reference's sequence-parallel projection sites
+    (GQA's q/k/v, the MLP, mamba's in-projection): on ``act_seq`` with
+    ``cfg.seq_parallel_proj`` (a product then keeps its rows and gathers
+    its weight: ``common.matmul``), else whole (:func:`_whole_seq`)."""
+    if cfg.seq_parallel_proj:
+        return shard(h, "batch", "act_seq", None)
+    return _whole_seq(h)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +291,7 @@ def _embed(cfg, params, tokens):
 
 
 def _logits(cfg, params, x):
-    x = _whole_seq(cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    x = _whole_seq(rms_norm(x, params["final_norm"], cfg.norm_eps))
     logits = shard(matmul(x, params["unembed"]), "batch", "seq", "vocab")
     if logits.shape[-1] != cfg.vocab:     # mask vocab padding
         if placed(logits):
@@ -303,7 +320,7 @@ def _blocks(cfg, params, x, kind, mode):
 def _mamba_layer(cfg, lp, h):
     out, (cs, ss) = mamba2.mamba_train(cfg, lp["mamba"],
                                        rms_norm(h, lp["norm"], cfg.norm_eps))
-    return h + _whole_seq(cfg, out), {"conv": cs, "ssm": ss}
+    return h + _whole_seq(out), {"conv": cs, "ssm": ss}
 
 
 def _mamba_layers(cfg, params, h, body=None):
@@ -358,12 +375,12 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
                 aux = aux + a
                 kvs.append(kv)
             # gated cross-attn layer
-            hn = _whole_seq(cfg, rms_norm(h, cp["attn_norm"], cfg.norm_eps))
-            ca = _whole_seq(cfg, att.cross_attn(cfg, cp["attn"], hn, vision))
+            hn = _whole_seq(rms_norm(h, cp["attn_norm"], cfg.norm_eps))
+            ca = _whole_seq(att.cross_attn(cfg, cp["attn"], hn, vision))
             h = h + torch.tanh(cp["gate_attn"]).to(h.dtype) * ca
-            hm = _whole_seq(cfg, rms_norm(h, cp["mlp_norm"], cfg.norm_eps))
+            hm = _whole_seq(rms_norm(h, cp["mlp_norm"], cfg.norm_eps))
             h = h + torch.tanh(cp["gate_mlp"]).to(h.dtype) \
-                * _whole_seq(cfg, mlp_apply(cp["mlp"], hm))
+                * _whole_seq(mlp_apply(cp["mlp"], hm))
             return h, aux, kvs
 
         body = remat(cfg, group)
@@ -380,7 +397,7 @@ def forward(cfg: LMConfig, params, tokens, vision=None, frames=None,
 
         def group(lps, h):
             # shared attention block (concat with the original embedding)
-            hin = matmul(_whole_seq(cfg, torch.cat([h, emb0], dim=-1)),
+            hin = matmul(_whole_seq(torch.cat([h, emb0], dim=-1)),
                          shared["proj"])
             hb, a, kv = attn_ff_block(cfg, shared, hin, kind="dense",
                                       mode=mode, window=cfg.window)
@@ -456,7 +473,7 @@ def _mamba_decode_layers(cfg, params, states, h):
         out, ns = mamba2.mamba_decode(
             cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps), st)
         _put(st, ns)
-        h = h + _whole_seq(cfg, out)
+        h = h + _whole_seq(out)
     return h
 
 
@@ -488,19 +505,19 @@ def decode(cfg: LMConfig, params, token, cache, index: int):
                     cfg, layer(params["self_blocks"], i), x, kind="dense",
                     mode="decode", cache=layer(cache["kv"], i), index=index)
             cp = layer(params["cross_blocks"], g)
-            hn = _whole_seq(cfg, rms_norm(x, cp["attn_norm"], cfg.norm_eps))
-            ca = _whole_seq(cfg, att.cross_decode(
+            hn = _whole_seq(rms_norm(x, cp["attn_norm"], cfg.norm_eps))
+            ca = _whole_seq(att.cross_decode(
                 cfg, cp["attn"], hn, cache["cross_k"][g],
                 cache["cross_v"][g]))
             x = x + torch.tanh(cp["gate_attn"]).to(x.dtype) * ca
-            hm = _whole_seq(cfg, rms_norm(x, cp["mlp_norm"], cfg.norm_eps))
+            hm = _whole_seq(rms_norm(x, cp["mlp_norm"], cfg.norm_eps))
             x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) \
-                * _whole_seq(cfg, mlp_apply(cp["mlp"], hm))
+                * _whole_seq(mlp_apply(cp["mlp"], hm))
 
     elif f == "zamba":
         shared = params["shared"]
         for g in range(n_layers_of(params["mamba_groups"])):
-            hin = matmul(_whole_seq(cfg, torch.cat([x, emb0], dim=-1)),
+            hin = matmul(_whole_seq(torch.cat([x, emb0], dim=-1)),
                          shared["proj"])
             hb, _, _ = attn_ff_block(cfg, shared, hin, kind="dense",
                                      mode="decode",
@@ -548,9 +565,9 @@ def mtp_logits(cfg: LMConfig, params, hidden, tokens_next):
     and projected (``_whole_seq``)."""
     mp = params["mtp"]
     e = _embed(cfg, params, tokens_next)
-    h = torch.cat([_whole_seq(cfg, rms_norm(hidden, mp["norm_h"],
+    h = torch.cat([_whole_seq(rms_norm(hidden, mp["norm_h"],
                                             cfg.norm_eps)),
-                   _whole_seq(cfg, rms_norm(e, mp["norm_e"], cfg.norm_eps))],
+                   _whole_seq(rms_norm(e, mp["norm_e"], cfg.norm_eps))],
                   dim=-1)
     h = matmul(h, mp["proj"])
     h, _, _ = attn_ff_block(cfg, mp, h, kind="mla_dense", mode="train")

@@ -139,13 +139,23 @@ def _on_rows(fn, zxbcdt, p, *states):
 
 
 def mamba_train(cfg: LMConfig, p, u, conv_state=None, ssm_state=None):
-    """u: (B, S, d) -> (out (B, S, d), (conv_state, ssm_state))."""
-    if not cfg.seq_parallel_proj:
+    """u: (B, S, d) -> (out (B, S, d), (conv_state, ssm_state)).
+
+    On a mesh the in-projection reads the whole sequence (``u`` gathered
+    over "model", the weight's columns split), or with
+    ``cfg.seq_parallel_proj`` each rank's sequence block (the weight
+    gathered, as the reference keeps it sequence-parallel).  Either way
+    the recurrence then takes one reshard of the projected streams to
+    each rank's rows with the whole sequence and every channel
+    (``_on_rows``)."""
+    if cfg.seq_parallel_proj:
+        # the in-projection kept sequence-parallel (weights gathered, not
+        # activations)
+        u = shard(u, "batch", "act_seq", None)
+    else:
         u = shard(u, "batch", "seq", None)    # the recurrence's whole sequence
     zxbcdt = matmul(u, p["in_proj"])
     if cfg.seq_parallel_proj:
-        # the in-projection kept sequence-parallel (weights gathered, not
-        # activations); the recurrence needs full-sequence channel shards
         zxbcdt = shard(zxbcdt, "batch", "act_seq", None)
     y, conv_new, ssm_new = _on_rows(
         lambda zx, w, cs, ss: _mix_train(cfg, zx, w, cs, ss), zxbcdt, p,

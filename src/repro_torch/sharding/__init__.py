@@ -169,14 +169,62 @@ def _device_mesh():
 def shard(x, *axes):
     """The reference's sharding constraint by logical axis names: a
     DTensor under a mesh with a ``device_mesh`` is redistributed to the
-    partition ``spec_for`` gives it; anything else comes back unchanged."""
+    partition ``spec_for`` gives it; anything else comes back unchanged.
+    A mesh dim that moves its split from one dim to another (a sequence
+    to heads, as XLA's all-to-all in the reference) moves it by
+    :func:`all_to_all`."""
     dm, mesh, rules = _device_mesh()
     if dm is None or not placed(x):
         return x
-    want = placements(spec_for(x.shape, axes, mesh, rules), mesh)
+    return redistribute(x, placements(spec_for(x.shape, axes, mesh, rules),
+                                      mesh))
+
+
+def redistribute(x, want):
+    """A DTensor ``x`` redistributed to the placements ``want``: a mesh
+    dim whose split moves from one dim of ``x`` to another by
+    :func:`all_to_all` (where no other mesh dim splits either), the rest
+    by DTensor."""
+    want = tuple(want)
+    for i, (have, to) in enumerate(zip(x.placements, want)):
+        if have.is_shard() and to.is_shard() and have.dim != to.dim and \
+                _only_split_by(x.placements, want, i, (have.dim, to.dim)) \
+                and x.shape[to.dim] % x.device_mesh.size(i) == 0:
+            x = all_to_all(x, i, to.dim)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(dm, want)
+    return x.redistribute(x.device_mesh, want)
+
+
+def _only_split_by(have, want, mesh_dim: int, dims) -> bool:
+    """Whether no mesh dim but ``mesh_dim`` splits any of ``dims`` in
+    either placement tuple."""
+    return not any(p.is_shard() and p.dim in dims
+                   for places in (have, want)
+                   for i, p in enumerate(places) if i != mesh_dim)
+
+
+def all_to_all(x, mesh_dim: int, dim: int):
+    """A DTensor ``x`` split on mesh dim ``mesh_dim`` along one of its
+    dims, split along ``dim`` instead: each rank cuts its block into that
+    mesh dim's size parts along ``dim`` and sends part *j* to the *j*-th
+    rank of the mesh dim, which joins what it receives along the old dim.
+    One ``all_to_all_single`` over the mesh dim's group, forward and
+    backward: NCCL's all-to-all, as DTensor's own ``shard_dim_alltoall``,
+    which on a CPU group (gloo, or the dry-run's fake group) all-gathers
+    and chunks instead; :class:`~repro_torch.launch.roofline.
+    CollectiveCounter` counts it as one all-to-all."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    dm = x.device_mesh
+    src = x.placements[mesh_dim].dim
+    places = tuple(Shard(dim) if i == mesh_dim else p
+                   for i, p in enumerate(x.placements))
+    parts = torch.stack(x.to_local(grad_placements=x.placements).chunk(
+        dm.size(mesh_dim), dim))
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        parts.flatten(0, 1), None, None, (dm, mesh_dim))).reshape(parts.shape)
+    return dtensor(torch.cat(got.unbind(0), dim=src), dm, places, x.shape)
 
 
 def replicate_plain():
@@ -312,7 +360,7 @@ def lookup(table, tokens):
                    Shard(tok.dim()) if p.is_shard(1) else Replicate()
                    for p in table.placements)
     y = dtensor(x, dm, places, tuple(tok.shape) + tuple(table.shape[1:]))
-    return y.redistribute(dm, rows_of(tokens) if placed(tokens) else whole)
+    return redistribute(y, rows_of(tokens) if placed(tokens) else whole)
 
 
 def dtensor(local, device_mesh, places, shape):
